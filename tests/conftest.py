@@ -28,3 +28,4 @@ def pytest_configure(config):
     warnings.filterwarnings("ignore", message=".*'.value' access.*")
     warnings.filterwarnings("ignore", message=".*size_average.*")
     warnings.filterwarnings("ignore", message=".*reduce.*deprecated.*")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA card; skips without one")

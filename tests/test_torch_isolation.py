@@ -1,0 +1,107 @@
+"""The port (learning3d_tpu_torch), chip_smoke.py and the port's profiling
+script stand alone: they import nothing of JAX, flax or the JAX package,
+build no PyTorch extension, read nothing under releases/, and run on the
+card unless told otherwise."""
+
+import ast
+import inspect
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "learning3d_tpu_torch"
+FORBIDDEN = ("jax", "flax", "learning3d_tpu")
+
+
+def port_files(*suffixes):
+    files = [p for p in sorted(PORT.rglob("*")) if p.suffix in suffixes and ".build" not in p.parts]
+    if ".py" in suffixes:
+        files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_serve.py"]
+    return files
+
+
+def test_imports_without_jax():
+    """Every port module and chip_smoke import with jax, flax and the JAX
+    package made unimportable."""
+    code = "\n".join([
+        "import importlib, pkgutil, sys",
+        *(f"sys.modules[{name!r}] = None" for name in FORBIDDEN),
+        f"sys.path.insert(0, {str(ROOT)!r})",
+        "import learning3d_tpu_torch, chip_smoke",
+        "for m in pkgutil.walk_packages(learning3d_tpu_torch.__path__, 'learning3d_tpu_torch.'):",
+        "    importlib.import_module(m.name)",
+        "print('ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", port_files(".py"), ids=lambda p: p.name)
+def test_source_names_no_jax(path):
+    """No import, and no string that could feed a dynamic import, names
+    jax, flax or the JAX package."""
+    tree = ast.parse(path.read_text())
+    named = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            named += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            named.append(node.module)
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            if node.value.split(".")[0] in FORBIDDEN:
+                named.append(node.value)
+    assert not [n for n in named if n.split(".")[0] in FORBIDDEN], named
+
+
+def test_no_torch_extension_build_and_no_releases():
+    for path in port_files(".py", ".cu", ".cuh", ".h"):
+        text = path.read_text()
+        for banned in ("cpp_extension", "torch/extension.h", "cutlass", "releases/"):
+            assert banned not in text, (path, banned)
+
+
+def test_entry_points_default_to_cuda():
+    from learning3d_tpu_torch import DEFAULT_DEVICE, resolve_device
+    from learning3d_tpu_torch.models import Classifier, PointNet
+    from learning3d_tpu_torch.serve import InferenceEngine
+    from learning3d_tpu_torch.utils.layers import MLP1d, BatchNorm, Linear
+
+    assert DEFAULT_DEVICE == "cuda"
+    for entry in (PointNet, Classifier, InferenceEngine, MLP1d, BatchNorm, Linear, resolve_device):
+        assert inspect.signature(entry).parameters["device"].default == "cuda", entry
+
+
+def test_no_silent_cpu_fallback():
+    """Asking for the card where there is none raises."""
+    import torch
+
+    from learning3d_tpu_torch import resolve_device
+    from learning3d_tpu_torch.models import PointNet
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PointNet(emb_dims=64)
+
+
+def test_chip_smoke_fails_without_card(tmp_path):
+    """Without a card, and in a directory with nothing else of the repo,
+    chip_smoke.py exits non-zero and prints no result."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", alone):
+        proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                              cwd=script.parent, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
