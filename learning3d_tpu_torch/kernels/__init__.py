@@ -6,7 +6,11 @@ launches of the CUDA kernel (never the plain version), so that a run can
 show that its main path went through the kernels.
 """
 
-LAUNCHES: dict[str, int] = {"pointnet_pooled_kernel": 0}
+LAUNCHES: dict[str, int] = {
+    "pointnet_pooled_kernel": 0,
+    "dgcnn_encode_fused": 0,
+    "attention_pallas": 0,
+}
 
 
 def reset_launches() -> None:

@@ -32,6 +32,8 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "pointnet_pooled_bf16": ([_P] * 12 + [_I, _I, _I, _P], ctypes.c_int),
+    "dgcnn_encode_bf16": ([_P] * 13 + [_I, _I, _I, _I, _P], ctypes.c_int),
+    "attention_bf16": ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], ctypes.c_int),
     "l3d_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,0 +1,111 @@
+"""Fused softmax attention for the DCP pointer and the SVD head, one CUDA
+kernel (``csrc/attention.cu``), counterpart of
+``learning3d_tpu/kernels/attention.py::attention_pallas``.
+
+    softmax(q k^T / sqrt(D)) v    q, k (B, H, N|M, D), v (B, H, M, Dv)
+
+The kernel's rounding, which its plain version ``attention_reference``
+repeats: bf16 operands, f32 scores scaled by the float ``1/sqrt(D)``, the
+row max m and p = exp(s - m) in f32, l = sum(p) in f32, P rounded to bf16
+*unnormalized*, O = (P_bf16 @ V) / l, in q's dtype. ``attention_oracle``
+is the JAX package's oracle, which normalizes before the bf16 cast (another
+rounding); it is the backward of ``attention_fused``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from learning3d_tpu_torch.kernels import LAUNCHES
+from learning3d_tpu_torch.kernels import _build
+
+MAX_D, MAX_DV = 512, 128  # what the kernel's shared-memory tiles take
+
+
+def attention_reference(q, k, v):
+    """The kernel's plain version (see the module docstring)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.matmul(q.to(bf16).to(f32), k.to(bf16).to(f32).transpose(-1, -2)) * scale
+    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.matmul(p.to(bf16).to(f32), v.to(bf16).to(f32))
+    return (o / l).to(q.dtype)
+
+
+def attention_oracle(q, k, v):
+    """The JAX package's oracle: bf16 operands, f32 scores and softmax,
+    P normalized before its bf16 cast."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    s = torch.matmul(q.to(bf16).to(f32), k.to(bf16).to(f32).transpose(-1, -2)) / (q.shape[-1] ** 0.5)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(bf16).to(f32), v.to(bf16).to(f32)).to(q.dtype)
+
+
+def _check_kernel_args(q, k, v):
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k, v must be (B, H, N|M, D|Dv)")
+    B, H, N, D = q.shape
+    M, Dv = v.shape[2], v.shape[3]
+    if k.shape != (B, H, M, D) or v.shape[:2] != (B, H):
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if D % 16 or not 16 <= D <= MAX_D or not 1 <= Dv <= MAX_DV or N < 1 or M < 1:
+        raise ValueError(f"the kernel takes D % 16 == 0, D <= {MAX_D}, Dv <= {MAX_DV}; "
+                         f"got D={D}, Dv={Dv}, N={N}, M={M}")
+    for t in (k, v):
+        if t.device != q.device:
+            raise ValueError("q, k, v must be on one device")
+
+
+def attention_pallas(q, k, v):
+    """softmax(q k^T / sqrt(D)) v. A CUDA tensor runs the CUDA kernel; a
+    CPU tensor runs the plain version ``attention_reference``."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check_kernel_args(q, k, v)
+    B, H, N, D = q.shape
+    M, Dv = v.shape[2], v.shape[3]
+    bf16 = torch.bfloat16
+    qb, kb, vb = (t.to(bf16).contiguous() for t in (q, k, v))
+    out = torch.empty((B, H, N, Dv), device=q.device, dtype=bf16)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.attention_bf16(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
+                                 B * H, N, M, D, Dv, ctypes.c_float(1.0 / D**0.5), stream)
+    _build.check(err, "attention_bf16")
+    LAUNCHES["attention_pallas"] += 1
+    return out.to(q.dtype)
+
+
+class _AttentionFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return attention_pallas(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            out = attention_oracle(*inputs)
+            grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad], g))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def attention_fused(q, k, v):
+    """Differentiable entry: the kernel forward; the backward recomputes
+    through ``attention_oracle`` (the kernel has no backward)."""
+    return _AttentionFused.apply(q, k, v)
+
+
+def attention_pallas_ok(q, k, v):
+    """Dispatch guard, the JAX package's without its platform test: the
+    pointer and head shapes (D a multiple of 128 up to 512, 256 <= M <=
+    4096, N >= 256), and value widths the kernel takes."""
+    D, M, N = q.shape[-1], k.shape[2], q.shape[2]
+    return D % 128 == 0 and D <= MAX_D and 256 <= M <= 4096 and N >= 256 and v.shape[-1] <= MAX_DV

@@ -1,0 +1,55 @@
+"""DGCNN encoder, counterpart of ``learning3d_tpu/models/dgcnn.py``.
+
+Edge features come from kNN (k=20) with (neighbor, center) concatenation;
+four 1x1-conv stages, each max-pooled over the neighbors, are concatenated
+(64+64+128+256=512) into the final embedding conv. Convs are bias-free with
+BatchNorm. In eval mode with bf16 convs the whole encoder is one CUDA
+kernel, K5 (``kernels.dgcnn_fused``); on a CPU tensor that kernel's plain
+version runs instead.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from learning3d_tpu_torch import DEFAULT_DEVICE
+from learning3d_tpu_torch.kernels.dgcnn_fused import dgcnn_encode_fused, dgcnn_fused_ok
+from learning3d_tpu_torch.ops.geometry import get_graph_feature
+from learning3d_tpu_torch.utils.layers import BatchNorm, Linear, to_bnc, validate_input_shape
+
+
+class DGCNN(nn.Module):
+    def __init__(self, emb_dims: int = 1024, input_shape: str = "bnc", k: int = 20, *, dtype=None,
+                 generator: torch.Generator | None = None, device=DEFAULT_DEVICE):
+        super().__init__()
+        self.input_shape = validate_input_shape(input_shape)
+        self.emb_dims = emb_dims
+        self.k = k
+        dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, emb_dims)]
+        self.convs = nn.ModuleList(
+            Linear(i, o, use_bias=False, dtype=dtype, generator=generator, device=device) for i, o in dims
+        )
+        self.bns = nn.ModuleList(BatchNorm(o, dtype=dtype, device=device) for _, o in dims)
+
+    def forward(self, input_data):
+        """-> (B, N, emb_dims) per-point features."""
+        x = to_bnc(input_data, self.input_shape)
+        if x.shape[-1] != 3:
+            raise RuntimeError("expected 3-channel point clouds")
+        if dgcnn_fused_ok(x, self.convs, self.bns, self.k):
+            return dgcnn_encode_fused(x, list(self.convs), list(self.bns), self.k)
+        if x.device.type != "cpu":
+            # on the card the unfused path's edge features come from K7
+            # (learning3d_tpu/kernels/edgeconv.py::knn_neighbors_pallas)
+            raise NotImplementedError(
+                "the unfused DGCNN path on a GPU needs K7 (get_graph_feature_fused), "
+                "which is not ported yet; use bf16 eval for the fused kernel K5"
+            )
+        e = get_graph_feature(x, k=self.k)  # (B, N, k, 6)
+        stage_outputs = []
+        for conv, bn in zip(self.convs[:4], self.bns[:4]):
+            e = torch.relu(bn(conv(e)))  # (B, N, k, C)
+            stage_outputs.append(torch.amax(e, dim=2))  # (B, N, C)
+        cat = torch.cat(stage_outputs, dim=-1)  # (B, N, 512)
+        return torch.relu(self.bns[4](self.convs[4](cat)))

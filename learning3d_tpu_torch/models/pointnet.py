@@ -15,7 +15,7 @@ from torch import nn
 from learning3d_tpu_torch import DEFAULT_DEVICE
 from learning3d_tpu_torch.kernels.pointnet_fused import pointnet_fused_ok, pointnet_pooled_fused
 from learning3d_tpu_torch.models.pooling import Pooling
-from learning3d_tpu_torch.utils.layers import BatchNorm, Linear, fused_bn_relu_maxpool
+from learning3d_tpu_torch.utils.layers import BatchNorm, Linear, fused_bn_relu_maxpool, validate_input_shape
 
 
 class PointNet(nn.Module):
@@ -32,9 +32,7 @@ class PointNet(nn.Module):
         device=DEFAULT_DEVICE,
     ):
         super().__init__()
-        if input_shape not in ("bnc", "bcn"):
-            raise ValueError("Allowed shapes are 'bcn' and 'bnc'.")
-        self.input_shape = input_shape
+        self.input_shape = validate_input_shape(input_shape)
         self.emb_dims = emb_dims
         self.use_bn = use_bn
         self.global_feat = global_feat

@@ -1,0 +1,3 @@
+"""Numerical primitives of the port, counterparts of ``learning3d_tpu/ops``.
+Ported so far: what DGCNN and DCP need (``geometry``, ``se3``,
+``transforms``)."""

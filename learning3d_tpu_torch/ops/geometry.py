@@ -1,0 +1,50 @@
+"""Point-cloud geometry primitives, counterpart of
+``learning3d_tpu/ops/geometry.py``. Ported so far: what DGCNN needs
+(squared distances, exact kNN, neighbor gather, edge features).
+
+All functions are channel-last (B, N, C). Neighbor selection follows
+``jax.lax.top_k``: nearest first, exact ties to the smaller index.
+``torch.topk`` promises no order among ties, so the port sorts stably.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def square_distance(src, dst):
+    """Pairwise squared L2: (..., N, C) x (..., M, C) -> (..., N, M), by the
+    matmul expansion |a|^2 + |b|^2 - 2ab, in full float32 (neighbor
+    selection is sensitive to the rounding of TF32 and bf16). The inner
+    products are taken as elementwise products and sums, so no TF32 setting
+    can reach them."""
+    src, dst = src.float(), dst.float()
+    dot = (src[..., :, None, :] * dst[..., None, :, :]).sum(-1)
+    d = -2.0 * dot
+    d = d + torch.sum(src * src, dim=-1)[..., :, None]
+    return d + torch.sum(dst * dst, dim=-1)[..., None, :]
+
+
+def knn(points, k, include_self=True):
+    """Self kNN indices (B, N, k), nearest first, exact ties to the smaller
+    index (a stable sort). ``include_self=False`` drops the query point
+    itself (a k+1 search, first column removed)."""
+    kk = k if include_self else k + 1
+    idx = torch.sort(square_distance(points, points), dim=-1, stable=True)[1][..., :kk]
+    return idx if include_self else idx[..., 1:]
+
+
+def index_points(points, idx):
+    """Batched gather. points (B, N, C); idx (B, S) or (B, S, K) int ->
+    (B, S, C) or (B, S, K, C)."""
+    B, C = points.shape[0], points.shape[-1]
+    flat = idx.reshape(B, -1, 1).expand(-1, -1, C)
+    return torch.gather(points, 1, flat).reshape(idx.shape + (C,))
+
+
+def get_graph_feature(x, k=20):
+    """DGCNN edge features, channel-last: x (B, N, C) -> (B, N, k, 2C) =
+    concat(neighbor features, center features)."""
+    neighbors = index_points(x, knn(x, k))  # (B, N, k, C)
+    center = x[:, :, None, :].expand(neighbors.shape)
+    return torch.cat([neighbors, center], dim=-1)

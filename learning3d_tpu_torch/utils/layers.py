@@ -28,23 +28,38 @@ def _compute_dtype(dtype, *tensors):
     return out
 
 
+def validate_input_shape(input_shape: str) -> str:
+    """Every model accepts input_shape='bnc'|'bcn' and rejects anything else."""
+    if input_shape not in ("bnc", "bcn"):
+        raise ValueError("Allowed shapes are 'bcn' and 'bnc'.")
+    return input_shape
+
+
+def to_bnc(x, input_shape: str):
+    """A point cloud or feature tensor in the channel-last (B, N, C) layout."""
+    return x.transpose(1, 2) if input_shape == "bcn" else x
+
+
 class Linear(nn.Linear):
     """``nnx.Linear``: float32 parameters, arithmetic in ``dtype``. The
     weight has torch's (out, in) layout; ``utils.jax_import`` transposes
-    nnx's (in, out) kernel into it."""
+    nnx's (in, out) kernel into it. ``use_bias=False`` leaves ``bias``
+    None, as nnx has no bias entry then."""
 
-    def __init__(self, in_features, out_features, *, dtype=None, generator=None,
+    def __init__(self, in_features, out_features, *, use_bias=True, dtype=None, generator=None,
                  device=DEFAULT_DEVICE):
-        super().__init__(in_features, out_features, device="cpu")
+        super().__init__(in_features, out_features, bias=use_bias, device="cpu")
         self.dtype = dtype
         with torch.no_grad():
             self.weight.normal_(0.0, in_features**-0.5, generator=generator)
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
         self.to(resolve_device(device))
 
     def forward(self, x):
         dt = _compute_dtype(self.dtype, x, self.weight)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class BatchNorm(nn.Module):

@@ -56,3 +56,76 @@ def test_k1_refuses_bad_arguments(cuda):
         pointnet_pooled_kernel(torch.zeros(2, 8, 3, device=cuda), ws, bs, dot_dtype=torch.float32)
     with pytest.raises(ValueError):
         pointnet_pooled_kernel(torch.zeros(2, 8, 3, device=cuda, dtype=torch.float16), ws, bs)
+
+
+def dgcnn_weights(rng, emb, device):
+    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, emb)]
+    ws = [torch.from_numpy(rng.normal(0, i**-0.5, (i, o)).astype(np.float32)).to(device) for i, o in dims]
+    bs = [torch.from_numpy(rng.normal(0, 0.1, o).astype(np.float32)).to(device) for _, o in dims]
+    return ws, bs
+
+
+def lattice_cloud(rng, batch, n_pts):
+    """Points of an integer lattice scaled by 0.25 (exact in f32), in a
+    random order: exact distance ties decide the k-th neighbor."""
+    side = int(np.ceil(n_pts ** (1 / 3)))
+    grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    return np.stack([0.25 * grid[rng.permutation(len(grid))[:n_pts]] for _ in range(batch)]).astype(np.float32)
+
+
+# full width at a small batch, a ragged N, a lattice with exact ties, and a
+# narrow emb
+@pytest.mark.parametrize("case,batch,n_pts,k,emb", [
+    ("full", 2, 1024, 20, 512), ("ragged", 3, 1000, 20, 512), ("ties", 2, 1000, 20, 512),
+    ("narrow", 2, 100, 7, 64),
+])
+def test_k5_matches_plain(cuda, case, batch, n_pts, k, emb):
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.dgcnn_fused import dgcnn_encode_kernel, dgcnn_encode_reference
+
+    rng = np.random.default_rng(n_pts + emb)
+    ws, bs = dgcnn_weights(rng, emb, cuda)
+    x = lattice_cloud(rng, batch, n_pts) if case == "ties" else rng.normal(size=(batch, n_pts, 3))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    before = LAUNCHES["dgcnn_encode_fused"]
+    got = dgcnn_encode_kernel(x, ws, bs, k).float()
+    want = dgcnn_encode_reference(x, ws, bs, k).float()
+    torch.cuda.synchronize()
+    assert LAUNCHES["dgcnn_encode_fused"] == before + 1
+    assert got.shape == want.shape == (batch, n_pts, emb)
+    # same neighbors and bf16 operands on both sides; only f32 sum orders differ
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+# the pointer's shape, the SVD head's (D=512, Dv=3), ragged N and M, and
+# small odd shapes
+@pytest.mark.parametrize("batch,heads,n,m,d,dv", [
+    (2, 4, 1024, 1024, 128, 128), (2, 1, 1024, 1024, 512, 3), (2, 4, 1000, 1000, 128, 128),
+    (1, 2, 37, 70, 64, 40),
+])
+def test_k6_matches_plain(cuda, batch, heads, n, m, d, dv):
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.attention import attention_pallas, attention_reference
+
+    rng = np.random.default_rng(n + d)
+    q, k = (torch.from_numpy(rng.normal(size=(batch, heads, s, d)).astype(np.float32)).to(cuda, torch.bfloat16)
+            for s in (n, m))
+    v = torch.from_numpy(rng.normal(size=(batch, heads, m, dv)).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = LAUNCHES["attention_pallas"]
+    got = attention_pallas(q, k, v).float()
+    want = attention_reference(q, k, v).float()
+    torch.cuda.synchronize()
+    assert LAUNCHES["attention_pallas"] == before + 1
+    assert got.shape == want.shape == (batch, heads, n, dv)
+    # the same rounding of P on both sides; f32 sums in another order
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+def test_unfused_dgcnn_raises_on_card(cuda):
+    """The unfused DGCNN path runs through K7 on the card, which is not
+    ported: it raises instead of running plain torch."""
+    from learning3d_tpu_torch.models import DGCNN
+
+    net = DGCNN(emb_dims=64, k=5, device=cuda).eval()  # f32: the fused gate is off
+    with pytest.raises(NotImplementedError, match="K7"):
+        net(torch.zeros(1, 32, 3, device=cuda))

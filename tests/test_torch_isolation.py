@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "flax", "learning3d_tpu")
 def port_files(*suffixes):
     files = [p for p in sorted(PORT.rglob("*")) if p.suffix in suffixes and ".build" not in p.parts]
     if ".py" in suffixes:
-        files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_serve.py"]
+        files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_serve.py",
+                  ROOT / "tools" / "sweep_torch_kernels.py"]
     return files
 
 
@@ -67,12 +68,16 @@ def test_no_torch_extension_build_and_no_releases():
 
 def test_entry_points_default_to_cuda():
     from learning3d_tpu_torch import DEFAULT_DEVICE, resolve_device
-    from learning3d_tpu_torch.models import Classifier, PointNet
+    from learning3d_tpu_torch.models import DCP, DGCNN, Classifier, PointNet
     from learning3d_tpu_torch.serve import InferenceEngine
     from learning3d_tpu_torch.utils.layers import MLP1d, BatchNorm, Linear
+    from learning3d_tpu_torch.utils.transformer import (
+        AnnotatedLayerNorm, FeedForward, MultiHeadedAttention, Transformer,
+    )
 
     assert DEFAULT_DEVICE == "cuda"
-    for entry in (PointNet, Classifier, InferenceEngine, MLP1d, BatchNorm, Linear, resolve_device):
+    for entry in (PointNet, Classifier, DGCNN, DCP, Transformer, MultiHeadedAttention, FeedForward,
+                  AnnotatedLayerNorm, InferenceEngine, MLP1d, BatchNorm, Linear, resolve_device):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 
@@ -81,7 +86,7 @@ def test_no_silent_cpu_fallback():
     import torch
 
     from learning3d_tpu_torch import resolve_device
-    from learning3d_tpu_torch.models import PointNet
+    from learning3d_tpu_torch.models import DGCNN, PointNet
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -89,6 +94,8 @@ def test_no_silent_cpu_fallback():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         PointNet(emb_dims=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DGCNN(emb_dims=64)
 
 
 def test_chip_smoke_fails_without_card(tmp_path):

@@ -24,6 +24,7 @@ from learning3d_tpu_torch.models import Classifier, PointNet
 from learning3d_tpu_torch.serve import InferenceEngine
 from learning3d_tpu_torch.utils import layers as tlayers
 from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+from torch_port_util import as_torch, cloud, nnx_flat, randomize_bn, rel_err
 
 EMB, CLASSES = 128, 40
 DTYPES = {"f32": (None, None), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -32,29 +33,6 @@ DTYPES = {"f32": (None, None), "bf16": (jnp.bfloat16, torch.bfloat16)}
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
-
-
-def nnx_flat(module):
-    """The JAX side of the weight transfer: dotted nnx paths -> numpy."""
-    return {
-        ".".join(map(str, path)): np.asarray(v.get_value())
-        for path, v in nnx.to_flat_state(nnx.state(module))
-        if "rngs" not in path
-    }
-
-
-def randomize_bn(module, rng):
-    """Non-trivial running stats and affine, with some negative scales so
-    the min branch of the fused BN-ReLU-max pool is taken too."""
-    for path, v in nnx.to_flat_state(nnx.state(module)):
-        shape = v.get_value().shape
-        if path[-1] == "mean":
-            v.set_value(jnp.asarray(rng.normal(0.0, 0.3, shape), jnp.float32))
-        elif path[-1] == "var":
-            v.set_value(jnp.asarray(rng.uniform(0.5, 2.0, shape), jnp.float32))
-        elif path[-1] == "scale":
-            sign = rng.choice([-1.0, 1.0], shape, p=[0.2, 0.8])
-            v.set_value(jnp.asarray(sign * rng.uniform(0.5, 1.5, shape), jnp.float32))
 
 
 def jax_classifier(jdtype, seed=0):
@@ -82,19 +60,6 @@ def folded_numpy(seed=0):
     net.eval()
     folded = [jfused.fold_conv_bn(c, bn) for c, bn in zip(net.convs, net.bns)]
     return [np.asarray(w) for w, _ in folded], [np.asarray(b) for _, b in folded]
-
-
-def cloud(b, n, seed=1):
-    return np.random.default_rng(seed).normal(size=(b, n, 3)).astype(np.float32)
-
-
-def rel_err(got, want):
-    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
-    return float(np.abs(got - want).max() / np.abs(want).max())
-
-
-def as_torch(arrays):
-    return [torch.from_numpy(np.array(a)) for a in arrays]
 
 
 # f32: same operands, only the summation order differs. bf16: both round

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the port's bf16 classifier serving goes, on one card.
+"""Where the time of the port's bf16 serving goes, on one card.
 
-    python3 tools/profile_torch_serve.py [--requests 20]
+    python3 tools/profile_torch_serve.py [--model pointnet|dcp] [--requests 20]
 
-Builds Classifier(PointNet(emb_dims=1024, use_bn=True)) in bf16 eval with
-the numpy-seeded weights of chip_smoke.py, serves requests of B=256 clouds
-of N=1024 points through learning3d_tpu_torch's InferenceEngine under
-torch.profiler, and prints one JSON line: host wall time per request,
-device time per request by kernel (largest first), and the device's idle
-share (1 - device busy time / wall time). Needs a CUDA card.
+``pointnet``: Classifier(PointNet(emb_dims=1024, use_bn=True)), requests of
+B=256 clouds of N=1024 points. ``dcp``: DCP(DGCNN(emb_dims=512, k=20)) with
+the transformer pointer and the SVD head, requests of B=32 (template,
+source) pairs of N=1024 points. Both in bf16 eval with the numpy-seeded
+weights of chip_smoke.py, served through learning3d_tpu_torch's
+InferenceEngine under torch.profiler. Prints one JSON line: host wall time
+per request, device time per request by kernel (largest first), the
+device's idle share (1 - device busy time / wall time), and the wall time
+of the model alone on a device batch, outside the engine. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -25,34 +29,49 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def build(name: str, rng):
+    """(model, batch, the request's numpy inputs) for one configuration."""
+    import chip_smoke
+    from learning3d_tpu_torch.models import DCP, DGCNN, Classifier, PointNet
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    bf16 = torch.bfloat16
+    if name == "pointnet":
+        B, N = chip_smoke.B, chip_smoke.N
+        model = Classifier(PointNet(emb_dims=chip_smoke.EMB, use_bn=True, dtype=bf16), chip_smoke.CLASSES,
+                           dtype=bf16)
+        load_nnx_state(model, chip_smoke.random_nnx_state(rng, chip_smoke.EMB, chip_smoke.CLASSES))
+        return model, B, [rng.normal(size=(B, N, 3)).astype(np.float32)]
+    B, N = chip_smoke.DCP_B, chip_smoke.DCP_N
+    model = DCP(DGCNN(emb_dims=chip_smoke.DCP_EMB, k=chip_smoke.DCP_K, dtype=bf16), dtype=bf16)
+    load_nnx_state(model, chip_smoke.random_dcp_state(rng, chip_smoke.DCP_EMB))
+    return model, B, [rng.normal(size=(B, N, 3)).astype(np.float32) for _ in range(2)]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", choices=("pointnet", "dcp"), default="pointnet")
     parser.add_argument("--requests", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     import chip_smoke
-    from learning3d_tpu_torch.models import Classifier, PointNet
     from learning3d_tpu_torch.serve import InferenceEngine
-    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
 
-    B, N, EMB, CLASSES = chip_smoke.B, chip_smoke.N, chip_smoke.EMB, chip_smoke.CLASSES
+    torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(chip_smoke.SEED)
-    bf16 = torch.bfloat16
-    model = Classifier(PointNet(emb_dims=EMB, use_bn=True, dtype=bf16), CLASSES, dtype=bf16)
-    load_nnx_state(model, chip_smoke.random_nnx_state(rng, EMB, CLASSES))
+    model, B, inputs = build(args.model, rng)
     engine = InferenceEngine(model, batch_size=B)
-    x = rng.normal(size=(B, N, 3)).astype(np.float32)
     for _ in range(3):
-        engine(x)
+        engine(*inputs)
     torch.cuda.synchronize()
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(args.requests):
-            engine(x)
+            engine(*inputs)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
 
@@ -66,14 +85,19 @@ def main() -> None:
             launches += evt.count
     busy_ms = sum(per_kernel.values()) / 1e3 / args.requests
     wall_ms = 1e3 * wall_s / args.requests
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
+
+    dev = [torch.from_numpy(a).cuda() for a in inputs]
+    with torch.inference_mode():
+        model_ms = chip_smoke.cuda_ms(lambda: model(*dev), reps=10)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "requests": args.requests, "batch": B, "points": N,
+        "model": args.model, "requests": args.requests, "batch": B, "points": inputs[0].shape[1],
         "wall_ms_per_request": wall_ms,
         "device_busy_ms_per_request": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_launches_per_request": launches / args.requests,
+        "model_ms_device_batch": model_ms,
         "device_ms_per_request": {k: v / 1e3 / args.requests for k, v in top},
     }), flush=True)
 

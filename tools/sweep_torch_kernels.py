@@ -1,0 +1,61 @@
+#!/usr/bin/env python3
+"""How the times of the port's K5 and K6 CUDA kernels scale, on one card.
+
+    python3 tools/sweep_torch_kernels.py
+
+K5 (dgcnn_encode_kernel) at B=32, emb=512 over (N, k): selection costs
+about k * N per query (k * N^2 a cloud), the neighbor chain k * N and conv5
+N, so the sweep separates them. The wrapper's torch preparation (the
+per-point stage-1 product and the bf16 weight copies) is timed alone.
+K6 (attention_pallas) at B=32, N=M=1024: the pointer's H=4, D=128 over
+Dv (Dv=8 leaves the two Q K^T passes and the exponentials, Dv=128 adds the
+P V product) and the head's H=1, D=512, Dv=3. Prints one JSON line of
+times per call (ms, chip_smoke.cuda_ms).
+Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep_torch_kernels: needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from learning3d_tpu_torch.kernels.attention import attention_pallas
+    from learning3d_tpu_torch.kernels.dgcnn_fused import _xw1, dgcnn_encode_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(chip_smoke.SEED)
+    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, 512)]
+    ws = [torch.from_numpy(rng.normal(0, i**-0.5, (i, o)).astype(np.float32)).cuda() for i, o in dims]
+    bs = [torch.from_numpy(rng.normal(0, 0.1, o).astype(np.float32)).cuda() for _, o in dims]
+    k5 = {}
+    with torch.inference_mode():
+        for n_pts, k in ((1024, 20), (1024, 10), (1024, 1), (512, 20), (2048, 20)):
+            x = torch.from_numpy(rng.normal(size=(32, n_pts, 3)).astype(np.float32)).cuda()
+            k5[f"N={n_pts},k={k}"] = chip_smoke.cuda_ms(lambda: dgcnn_encode_kernel(x, ws, bs, k))
+        x = torch.from_numpy(rng.normal(size=(32, 1024, 3)).astype(np.float32)).cuda()
+        k5["prep_only,N=1024"] = chip_smoke.cuda_ms(
+            lambda: (_xw1(x, ws[0][:3], torch.bfloat16), [w.t().to(torch.bfloat16).contiguous() for w in ws[1:]]))
+        k6 = {}
+        for h, d, dv in ((4, 128, 8), (4, 128, 128), (1, 512, 3)):
+            q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(torch.bfloat16)
+                       for s in ((32, h, 1024, d), (32, h, 1024, d), (32, h, 1024, dv)))
+            k6[f"H={h},D={d},Dv={dv}"] = chip_smoke.cuda_ms(lambda: attention_pallas(q, k, v))
+    smi = chip_smoke.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                    capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"device": smi, "k5_ms_B32_emb512": k5, "k6_ms_B32_N1024": k6}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
