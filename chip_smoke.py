@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at full width, bf16 eval serving of the
-PointNet-1024 classifier and of DCP registration (DGCNN-512, the
-co-attention pointer and the SVD head), and holds every CUDA kernel of
-those paths against its plain PyTorch version. Phases, one JSON line each
+Drives the port's main paths at full width, bf16 and int8 (post-training
+quantized) eval serving of the PointNet-1024 classifier and of DCP
+registration (DGCNN-512, the co-attention pointer and the SVD head), and
+holds every CUDA kernel of those paths against its plain PyTorch version. Phases, one JSON line each
 with the seconds since start:
 
 1. device: the card, and its name and power limit from nvidia-smi;
-2. build: every kernel compiled from the checkout's sources by one nvcc
-   call into a fresh build directory (seconds, ptxas register report);
+2. build: every kernel compiled from the checkout's sources, one nvcc
+   process a source, all at once, and one link, into a fresh build
+   directory (seconds, ptxas register report);
 3. kernel: K1 against its plain version at B=256, N=1024, emb=1024 and on a
    ragged B=3, N=1000 cloud; times of the kernel, the plain version, the
    eager bf16 cuBLAS chain (the yardstick, as ``library_ms``) and the bound;
@@ -29,13 +30,34 @@ with the seconds since start:
 6. kernel (K6, attention_pallas): against its plain version at the
    pointer's shape (B=32, H=4, N=M=1024, D=Dv=128), the head's (H=1,
    D=512, Dv=3) and a ragged N=M=1000; times, with
-   scaled_dot_product_attention as ``library_ms``;
+   scaled_dot_product_attention as ``library_ms`` (at the head's shape with
+   the first backend, in PyTorch's order, that takes it, named);
 7. serve_dcp: DCP(DGCNN(512, k=20)) in bf16 eval with numpy-seeded weights
    loaded through load_nnx_state, served through
    InferenceEngine(batch_size=32) on 32, 10 and 70 (template, source)
    pairs (5 chunks); K5 must launch 2 and K6 7 times a chunk, every output
    must be finite, every est_R a rotation, and r and est_t must agree with
    the same model run on the plain versions;
+
+8. kernel (K2, pointnet_pooled_int8) and serve_int8: the classifier
+   quantized as bench.py does (quantize_pointnet_classifier on 64 clouds,
+   make_fused_quant_forward); K2 against its plain version at B=256,
+   N=1024 and on a ragged B=3, N=1000 cloud, with the unfused int8 encoder
+   (torch._int_mm) as ``library_ms``; served through InferenceEngine on the
+   same requests as phase 4: K2 launched once a chunk, every logit finite,
+   argmax agreement with the plain version >= 99%, agreement with the plain
+   int8 forward and with the bf16 model reported;
+9. kernel (K9, dgcnn_encode_fused_int8) and kernel (K10, attention_int8):
+   DCP quantized as bench.py does (quantize_dcp on 8 + 8 clouds, int8_pv,
+   fused_layers=False); K9 against its plain version on the full, ragged and
+   lattice clouds, with an eager topk + torch._int_mm chain as
+   ``library_ms``; K10 in both modes (int8 and bf16 P V) at the pointer's
+   shape and a ragged N=M=1000, with scaled_dot_product_attention on the
+   dequantized q, k, v as ``library_ms``;
+10. serve_dcp_int8: the int8 clone through InferenceEngine on the DCP
+   requests: K9 launched 2, K10 6 and K6 1 times a chunk, every output
+   finite, every est_R a rotation, r and est_t within DCP_TOL of the same
+   clone on the plain versions;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``. Any
 failed check raises, so the script exits non-zero and prints no result. It
@@ -73,7 +95,11 @@ DCP_REQUESTS = (32, 10, 70)
 DCP_TOL = 5e-2
 ROT_TOL = 1e-3  # max |R R^T - I| and |det R - 1| of every est_R
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+SFU_EXP_PER_S = 16 * 132 * 1.98e9  # H100 SXM: 16 exponentials a clock on each of 132 SMs at 1.98 GHz
+CALIB_CLOUDS, DCP_CALIB_PAIRS = 64, 8  # bench.py's calibration batches
 
 
 def emit(phase: str, **fields) -> None:
@@ -96,10 +122,14 @@ def check_close(got, want, what: str, tol: float = TOL) -> tuple[float, float]:
     return abs_err, rel_err
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time (ms) and what sets it: operations over the bf16 peak or
-    bytes over the memory rate."""
-    ops_s, bytes_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, *, int8_ops: float = 0.0, f32_flops: float = 0.0) -> tuple[float, str]:
+    """Least time (ms) and what sets it: the operations or the bytes over the
+    memory rate. The tensor cores run the bf16 ``flops`` and the
+    ``int8_ops`` one after the other, each type at its peak; the ``f32_flops``
+    run on the CUDA cores beside them, so the operations take the longer of
+    the two."""
+    ops_s = max(flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS, f32_flops / PEAK_F32_FLOPS)
+    bytes_s = nbytes / PEAK_BYTES
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
 
@@ -400,6 +430,24 @@ def attention_bound(q, k, v) -> tuple[float, str]:
     return bound(flops, nbytes)
 
 
+def head_library_ms(q, k, v) -> tuple[float, str]:
+    """SDPA at the SVD head's shape (D=512, Dv=3) with the first backend,
+    in PyTorch's order of preference, that takes it; its time and name."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                sdpa(q, k, v)
+                torch.cuda.synchronize()
+                return cuda_ms(lambda: sdpa(q, k, v)), f"scaled_dot_product_attention ({backend.name})"
+        except RuntimeError:
+            continue
+    raise RuntimeError("no SDPA backend takes the head's shape")
+
+
 def phase_kernel_k6(rng) -> dict:
     from learning3d_tpu_torch.kernels.attention import attention_pallas, attention_reference
 
@@ -429,6 +477,8 @@ def phase_kernel_k6(rng) -> dict:
         q, k, v = cases["pointer"]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         l_ms = cuda_ms(lambda: sdpa(q, k, v))
+        times["pointer"]["library_ms"] = l_ms
+        times["head"]["library_ms"], times["head"]["library"] = head_library_ms(*cases["head"])
     bound_ms, bound_by = attention_bound(*cases["pointer"])
     result = {
         "max_abs_err": max(a for a, _ in errs.values()),
@@ -447,6 +497,7 @@ def phase_kernel_k6(rng) -> dict:
 def plain_versions():
     """Route the DCP modules' kernel entries to the kernels' plain versions
     (on the same card) for the reference run; restored on exit."""
+    from learning3d_tpu_torch import quant
     from learning3d_tpu_torch.kernels import attention, dgcnn_fused
     from learning3d_tpu_torch.models import dgcnn
     from learning3d_tpu_torch.utils import svd, transformer
@@ -456,7 +507,9 @@ def plain_versions():
         return dgcnn_fused.dgcnn_encode_reference(x.float(), [w for w, _ in folded], [b for _, b in folded], k)
 
     patches = [(dgcnn, "dgcnn_encode_fused", encoder), (transformer, "attention_fused", attention.attention_reference),
-               (svd, "attention_fused", attention.attention_reference)]
+               (svd, "attention_fused", attention.attention_reference),
+               (dgcnn, "dgcnn_encode_int8_kernel", dgcnn_fused.dgcnn_int8_reference),
+               (quant, "attention_int8", attention.attention_int8_reference)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
@@ -529,6 +582,270 @@ def phase_serve_dcp(model, rng) -> dict:
     return launches
 
 
+def library_pn_int8(x, qm):
+    """Yardstick only, never used by the port: the unfused int8 encoder of
+    QuantPointNetClassifier (torch._int_mm products, eager epilogues) and the
+    pool."""
+    from learning3d_tpu_torch.quant import _bf16_linear
+
+    h = torch.relu(_bf16_linear(x, qm.w1, qm.b1))
+    for i, q in enumerate(qm.enc):
+        h = q(h, relu=i < len(qm.enc) - 1)
+    return torch.relu(torch.amax(h, dim=1))
+
+
+def phase_kernel_k2(fused, rng) -> dict:
+    from learning3d_tpu_torch.kernels.pointnet_fused import pn_int8_reference, pointnet_pooled_int8_kernel
+
+    pack = fused.pack
+    errs = {}
+    with torch.inference_mode():
+        for name, shape in (("full", (B, N, 3)), ("ragged", (3, 1000, 3))):
+            x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+            got = pointnet_pooled_int8_kernel(x, pack)
+            want = pn_int8_reference(x, pack)
+            torch.cuda.synchronize()
+            require(got.shape == (shape[0], EMB) and got.dtype == torch.float32, f"K2 output {name}")
+            errs[name] = check_close(got, want, f"K2 vs plain ({name})")
+            if name == "full":
+                x_full = x
+        k_ms = cuda_ms(lambda: pointnet_pooled_int8_kernel(x_full, pack))
+        p_ms = cuda_ms(lambda: pn_int8_reference(x_full, pack), reps=5)
+        l_ms = cuda_ms(lambda: library_pn_int8(x_full, fused.qm), reps=5)
+    stages = pack.stages()
+    macs = sum(wt.numel() for wt, _ in stages)
+    nbytes = 4 * B * N * 3 + 4 * (pack.w1.numel() + pack.b1.numel()) \
+        + sum(wt.numel() + 4 * swb.numel() for wt, swb in stages) + 4 * B * EMB
+    bound_ms, bound_by = bound(0.0, nbytes, int8_ops=2.0 * B * N * macs, f32_flops=2.0 * B * N * pack.w1.numel())
+    result = {
+        "max_abs_err": max(a for a, _ in errs.values()), "max_rel_err": max(r for _, r in errs.values()),
+        "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    emit("kernel", name="pointnet_pooled_int8", tolerance=f"max|k-p| <= {TOL}*max|p|",
+         errors={k: {"abs": a, "rel": r} for k, (a, r) in errs.items()},
+         library="QuantPointNetClassifier's unfused int8 encoder (torch._int_mm), yardstick only", **result)
+    return result
+
+
+def phase_serve_int8(model, fused, rng) -> int:
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.kernels.pointnet_fused import pn_int8_reference
+    from learning3d_tpu_torch.serve import InferenceEngine
+
+    engine = InferenceEngine(fused, batch_size=B)
+    requests = [rng.normal(size=(n, N, 3)).astype(np.float32) for n in REQUESTS]
+    chunks = sum(-(-n // B) for n in REQUESTS)
+    reset_launches()
+    outs = [engine(x) for x in requests]
+    torch.cuda.synchronize()
+    launches = LAUNCHES["pointnet_pooled_int8"]
+    require(launches == chunks, f"K2 launched {launches} times for {chunks} chunks")
+    for x, out in zip(requests, outs):
+        require(out.shape == (x.shape[0], CLASSES), f"int8 logits shape {out.shape}")
+        require(bool(np.isfinite(out).all()), "every int8 logit finite")
+
+    agree = {"plain": 0, "quant_forward": 0, "bf16": 0}
+    total = 0
+    with torch.inference_mode():
+        for x, out in zip(requests, outs):
+            xd = torch.from_numpy(x).cuda()
+            refs = {"plain": fused.qm.logits(pn_int8_reference(xd, fused.pack)), "quant_forward": fused.qm(xd),
+                    "bf16": model(xd)}
+            for key, ref in refs.items():
+                agree[key] += int((ref.float().cpu().numpy().argmax(-1) == out.argmax(-1)).sum())
+            total += x.shape[0]
+    agree = {key: val / total for key, val in agree.items()}
+    require(agree["plain"] >= AGREE, f"int8 argmax agreement with the plain version {agree['plain']} < {AGREE}")
+
+    x256 = requests[0]
+    engine(x256)
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine(x256)
+    host_s = (time.perf_counter() - t0) / reps
+    x_dev = torch.from_numpy(x256).cuda()
+    with torch.inference_mode():
+        model_ms = cuda_ms(lambda: fused(x_dev))
+        plain_int8_ms = cuda_ms(lambda: fused.qm(x_dev))
+    emit("serve_int8", requests=list(REQUESTS), chunks=chunks, launches=launches,
+         argmax_agree_plain=agree["plain"], argmax_agree_quant_forward=agree["quant_forward"],
+         argmax_agree_bf16=agree["bf16"], clouds_per_s=B / host_s, engine_ms=1e3 * host_s, model_ms=model_ms,
+         model_clouds_per_s=B / (model_ms * 1e-3), quant_forward_ms=plain_int8_ms)
+    return launches
+
+
+def library_dgcnn_int8(x, pack, k):
+    """Yardstick only, never used by the port: K9's function as an eager
+    chain of cuBLAS distances, torch.topk, a gather and torch._int_mm
+    products."""
+    from learning3d_tpu_torch.kernels.dgcnn_fused import _xw1_int8
+    from learning3d_tpu_torch.ops.int8 import int8_matmul, to_int8
+
+    f32, bf = torch.float32, torch.bfloat16
+    sq = (x * x).sum(-1)
+    d = sq[:, :, None] + sq[:, None, :] - 2.0 * torch.bmm(x, x.transpose(1, 2))
+    idx = torch.topk(d, k, dim=-1, largest=False).indices
+    xw1q, s_xw1 = _xw1_int8(x, pack.wn1)
+    c1 = x.to(bf).to(f32) @ pack.wc1.to(bf).to(f32) + pack.b1
+    Bc, Nc, C = xw1q.shape
+    nbr = torch.gather(xw1q, 1, idx.reshape(Bc, -1, 1).expand(-1, -1, C)).reshape(Bc, Nc, k, C)
+    e = to_int8(torch.relu(nbr.to(f32) * s_xw1 + c1[:, :, None]) * pack.inv_s[0])
+    pooled = [e.amax(2)]
+    stages = pack.stages()
+    for (wt, swb), inv in zip(stages[:3], pack.inv_s[1:]):
+        e = to_int8(torch.relu(int8_matmul(e, wt.t()).to(f32) * swb[0] + swb[1]) * inv)
+        pooled.append(e.amax(2))
+    wt, swb = stages[3]
+    return torch.relu(int8_matmul(torch.cat(pooled, -1), wt.t()).to(f32) * swb[0] + swb[1]).to(bf)
+
+
+def phase_kernel_k9(qdcp, rng) -> dict:
+    from learning3d_tpu_torch.kernels.dgcnn_fused import dgcnn_encode_int8_kernel, dgcnn_int8_reference
+
+    pack = qdcp.emb_nn.int8_weights
+    cases = {
+        "full": rng.normal(size=(DCP_B, DCP_N, 3)).astype(np.float32),
+        "ragged": rng.normal(size=(3, 1000, 3)).astype(np.float32),
+        "ties": lattice_cloud(rng, 2, 1000),
+    }
+    errs = {}
+    with torch.inference_mode():
+        for name, x_np in cases.items():
+            x = torch.from_numpy(x_np).cuda()
+            got = dgcnn_encode_int8_kernel(x, pack, DCP_K)
+            want = dgcnn_int8_reference(x, pack, DCP_K)
+            torch.cuda.synchronize()
+            errs[name] = check_close(got, want, f"K9 vs plain ({name})")
+        x = torch.from_numpy(cases["full"]).cuda()
+        k_ms = cuda_ms(lambda: dgcnn_encode_int8_kernel(x, pack, DCP_K))
+        p_ms = cuda_ms(lambda: dgcnn_int8_reference(x, pack, DCP_K), reps=3, warmup=1)
+        l_ms = cuda_ms(lambda: library_dgcnn_int8(x, pack, DCP_K), reps=5)
+    stages = pack.stages()
+    macs = DCP_K * sum(wt.numel() for wt, _ in stages[:3]) + stages[3][0].numel()  # a point
+    # x and xw1q read once, the weights once, the output written once
+    nbytes = 4 * DCP_B * DCP_N * 3 + DCP_B * DCP_N * 64 + sum(wt.numel() + 4 * swb.numel() for wt, swb in stages) \
+        + 2 * DCP_B * DCP_N * DCP_EMB
+    # distances: 3 differences, 3 products and 2 sums a pair; the center half of stage 1
+    f32_flops = 8.0 * DCP_B * DCP_N * DCP_N + 2.0 * DCP_B * DCP_N * 3 * 64
+    bound_ms, bound_by = bound(0.0, nbytes, int8_ops=2.0 * DCP_B * DCP_N * macs, f32_flops=f32_flops)
+    result = {
+        "max_abs_err": max(a for a, _ in errs.values()), "max_rel_err": max(r for _, r in errs.values()),
+        "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    emit("kernel", name="dgcnn_encode_fused_int8", tolerance=f"max|k-p| <= {TOL}*max|p|",
+         shape={"B": DCP_B, "N": DCP_N, "k": DCP_K, "emb": DCP_EMB},
+         errors={k: {"abs": a, "rel": r} for k, (a, r) in errs.items()},
+         library="eager cuBLAS distances + torch.topk + gather + torch._int_mm chain, yardstick only", **result)
+    return result
+
+
+def attention_int8_bound(b, h, n, m, d, int8_pv) -> tuple[float, str]:
+    ops = 2.0 * b * h * n * m * d
+    nbytes = b * h * (n + 2 * m) * d + 2 * b * h * n * d
+    return bound(0.0 if int8_pv else ops, nbytes, int8_ops=2 * ops if int8_pv else ops)
+
+
+def phase_kernel_k10(rng) -> dict:
+    from learning3d_tpu_torch.kernels.attention import attention_int8_kernel, attention_int8_reference
+
+    def qkv(b, h, n, m, d):
+        return [torch.from_numpy(rng.integers(-127, 128, (b, h, s, d)).astype(np.int8)).cuda() for s in (n, m, m)]
+
+    s_q, s_k, s_v = 0.004, 0.005, 0.03
+    cases = {"pointer": qkv(DCP_B, 4, DCP_N, DCP_N, 128), "ragged": qkv(4, 4, 1000, 1000, 128)}
+    errs, times = {}, {}
+    with torch.inference_mode():
+        for int8_pv in (True, False):
+            mode = "int8_pv" if int8_pv else "hybrid"
+            for name, (q, k, v) in cases.items():
+                got = attention_int8_kernel(q, k, v, s_q, s_k, s_v, int8_pv)
+                want = attention_int8_reference(q, k, v, s_q, s_k, s_v, int8_pv)
+                torch.cuda.synchronize()
+                errs[f"{mode}/{name}"] = check_close(got, want, f"K10 vs plain ({mode}, {name})")
+            q, k, v = cases["pointer"]
+            times[mode] = {
+                "kernel_ms": cuda_ms(lambda: attention_int8_kernel(q, k, v, s_q, s_k, s_v, int8_pv)),
+                "plain_ms": cuda_ms(lambda: attention_int8_reference(q, k, v, s_q, s_k, s_v, int8_pv),
+                                    reps=3, warmup=1),
+            }
+            times[mode]["bound_ms"], times[mode]["bound_by"] = attention_int8_bound(DCP_B, 4, DCP_N, DCP_N, 128,
+                                                                                    int8_pv)
+        q, k, v = cases["pointer"]
+        deq = [(t.float() * s).to(torch.bfloat16) for t, s in ((q, s_q), (k, s_k), (v, s_v))]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        l_ms = cuda_ms(lambda: sdpa(*deq))
+    exp_sfu_ms = 1e3 * DCP_B * 4 * DCP_N * DCP_N / SFU_EXP_PER_S
+    served = times["int8_pv"]
+    result = {
+        "max_abs_err": max(a for a, _ in errs.values()), "max_rel_err": max(r for _, r in errs.values()),
+        "kernel_ms": served["kernel_ms"], "plain_ms": served["plain_ms"], "library_ms": l_ms,
+        "bound_ms": served["bound_ms"], "bound_by": served["bound_by"], "hybrid": times["hybrid"],
+    }
+    emit("kernel", name="attention_int8", tolerance=f"max|k-p| <= {TOL}*max|p|",
+         shape=[DCP_B, 4, DCP_N, DCP_N, 128], errors={k: {"abs": a, "rel": r} for k, (a, r) in errs.items()},
+         times=times, exp_sfu_ms=exp_sfu_ms,
+         library="torch scaled_dot_product_attention on the dequantized bf16 q, k, v, yardstick only", **result)
+    return result
+
+
+def phase_serve_dcp_int8(qdcp, rng) -> dict:
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.serve import InferenceEngine
+
+    engine = InferenceEngine(qdcp, batch_size=DCP_B)
+    requests = [(rng.normal(size=(n, DCP_N, 3)).astype(np.float32), rng.normal(size=(n, DCP_N, 3)).astype(np.float32))
+                for n in DCP_REQUESTS]
+    chunks = sum(-(-n // DCP_B) for n in DCP_REQUESTS)
+    reset_launches()
+    outs = [engine(t, s) for t, s in requests]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    for name, per_chunk in (("dgcnn_encode_fused_int8", 2), ("attention_int8", 6), ("attention_pallas", 1),
+                            ("dgcnn_encode_fused", 0)):
+        require(launches[name] == per_chunk * chunks,
+                f"{name} launched {launches[name]} times for {chunks} chunks (want {per_chunk} a chunk)")
+    rot_err = det_err = 0.0
+    for (t, _), out in zip(requests, outs):
+        n = t.shape[0]
+        require(out["est_R"].shape == (n, 3, 3) and out["r"].shape == (n, DCP_N, DCP_EMB), "int8 result shapes")
+        for key, val in out.items():
+            require(bool(np.isfinite(val).all()), f"every int8 {key} finite")
+        R = out["est_R"].astype(np.float64)
+        rot_err = max(rot_err, float(np.abs(R @ np.swapaxes(R, -1, -2) - np.eye(3)).max()))
+        det_err = max(det_err, float(np.abs(np.linalg.det(R) - 1.0).max()))
+    require(rot_err <= ROT_TOL and det_err <= ROT_TOL, f"int8 est_R not a rotation: {rot_err}, {det_err}")
+
+    with plain_versions():
+        plain = [engine(t, s) for t, s in requests]
+    agree = {}
+    for key in ("r", "est_t"):
+        got = torch.from_numpy(np.concatenate([o[key] for o in outs]))
+        want = torch.from_numpy(np.concatenate([p[key] for p in plain]))
+        agree[key] = check_close(got, want, f"int8 DCP {key}, kernels vs plain", DCP_TOL)
+
+    template, source = requests[0]
+    engine(template, source)
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine(template, source)
+    host_s = (time.perf_counter() - t0) / reps
+    t_dev, s_dev = torch.from_numpy(template).cuda(), torch.from_numpy(source).cuda()
+    with torch.inference_mode():
+        model_ms = cuda_ms(lambda: qdcp(t_dev, s_dev), reps=5)
+    emit("serve_dcp_int8", requests=list(DCP_REQUESTS), chunks=chunks,
+         launches={k: launches[k] for k in ("dgcnn_encode_fused_int8", "attention_int8", "attention_pallas")},
+         tolerance=f"max|k-p| <= {DCP_TOL}*max|p| for r and est_t",
+         agree={k: {"abs": a, "rel": r} for k, (a, r) in agree.items()},
+         rotation={"max_RRt_minus_I": rot_err, "max_det_minus_1": det_err},
+         pairs_per_s=DCP_B / host_s, engine_ms=1e3 * host_s, model_ms=model_ms,
+         model_pairs_per_s=DCP_B / (model_ms * 1e-3))
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, res) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -545,6 +862,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from learning3d_tpu_torch.models import DCP, DGCNN, Classifier, PointNet
+    from learning3d_tpu_torch.quant import make_fused_quant_forward, quantize_dcp, quantize_pointnet_classifier
     from learning3d_tpu_torch.utils.jax_import import load_nnx_state
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version sums in full f32
@@ -559,7 +877,11 @@ def main() -> None:
     model.eval()
     k1 = phase_kernel(model, rng)
     launches = phase_serve(model, rng)
-    del model
+    calib = torch.from_numpy(rng.normal(size=(CALIB_CLOUDS, N, 3)).astype(np.float32)).cuda()
+    fused = make_fused_quant_forward(quantize_pointnet_classifier(model, calib))
+    k2 = phase_kernel_k2(fused, rng)
+    int8_launches = phase_serve_int8(model, fused, rng)
+    del model, fused
 
     dcp = DCP(DGCNN(emb_dims=DCP_EMB, k=DCP_K, dtype=bf16), dtype=bf16)
     load_nnx_state(dcp, random_dcp_state(rng, DCP_EMB))
@@ -567,6 +889,12 @@ def main() -> None:
     k5 = phase_kernel_k5(dcp, rng)
     k6 = phase_kernel_k6(rng)
     dcp_launches = phase_serve_dcp(dcp, rng)
+    calib_t, calib_s = (torch.from_numpy(rng.normal(size=(DCP_CALIB_PAIRS, DCP_N, 3)).astype(np.float32)).cuda()
+                        for _ in range(2))
+    qdcp = quantize_dcp(dcp, calib_t, calib_s, int8_pv=True, fused_layers=False)
+    k9 = phase_kernel_k9(qdcp, rng)
+    k10 = phase_kernel_k10(rng)
+    dcp_int8_launches = phase_serve_dcp_int8(qdcp, rng)
 
     csrc = "learning3d_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
@@ -576,6 +904,12 @@ def main() -> None:
                      "learning3d_tpu/kernels/dgcnn_fused.py:205", dcp_launches["dgcnn_encode_fused"], k5),
         kernel_entry("attention_pallas", csrc + "attention.cu",
                      "learning3d_tpu/kernels/attention.py:61", dcp_launches["attention_pallas"], k6),
+        kernel_entry("pointnet_pooled_int8", csrc + "pointnet_int8.cu",
+                     "learning3d_tpu/kernels/pointnet_fused.py:128", int8_launches, k2),
+        kernel_entry("dgcnn_encode_fused_int8", csrc + "dgcnn_int8.cu",
+                     "learning3d_tpu/kernels/dgcnn_fused.py:455", dcp_int8_launches["dgcnn_encode_fused_int8"], k9),
+        kernel_entry("attention_int8", csrc + "attention_int8.cu",
+                     "learning3d_tpu/kernels/attention.py:222", dcp_int8_launches["attention_int8"], k10),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -10,6 +10,9 @@ LAUNCHES: dict[str, int] = {
     "pointnet_pooled_kernel": 0,
     "dgcnn_encode_fused": 0,
     "attention_pallas": 0,
+    "pointnet_pooled_int8": 0,
+    "dgcnn_encode_fused_int8": 0,
+    "attention_int8": 0,
 }
 
 

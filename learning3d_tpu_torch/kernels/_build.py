@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ONE ``nvcc`` call into one shared library
-with a plain C interface, loaded with ``ctypes``. No PyTorch headers are
-compiled: a source that includes them takes minutes to build, a plain one
-seconds, and every fresh checkout builds anew.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links the objects into one shared
+library with a plain C interface, loaded with ``ctypes``. No PyTorch headers
+are compiled: a source that includes them takes minutes to build, a plain
+one seconds, and every fresh checkout builds anew.
 
 The library goes to ``.build/<hash of the sources and flags>/`` beside this
 file (listed in ``.gitignore``), at first use, so importing a kernel module
@@ -22,18 +23,20 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / ".build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-c")
+LINK_FLAGS = (*ARCH, "-shared")
 
 # The C entries: (argtypes, restype). A kernel entry returns the launch's
 # cudaGetLastError().
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "pointnet_pooled_bf16": ([_P] * 12 + [_I, _I, _I, _P], ctypes.c_int),
     "dgcnn_encode_bf16": ([_P] * 13 + [_I, _I, _I, _I, _P], ctypes.c_int),
     "attention_bf16": ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], ctypes.c_int),
+    "pointnet_pooled_int8": ([_P] * 11 + [_F] * 4 + [_P, _I, _I, _I, _P], ctypes.c_int),
+    "dgcnn_encode_int8": ([_P] * 13 + [_F] * 4 + [_P, _I, _I, _I, _I, _P], ctypes.c_int),
+    "attention_int8": ([_P] * 4 + [_I] * 5 + [_F, _F, _I, _P], ctypes.c_int),
     "l3d_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -54,7 +57,7 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -63,20 +66,37 @@ def source_hash() -> str:
 
 def build(build_root: Path = BUILD_ROOT) -> Path:
     """Compile every source into ``<build_root>/<hash>/libl3d_kernels.so``
-    unless it is there already; return its path. The compiler's output,
-    ptxas's register report included, goes to ``build.log`` beside it."""
+    unless it is there already; return its path. One nvcc process a source,
+    all running at once, then one link. The compilers' output, ptxas's
+    register report included, goes to ``build.log`` beside it."""
     out_dir = build_root / source_hash()
     lib = out_dir / "libl3d_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libl3d_kernels.so.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    nvcc, pid = find_nvcc(), os.getpid()
+    jobs = []
+    for src in sources():
+        obj = out_dir / f"{src.stem}.{pid}.o"  # nvcc tells inputs apart by their suffix
+        cmd = [nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        log.append(" ".join(cmd) + "\n" + proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(cmd[-1])
+    if not failed:
+        tmp = out_dir / f"libl3d_kernels.{pid}.so"
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append("link")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n" + "\n".join(log))
     os.replace(tmp, lib)
     return lib
 

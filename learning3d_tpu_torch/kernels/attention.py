@@ -20,6 +20,7 @@ import torch
 
 from learning3d_tpu_torch.kernels import LAUNCHES
 from learning3d_tpu_torch.kernels import _build
+from learning3d_tpu_torch.ops.int8 import f32_scalar
 
 MAX_D, MAX_DV = 512, 128  # what the kernel's shared-memory tiles take
 
@@ -106,6 +107,105 @@ def attention_fused(q, k, v):
 def attention_pallas_ok(q, k, v):
     """Dispatch guard, the JAX package's without its platform test: the
     pointer and head shapes (D a multiple of 128 up to 512, 256 <= M <=
-    4096, N >= 256), and value widths the kernel takes."""
+    4096, N >= 256), at any value width Dv. The kernel takes Dv <= MAX_DV;
+    a caller past that on the card raises (``check_value_width``) rather
+    than leave the kernel's path."""
     D, M, N = q.shape[-1], k.shape[2], q.shape[2]
-    return D % 128 == 0 and D <= MAX_D and 256 <= M <= 4096 and N >= 256 and v.shape[-1] <= MAX_DV
+    return D % 128 == 0 and D <= MAX_D and 256 <= M <= 4096 and N >= 256
+
+
+def check_value_width(q, v):
+    """Raise NotImplementedError for a tensor off the CPU whose value width
+    the kernel does not take (Dv > MAX_DV), where the JAX package runs its
+    kernel."""
+    if q.device.type != "cpu" and v.shape[-1] > MAX_DV:
+        raise NotImplementedError(f"K6 (attention_pallas) takes Dv <= {MAX_DV}, got Dv={v.shape[-1]}")
+
+
+# --- int8 serving variant: K10 --------------------------------------------
+#
+# Counterpart of ``learning3d_tpu/kernels/attention.py::attention_int8``
+# (body ``_attn_kernel_int8``, oracle ``attention_int8_oracle``): int8 q, k,
+# v (B, H, N|M, D) with static dequantization scales; S = int32(q k^T) in
+# f32 times s_q s_k / sqrt(D), p = exp(S - rowmax) left unnormalized (its
+# row max is exactly 1), l = sum(p); with ``int8_pv`` O = int32(round(127 p)
+# v) * (s_v / 127) / l, else ("hybrid") O = (bf16(p) @ v) * s_v / l, in
+# bf16. ``csrc/attention_int8.cu``.
+
+INT8_MAX_D = 512
+
+
+def _f64_matmul(a, b):
+    """An exact product of small integers (int8 sums up to 2^53) on any
+    device, in float64."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64))
+
+
+def attention_int8_reference(q, k, v, s_q, s_k, s_v, int8_pv=False):
+    """K10's plain version, a port of ``attention_int8_oracle``."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    d = q.shape[-1]
+    s = _f64_matmul(q, k.transpose(-1, -2)).to(f32) * f32_scalar(s_q * s_k / (d**0.5), q)
+    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    l = torch.sum(p, dim=-1, keepdim=True)
+    if int8_pv:
+        o = _f64_matmul(torch.round(p * 127.0), v).to(f32)
+        return (o * f32_scalar(s_v / 127.0, q) / l).to(bf16)
+    o = torch.matmul(p.to(bf16).to(f32), v.to(bf16).to(f32))
+    return (o * f32_scalar(s_v, q) / l).to(bf16)
+
+
+def attention_int8_ok(q, k):
+    """Dispatch guard, the JAX package's without its platform test: D a
+    multiple of 128 up to 512 and 128 <= M <= 4096."""
+    D, M = q.shape[-1], k.shape[2]
+    return D % 128 == 0 and D <= INT8_MAX_D and 128 <= M <= 4096
+
+
+def attention_int8_kernel(q, k, v, s_q, s_k, s_v, int8_pv=False):
+    """int8 (B, H, N|M, D) q, k, v -> (B, H, N, D) bf16. A CUDA tensor runs
+    K10; a CPU tensor runs the plain version ``attention_int8_reference``.
+
+    The kernel reads V transposed, (B*H, D, Mp) with the keys zero-padded to
+    Mp = a multiple of 64: one transposing copy here, so that every tile of
+    V reaches shared memory by 16-byte loads."""
+    if q.device.type == "cpu":
+        return attention_int8_reference(q, k, v, s_q, s_k, s_v, int8_pv)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if q.ndim != 4 or k.shape[:2] != q.shape[:2] or v.shape != k.shape or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    B, H, N, D = q.shape
+    M = k.shape[2]
+    if any(t.dtype != torch.int8 or t.device != q.device for t in (q, k, v)):
+        raise ValueError("q, k, v must be int8 on one device")
+    if D % 128 or not 128 <= D <= INT8_MAX_D or N < 1 or M < 1:
+        raise ValueError(f"the kernel takes D % 128 == 0, D <= {INT8_MAX_D}; got D={D}, N={N}, M={M}")
+    Mp = -(-M // 64) * 64
+    qc = q.reshape(B * H, N, D).contiguous()
+    kc = k.reshape(B * H, M, D).contiguous()
+    vt = v.reshape(B * H, M, D).transpose(1, 2)
+    if Mp != M:
+        vt = torch.nn.functional.pad(vt, (0, Mp - M))
+    vt = vt.contiguous()
+    out = torch.empty((B * H, N, D), device=q.device, dtype=torch.bfloat16)
+    oscale = s_v / 127.0 if int8_pv else s_v
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.attention_int8(qc.data_ptr(), kc.data_ptr(), vt.data_ptr(), out.data_ptr(), B * H, N, M, Mp, D,
+                                 ctypes.c_float(s_q * s_k / (D**0.5)), ctypes.c_float(oscale), int(bool(int8_pv)),
+                                 stream)
+    _build.check(err, "attention_int8")
+    LAUNCHES["attention_int8"] += 1
+    return out.reshape(B, H, N, D)
+
+
+def attention_int8(q, k, v, s_q, s_k, s_v, int8_pv=False):
+    """The JAX package's entry at its default ``out_dtype``, bf16 (the only
+    one its callers use and the one the kernel writes): the kernel at the
+    shapes of its guard, the plain chain elsewhere (the JAX package runs its
+    oracle there)."""
+    if attention_int8_ok(q, k):
+        return attention_int8_kernel(q, k, v, s_q, s_k, s_v, int8_pv)
+    return attention_int8_reference(q, k, v, s_q, s_k, s_v, int8_pv)

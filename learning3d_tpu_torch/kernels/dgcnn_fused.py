@@ -22,10 +22,15 @@ four k-maxes.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+from torch import nn
 
 from learning3d_tpu_torch.kernels import LAUNCHES
 from learning3d_tpu_torch.kernels import _build
+from learning3d_tpu_torch.ops.int8 import div, f32_scalar, int8_matmul, quantize_weight, to_int8
+from learning3d_tpu_torch.ops.int8 import percentile as int8_percentile
 
 DIMS = ((6, 64), (64, 64), (64, 128), (128, 256))  # stages 1-4; conv5 is (512, emb)
 MAX_K = 32
@@ -140,15 +145,170 @@ def dgcnn_encode_fused(x, convs, bns, k, *, dot_dtype=torch.bfloat16):
                                dot_dtype=dot_dtype)
 
 
+def kernel_limit(n_pts, k, emb):
+    """The limit of K5 and K9 that (N, k, emb) breaks, as a message, or None
+    where the kernels take the shape: 1 <= k <= MAX_K, k <= N <= MAX_N and
+    emb % 64 == 0."""
+    if not 1 <= k <= MAX_K:
+        return f"k={k} is outside the kernels' 1 <= k <= {MAX_K}"
+    if not k <= n_pts <= MAX_N:
+        return f"N={n_pts} is outside the kernels' k <= N <= {MAX_N}"
+    if emb % 64:
+        return f"emb={emb} is not a multiple of 64"
+    return None
+
+
 def dgcnn_fused_ok(x, convs, bns, k):
-    """Dispatch guard: eval-mode BN, bf16 convs, 3-channel clouds with at
-    least k points, the DGCNN widths."""
+    """Dispatch guard: eval-mode BN, bf16 convs, 3-channel clouds, the DGCNN
+    widths, and the shapes the kernels take (``kernel_limit``), so that no
+    shape the guard admits reaches the kernel's argument check."""
     return (
         x.ndim == 3
         and x.shape[-1] == 3
-        and x.shape[1] >= k
         and len(convs) == 5
         and convs[0].in_features == 6
         and all(bn is not None and not bn.training for bn in bns)
         and convs[0].dtype == torch.bfloat16
+        and kernel_limit(x.shape[1], k, convs[-1].out_features) is None
     )
+
+
+# --- int8 serving variant: K9 ---------------------------------------------
+#
+# Counterpart of ``learning3d_tpu/kernels/dgcnn_fused.py::
+# dgcnn_encode_fused_int8`` (body ``_fused_kernel_int8``): K5's exact kNN;
+# the per-point stage-1 product xw1 = bf16(x) . bf16(Wn1) in f32, quantized
+# with a dynamic scale s_xw1 = max|xw1| / 127 over the WHOLE batch, so a
+# neighbor's int8 row is gathered exactly; e1 = q1(relu(xw1q * s_xw1 + c1));
+# stages 2-4 as int8 products with epilogue relu(acc * swb[0] + swb[1]) and
+# requantization q_i(z) = round(z * (1 / s_i)) clamped to +-127; the max
+# over neighbors on the int8 values (it commutes with the positive scale);
+# conv5 as one int8 product against w5 whose rows carry the per-stage
+# dequantization scales, relu(acc * s_w5 + b5) in bf16.
+# ``csrc/dgcnn_int8.cu``.
+
+
+class DGCNNInt8Weights(nn.Module):
+    """K9's operands, built once from the BN-folded convs and the static
+    scales (s1..s4) of ``calibrate_dgcnn_int8``: Wn1, Wc1, b1 f32; the int8
+    weights of conv2..conv5 (conv5's rows pre-scaled by the stage scales of
+    the concatenation they multiply) transposed to (out, in), the layout the
+    kernel reads (the plain version multiplies by its transpose);
+    swb = [s_in * s_w; b] (conv5: [s_w5; b5]); 1 / s_i as Python floats."""
+
+    def __init__(self, ws, bs, scales):
+        super().__init__()
+        f32 = torch.float32
+        ws, bs = [w.to(f32) for w in ws], [b.to(f32) for b in bs]
+        self.scales = tuple(float(s) for s in scales)
+        self.inv_s = tuple(1.0 / s for s in self.scales)
+        row_scales = torch.cat([torch.full((w.shape[1],), s, dtype=f32, device=w.device)
+                                for w, s in zip(ws[:4], self.scales)])
+        qs = [quantize_weight(w) for w in ws[1:4]] + [quantize_weight(ws[4] * row_scales[:, None])]
+        self.register_buffer("wn1", ws[0][:3].contiguous())
+        self.register_buffer("wc1", ws[0][3:].contiguous())
+        self.register_buffer("b1", bs[0].contiguous())
+        for i, ((w_q, s_w), b) in enumerate(zip(qs, bs[1:])):
+            swb = torch.stack([torch.full_like(b, self.scales[i]) * s_w, b]) if i < 3 else torch.stack([s_w, b])
+            self.register_buffer(f"wt{i}", w_q.t().contiguous())
+            self.register_buffer(f"swb{i}", swb.contiguous())
+
+    def stages(self):
+        """[(w_q^T (out, in), swb)] for conv2..conv5."""
+        return [(getattr(self, f"wt{i}"), getattr(self, f"swb{i}")) for i in range(4)]
+
+    @classmethod
+    def from_modules(cls, convs, bns, scales):
+        with torch.no_grad():
+            folded = [fold_bn(c, bn) for c, bn in zip(convs, bns)]
+            return cls([w for w, _ in folded], [b for _, b in folded], scales)
+
+
+def _xw1_int8(x, wn1):
+    """The int8 stage-1 neighbor product and its dynamic scale, a 0-d
+    device tensor (no host sync): s = max(max|xw1|, 1e-6) / 127 over the
+    whole batch."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    xw1 = torch.matmul(x.to(bf16).to(f32), wn1.to(bf16).to(f32))
+    s = div(torch.clamp_min(torch.amax(torch.abs(xw1)), 1e-6), 127.0)
+    return to_int8(xw1 / s), s
+
+
+def dgcnn_int8_reference(x, pack, k):
+    """K9's plain version: x (B, N, 3) -> (B, N, emb) bf16."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    x = x.float()
+    B, N, _ = x.shape
+    idx = exact_knn(x, k)
+    xw1q, s_xw1 = _xw1_int8(x, pack.wn1)
+    c1 = torch.matmul(x.to(bf16).to(f32), pack.wc1.to(bf16).to(f32)) + pack.b1
+    nbr = torch.gather(xw1q, 1, idx.reshape(B, -1, 1).expand(-1, -1, xw1q.shape[-1])).reshape(B, N, k, -1)
+    e = to_int8(torch.relu(nbr.to(f32) * s_xw1 + c1[:, :, None]) * f32_scalar(pack.inv_s[0], x))
+    pooled = [torch.amax(e, dim=2)]
+    stages = pack.stages()
+    for (wt, swb), inv in zip(stages[:3], pack.inv_s[1:]):
+        e = to_int8(torch.relu(int8_matmul(e, wt.t()).to(f32) * swb[0] + swb[1]) * f32_scalar(inv, x))
+        pooled.append(torch.amax(e, dim=2))
+    wt, swb = stages[3]
+    return torch.relu(int8_matmul(torch.cat(pooled, dim=-1), wt.t()).to(f32) * swb[0] + swb[1]).to(bf16)
+
+
+def dgcnn_encode_int8_kernel(x, pack, k):
+    """x (B, N, 3) f32 and a ``DGCNNInt8Weights`` -> (B, N, emb) bf16. A
+    CUDA tensor runs K9; a CPU tensor runs the plain version
+    ``dgcnn_int8_reference``."""
+    if x.device.type == "cpu":
+        return dgcnn_int8_reference(x, pack, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    x = x.contiguous()
+    stages = pack.stages()
+    emb = stages[3][0].shape[0]
+    if x.dtype != torch.float32 or x.ndim != 3 or x.shape[-1] != 3:
+        raise ValueError(f"x must be (B, N, 3) float32, got {tuple(x.shape)} {x.dtype}")
+    limit = kernel_limit(x.shape[1], k, emb)
+    if limit is not None:
+        raise ValueError(limit)
+    widths = [tuple(wt.t().shape) for wt, _ in stages]
+    if widths != [*DIMS[1:], (512, emb)] or pack.wn1.device != x.device:
+        raise ValueError(f"int8 weights must be {[*DIMS[1:], (512, emb)]} on x's device, got {widths}")
+    B, N, _ = x.shape
+    xw1q, s_xw1 = _xw1_int8(x, pack.wn1)
+    out = torch.empty((B, N, emb), device=x.device, dtype=torch.bfloat16)
+    ptrs = [t.data_ptr() for s in stages for t in s]
+    inv = [ctypes.c_float(s) for s in pack.inv_s]
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dgcnn_encode_int8(x.data_ptr(), xw1q.data_ptr(), s_xw1.data_ptr(), pack.wc1.data_ptr(),
+                                    pack.b1.data_ptr(), *ptrs, *inv, out.data_ptr(), B, N, k, emb, stream)
+    _build.check(err, "dgcnn_encode_int8")
+    LAUNCHES["dgcnn_encode_fused_int8"] += 1
+    return out
+
+
+def dgcnn_encode_fused_int8(x, convs, bns, k, scales):
+    """The JAX package's entry: x (B, N, 3) -> (B, N, emb) bf16 with the
+    static scales (s1..s4) of ``calibrate_dgcnn_int8``; the int8 weights are
+    built on this call (a module builds them once, ``DGCNN.int8_scales``)."""
+    return dgcnn_encode_int8_kernel(x.float(), DGCNNInt8Weights.from_modules(convs, bns, scales), k)
+
+
+def calibrate_dgcnn_int8(convs, bns, k, calib_x, percentile=99.9):
+    """Static per-stage activation scales (s1..s4) from one unfused f32
+    forward over ``calib_x`` (B, N, 3): the ``percentile`` of |h| after each
+    of stages 1-4, the next stage fed the quantized value. Python floats
+    (one host read a stage)."""
+    from learning3d_tpu_torch.ops.geometry import get_graph_feature
+
+    with torch.no_grad():
+        folded = [fold_bn(c, bn) for c, bn in zip(convs, bns)]
+        h = get_graph_feature(calib_x.float(), k=k)  # (B, N, k, 6)
+        scales = []
+        for w, b in folded[:4]:
+            h = torch.relu(torch.matmul(h, w) + b)
+            a = int8_percentile(torch.abs(h), percentile)
+            scales.append(torch.clamp_min(a, 1e-6).item() / 127.0)
+            s = f32_scalar(scales[-1], h)
+            h = torch.clamp(torch.round(h / s), -127, 127) * s
+    return tuple(scales)

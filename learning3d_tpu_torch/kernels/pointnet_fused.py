@@ -17,10 +17,14 @@ so gradients through a frozen-BN encoder stay exact.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+from torch import nn
 
 from learning3d_tpu_torch.kernels import LAUNCHES
 from learning3d_tpu_torch.kernels import _build
+from learning3d_tpu_torch.ops.int8 import f32_scalar, int8_matmul, to_int8
 
 CHAIN = (3, 64, 64, 64, 128)  # the widths the kernel is written for, then emb
 
@@ -129,3 +133,96 @@ def pointnet_pooled_fused(x, convs, bns):
     (backward recomputes through ``oracle_chain``)."""
     folded = [fold_conv_bn(c, bn) for c, bn in zip(convs, bns)]
     return _FusedBF16.apply(x.float(), *(w for w, _ in folded), *(b for _, b in folded))
+
+
+# --- int8 serving variant: K2 ---------------------------------------------
+#
+# Counterpart of ``learning3d_tpu/kernels/pointnet_fused.py::
+# pointnet_pooled_int8`` (body ``_pn_int8_kernel``): stage 1 (3 -> 64) on
+# bf16-rounded operands with f32 sums, then conv2..conv5 as int8 x int8 ->
+# int32 products with static activation scales; each epilogue is
+# acc * swb[0] + swb[1] (swb[0] = s_w * s_x), ReLU (not after conv5), and
+# the requantization round(h * (1 / s_x)) clamped to +-127; relu(max over
+# points) of the conv5 output, in f32. ``csrc/pointnet_int8.cu``.
+
+
+class PointNetInt8Weights(nn.Module):
+    """K2's operands, built once from ``w1``, ``b1`` (f32) and ``qlayers``
+    = [(w_q int8 (in, out), s_w (out,), b (out,), s_x float)] for
+    conv2..conv5: w_q transposed to (out, in), the layout the kernel
+    reads (the plain version multiplies by its transpose), swb = [s_w * s_x; b] (2, out) f32, and 1 / s_x as Python floats (the
+    kernel multiplies by them in f32)."""
+
+    def __init__(self, w1, b1, qlayers):
+        super().__init__()
+        f32 = torch.float32
+        self.register_buffer("w1", w1.to(f32).contiguous())
+        self.register_buffer("b1", b1.to(f32).contiguous())
+        self.inv_s = tuple(1.0 / float(s_x) for *_, s_x in qlayers)
+        for i, (w_q, s_w, b, s_x) in enumerate(qlayers):
+            swb = torch.stack([s_w.to(f32) * f32_scalar(float(s_x), s_w), b.to(f32)])
+            self.register_buffer(f"wt{i}", w_q.to(torch.int8).t().contiguous())
+            self.register_buffer(f"swb{i}", swb.contiguous())
+
+    def stages(self):
+        """[(w_q^T (out, in), swb)] for conv2..conv5."""
+        return [(getattr(self, f"wt{i}"), getattr(self, f"swb{i}")) for i in range(len(self.inv_s))]
+
+
+def pn_int8_reference(x, pack):
+    """K2's plain version, a literal port of ``_pn_int8_kernel``: x (B, N, 3)
+    -> (B, emb) f32."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    h = torch.relu(torch.matmul(x.to(bf16).to(f32), pack.w1.to(bf16).to(f32)) + pack.b1)
+    stages = pack.stages()
+    for i, ((wt, swb), inv) in enumerate(zip(stages, pack.inv_s)):
+        hq = to_int8(h * f32_scalar(inv, h))
+        z = int8_matmul(hq, wt.t()).to(f32) * swb[0] + swb[1]
+        h = torch.relu(z) if i < len(stages) - 1 else z
+    return torch.relu(torch.amax(h, dim=-2))
+
+
+def _check_int8_args(x, pack):
+    if x.dtype != torch.float32 or x.ndim != 3 or x.shape[-1] != 3 or x.shape[1] < 1:
+        raise ValueError(f"x must be (B, N>=1, 3) float32, got {tuple(x.shape)} {x.dtype}")
+    stages = pack.stages()
+    emb = stages[-1][0].shape[0]
+    widths = [tuple(pack.w1.shape)] + [tuple(wt.t().shape) for wt, _ in stages]
+    want = [(i, o) for i, o in zip(CHAIN, CHAIN[1:] + (emb,))]
+    if widths != want or emb % 64:
+        raise ValueError(f"weights must be {want} with emb % 64 == 0, got {widths}")
+    for t in (pack.w1, pack.b1, *(t for s in stages for t in s)):
+        if t.device != x.device:
+            raise ValueError("the int8 weights must be on x's device")
+
+
+def pointnet_pooled_int8_kernel(x, pack):
+    """x (B, N, 3) f32 and a ``PointNetInt8Weights`` -> pooled (B, emb) f32.
+    A CUDA tensor runs K2; a CPU tensor runs the plain version
+    ``pn_int8_reference``."""
+    if x.device.type == "cpu":
+        return pn_int8_reference(x, pack)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    x = x.contiguous()
+    _check_int8_args(x, pack)
+    B, N, _ = x.shape
+    stages = pack.stages()
+    emb = stages[-1][0].shape[0]
+    out = torch.empty((B, emb), device=x.device, dtype=torch.float32)
+    ptrs = [t.data_ptr() for s in stages for t in s]
+    inv = [ctypes.c_float(s) for s in pack.inv_s]
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pointnet_pooled_int8(x.data_ptr(), pack.w1.data_ptr(), pack.b1.data_ptr(), *ptrs, *inv,
+                                       out.data_ptr(), B, N, emb, stream)
+    _build.check(err, "pointnet_pooled_int8")
+    LAUNCHES["pointnet_pooled_int8"] += 1
+    return out
+
+
+def pointnet_pooled_int8(x, w1, b1, qlayers):
+    """The JAX package's entry: x (B, N, 3), stage-1 weights f32 and
+    ``qlayers`` [(w_q, s_w, b, s_x)] for conv2..conv5 -> (B, emb) f32."""
+    return pointnet_pooled_int8_kernel(x.float(), PointNetInt8Weights(w1, b1, qlayers).to(x.device))

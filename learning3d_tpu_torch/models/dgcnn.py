@@ -4,8 +4,9 @@ Edge features come from kNN (k=20) with (neighbor, center) concatenation;
 four 1x1-conv stages, each max-pooled over the neighbors, are concatenated
 (64+64+128+256=512) into the final embedding conv. Convs are bias-free with
 BatchNorm. In eval mode with bf16 convs the whole encoder is one CUDA
-kernel, K5 (``kernels.dgcnn_fused``); on a CPU tensor that kernel's plain
-version runs instead.
+kernel, K5 (``kernels.dgcnn_fused``); once ``int8_scales`` is set
+(``quant.quantize_dcp``) it is the int8 kernel K9 instead. On a CPU tensor
+the kernel's plain version runs.
 """
 
 from __future__ import annotations
@@ -14,7 +15,13 @@ import torch
 from torch import nn
 
 from learning3d_tpu_torch import DEFAULT_DEVICE
-from learning3d_tpu_torch.kernels.dgcnn_fused import dgcnn_encode_fused, dgcnn_fused_ok
+from learning3d_tpu_torch.kernels.dgcnn_fused import (
+    DGCNNInt8Weights,
+    dgcnn_encode_fused,
+    dgcnn_encode_int8_kernel,
+    dgcnn_fused_ok,
+    kernel_limit,
+)
 from learning3d_tpu_torch.ops.geometry import get_graph_feature
 from learning3d_tpu_torch.utils.layers import BatchNorm, Linear, to_bnc, validate_input_shape
 
@@ -31,6 +38,22 @@ class DGCNN(nn.Module):
             Linear(i, o, use_bias=False, dtype=dtype, generator=generator, device=device) for i, o in dims
         )
         self.bns = nn.ModuleList(BatchNorm(o, dtype=dtype, device=device) for _, o in dims)
+        self._int8_scales = None
+        self.int8_weights = None
+
+    @property
+    def int8_scales(self):
+        """The static per-stage activation scales (s1..s4) of int8 serving,
+        or None. Setting them (``quant.quantize_dcp``) builds K9's int8
+        weights from the current BN-folded convs, once, and routes the eval
+        forward to K9."""
+        return self._int8_scales
+
+    @int8_scales.setter
+    def int8_scales(self, scales):
+        self._int8_scales = None if scales is None else tuple(float(s) for s in scales)
+        self.int8_weights = None if scales is None else DGCNNInt8Weights.from_modules(
+            self.convs, self.bns, self._int8_scales)
 
     def forward(self, input_data):
         """-> (B, N, emb_dims) per-point features."""
@@ -38,13 +61,17 @@ class DGCNN(nn.Module):
         if x.shape[-1] != 3:
             raise RuntimeError("expected 3-channel point clouds")
         if dgcnn_fused_ok(x, self.convs, self.bns, self.k):
+            if self.int8_scales is not None:
+                return dgcnn_encode_int8_kernel(x.float(), self.int8_weights, self.k)
             return dgcnn_encode_fused(x, list(self.convs), list(self.bns), self.k)
         if x.device.type != "cpu":
             # on the card the unfused path's edge features come from K7
             # (learning3d_tpu/kernels/edgeconv.py::knn_neighbors_pallas)
+            limit = kernel_limit(x.shape[1], self.k, self.emb_dims)
             raise NotImplementedError(
                 "the unfused DGCNN path on a GPU needs K7 (get_graph_feature_fused), "
                 "which is not ported yet; use bf16 eval for the fused kernel K5"
+                + (f" ({limit})" if limit else "")
             )
         e = get_graph_feature(x, k=self.k)  # (B, N, k, 6)
         stage_outputs = []

@@ -16,10 +16,15 @@ def square_distance(src, dst):
     """Pairwise squared L2: (..., N, C) x (..., M, C) -> (..., N, M), by the
     matmul expansion |a|^2 + |b|^2 - 2ab, in full float32 (neighbor
     selection is sensitive to the rounding of TF32 and bf16). The inner
-    products are taken as elementwise products and sums, so no TF32 setting
-    can reach them."""
+    products are accumulated one channel at a time in float32, so no TF32
+    setting can reach them and no (..., N, M, C) product is ever held: the
+    intermediates are a few (..., N, M) buffers. The channel order is that of
+    a sequential sum, so at C=3 the result is bit-identical to summing the
+    elementwise product over C."""
     src, dst = src.float(), dst.float()
-    dot = (src[..., :, None, :] * dst[..., None, :, :]).sum(-1)
+    dot = src[..., :, None, 0] * dst[..., None, :, 0]
+    for c in range(1, src.shape[-1]):
+        dot += src[..., :, None, c] * dst[..., None, :, c]
     d = -2.0 * dot
     d = d + torch.sum(src * src, dim=-1)[..., :, None]
     return d + torch.sum(dst * dst, dim=-1)[..., None, :]

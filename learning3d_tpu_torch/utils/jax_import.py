@@ -12,6 +12,12 @@ Mapping (the port keeps torch's orientation for Linear):
     BatchNorm scale / bias      -> weight / bias
               mean / var        -> running_mean / running_var
 Entries under ``rngs`` (dropout keys and counters) are skipped.
+
+Quantized state crosses as well, as numpy: ``load_quant_pointnet`` takes the
+arrays of a JAX ``QuantPointNetClassifier`` pytree, ``load_quant_dcp`` the
+int8 variables and Python-float scales of a JAX ``quantize_dcp`` clone, so
+that the port's integer math can be held against the JAX package's with
+identical scales.
 """
 
 from __future__ import annotations
@@ -57,3 +63,51 @@ def load_nnx_state(model: torch.nn.Module, flat) -> torch.nn.Module:
         for key, target in dst.items():
             target.copy_(torch.from_numpy(np.array(src[key], copy=True)).to(target.dtype))
     return model
+
+
+def load_quant_pointnet(arrays, device="cuda"):
+    """A ``quant.QuantPointNetClassifier`` from the arrays of the JAX pytree:
+    ``{"w1", "b1", "w_out", "b_out"}`` and ``"enc"`` / ``"head"``, lists of
+    ``{"w_q", "s_w", "b", "s_x"}`` (one per QuantLinear)."""
+    from learning3d_tpu_torch import resolve_device
+    from learning3d_tpu_torch.quant import QuantLinear, QuantPointNetClassifier
+
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    def layers(key):
+        return [QuantLinear(t(q["w_q"]), t(q["s_w"]), t(q["b"]), t(q["s_x"])) for q in arrays[key]]
+
+    return QuantPointNetClassifier(t(arrays["w1"]), t(arrays["b1"]), layers("enc"), layers("head"),
+                                   t(arrays["w_out"]), t(arrays["b_out"]))
+
+
+def load_quant_dcp(model, flat, scales, int8_scales=None, int8_pv=False):
+    """The int8 serving clone of a port DCP whose float weights equal the
+    JAX model's, from the JAX ``quantize_dcp`` clone: ``flat`` holds its nnx
+    state (the int8 blocks' variables under their dotted paths, e.g.
+    ``pointer.enc_layers.0.self_attn.wq_q``), ``scales`` maps each block's
+    path to its Python-float scales (``s_in_q``, ..., ``s_att`` of a
+    QuantMHA; ``s_in``, ``s_h`` of a QuantFF), ``int8_scales`` is the
+    encoder's ``emb_nn.int8_scales``. ``model`` is untouched."""
+    import copy
+
+    from learning3d_tpu_torch.quant import QuantFF, QuantMHA, _pointer_blocks
+
+    clone = copy.deepcopy(model).eval()
+    dev = next(clone.parameters()).device
+    for owner, attr, kind, path in _pointer_blocks(clone.pointer):
+        inner = getattr(owner, attr)
+        names = ("wq_q", "s_wq", "bq", "wkv_q", "s_wkv", "bkv", "wo_q", "s_wo", "bo") if kind == "mha" else \
+            ("w1_q", "s_w1", "b1", "w2_q", "s_w2", "b2")
+        tensors = {n: torch.from_numpy(np.array(flat[f"{path}.{n}"], copy=True)).to(dev) for n in names}
+        if kind == "mha":
+            block = QuantMHA(inner.h, inner.d_k, tensors, scales[path], int8_pv, inner.wo.dtype)
+        else:
+            block = QuantFF(tensors, scales[path], inner.w2.dtype)
+        setattr(owner, attr, block)
+    if int8_scales is not None:
+        clone.emb_nn.int8_scales = int8_scales
+    return clone

@@ -15,12 +15,13 @@ import torch
 from torch import nn
 
 from learning3d_tpu_torch import DEFAULT_DEVICE, resolve_device
-from learning3d_tpu_torch.kernels.attention import attention_fused, attention_pallas_ok
+from learning3d_tpu_torch.kernels.attention import attention_fused, attention_pallas_ok, check_value_width
 from learning3d_tpu_torch.utils.layers import Linear
 
 
 def _attention(q, k, v):
     if attention_pallas_ok(q, k, v):
+        check_value_width(q, v)
         return attention_fused(q, k, v)
     d_k = q.shape[-1]
     scores = torch.matmul(q, k.transpose(-1, -2)) / torch.sqrt(torch.tensor(d_k, dtype=q.dtype))

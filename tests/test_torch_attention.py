@@ -91,7 +91,21 @@ def test_gate():
     assert not ok(1024, 200, 128, 128)  # M < 256
     assert not ok(1024, 1024, 64, 64)  # D not a multiple of 128
     assert not ok(1024, 1024, 640, 64)  # D > 512
-    assert not ok(1024, 1024, 128, 256)  # Dv wider than the kernel takes
+    assert ok(1024, 1024, 128, 256)  # any Dv, as JAX's gate
+
+
+def test_wide_values_raise_off_the_cpu():
+    """Dv > MAX_DV at the kernel's shapes: on the CPU the plain version
+    runs; off the CPU (a meta tensor stands in for a CUDA one here;
+    tests/test_torch_cuda.py checks the card) ``_attention`` raises
+    NotImplementedError naming the limit instead of leaving the kernel's
+    path."""
+    q, k, v = (torch.from_numpy(a) for a in qkv(1, 1, 256, 256, 128, 256, seed=12))
+    got = ttr._attention(q, k, v)
+    torch.testing.assert_close(got, tattn.attention_reference(q, k, v), rtol=0, atol=0)
+    meta = [torch.empty(t.shape, device="meta") for t in (q, k, v)]
+    with pytest.raises(NotImplementedError, match="Dv <= 128"):
+        ttr._attention(*meta)
 
 
 @pytest.mark.parametrize("bad", ["rank", "k_shape", "d_odd", "dv_wide"])

@@ -129,3 +129,104 @@ def test_unfused_dgcnn_raises_on_card(cuda):
     net = DGCNN(emb_dims=64, k=5, device=cuda).eval()  # f32: the fused gate is off
     with pytest.raises(NotImplementedError, match="K7"):
         net(torch.zeros(1, 32, 3, device=cuda))
+
+
+def test_k5_gate_refuses_what_the_kernel_refuses(cuda):
+    """k=40 is past K5's k <= 32: the gate turns it away and the bf16 eval
+    DGCNN raises NotImplementedError naming the limit, where before the gate
+    admitted it and the kernel's argument check raised ValueError."""
+    from learning3d_tpu_torch.models import DGCNN
+
+    net = DGCNN(emb_dims=64, k=40, dtype=torch.bfloat16, device=cuda).eval()
+    with pytest.raises(NotImplementedError, match="k <= 32"):
+        net(torch.zeros(1, 128, 3, device=cuda))
+
+
+def test_k6_wide_values_raise(cuda):
+    """Dv=256 at the pointer's shapes: the attention raises
+    NotImplementedError naming K6's limit instead of running the plain
+    chain on the card."""
+    from learning3d_tpu_torch.utils.transformer import _attention
+
+    q = torch.zeros(1, 1, 256, 128, device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros(1, 1, 256, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="Dv <= 128"):
+        _attention(q, q, v)
+
+
+def int8_chain(rng, emb, device):
+    """Random int8 PointNet stages for K2: (w1, b1, qlayers)."""
+    ws, bs = folded(rng, emb, device)
+    qlayers = []
+    for w, b in zip(ws[1:], bs[1:]):
+        s_w = w.abs().amax(0).clamp_min(1e-12) / 127
+        qlayers.append((torch.clamp(torch.round(w / s_w), -127, 127).to(torch.int8), s_w, b,
+                        float(rng.uniform(0.01, 0.05))))
+    return ws[0], bs[0], qlayers
+
+
+# emb 1024: two channel groups; 640: a partial group; N: full tiles, a
+# ragged tail, fewer points than a tile.
+@pytest.mark.parametrize("batch,n_pts,emb", [(4, 1024, 1024), (3, 1000, 640), (2, 37, 64)])
+def test_k2_matches_plain(cuda, batch, n_pts, emb):
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.pointnet_fused import (
+        PointNetInt8Weights, pn_int8_reference, pointnet_pooled_int8_kernel)
+
+    rng = np.random.default_rng(emb + 1)
+    pack = PointNetInt8Weights(*int8_chain(rng, emb, cuda))
+    x = torch.from_numpy(rng.normal(size=(batch, n_pts, 3)).astype(np.float32)).to(cuda)
+    before = LAUNCHES["pointnet_pooled_int8"]
+    got = pointnet_pooled_int8_kernel(x, pack)
+    want = pn_int8_reference(x, pack)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pointnet_pooled_int8"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape == (batch, emb)
+    # the same int8 products; stage 1's f32 sum or an epilogue may round
+    # otherwise and move a requantized activation by one step
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("case,batch,n_pts,k,emb", [
+    ("full", 2, 1024, 20, 512), ("ragged", 3, 1000, 20, 512), ("ties", 2, 1000, 20, 512),
+    ("narrow", 2, 100, 7, 64),
+])
+def test_k9_matches_plain(cuda, case, batch, n_pts, k, emb):
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.dgcnn_fused import (
+        DGCNNInt8Weights, dgcnn_encode_int8_kernel, dgcnn_int8_reference)
+
+    rng = np.random.default_rng(n_pts + emb + 1)
+    ws, bs = dgcnn_weights(rng, emb, cuda)
+    pack = DGCNNInt8Weights(ws, bs, (0.02, 0.03, 0.03, 0.04))
+    x = lattice_cloud(rng, batch, n_pts) if case == "ties" else rng.normal(size=(batch, n_pts, 3))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    before = LAUNCHES["dgcnn_encode_fused_int8"]
+    got = dgcnn_encode_int8_kernel(x, pack, k).float()
+    want = dgcnn_int8_reference(x, pack, k).float()
+    torch.cuda.synchronize()
+    assert LAUNCHES["dgcnn_encode_fused_int8"] == before + 1
+    assert got.shape == want.shape == (batch, n_pts, emb)
+    # same neighbors and int8 operands; an epilogue may round otherwise
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("int8_pv", [True, False])
+@pytest.mark.parametrize("batch,heads,n,m,d", [(2, 4, 1024, 1024, 128), (1, 2, 1000, 1000, 128), (1, 1, 37, 200, 256)])
+def test_k10_matches_plain(cuda, int8_pv, batch, heads, n, m, d):
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.attention import attention_int8_kernel, attention_int8_reference
+
+    rng = np.random.default_rng(n + d + int8_pv)
+    q, k, v = (torch.from_numpy(rng.integers(-127, 128, (batch, heads, s, d)).astype(np.int8)).to(cuda)
+               for s in (n, m, m))
+    s_q, s_k, s_v = 0.004, 0.005, 0.03
+    before = LAUNCHES["attention_int8"]
+    got = attention_int8_kernel(q, k, v, s_q, s_k, s_v, int8_pv).float()
+    want = attention_int8_reference(q, k, v, s_q, s_k, s_v, int8_pv).float()
+    torch.cuda.synchronize()
+    assert LAUNCHES["attention_int8"] == before + 1
+    assert got.shape == want.shape == (batch, heads, n, d)
+    # exact int8 products; exp, the row sum's order and round(127 p) may
+    # differ by an ulp or one step of P
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()

@@ -79,6 +79,32 @@ def test_knn_drops_self_and_gathers():
                                   np.asarray(jgeo.index_points(jnp.asarray(x), jnp.asarray(idx[:, :, 0].numpy()))))
 
 
+def test_square_distance_feature_width_matches_jax():
+    """At a feature width (C=64) the channel-by-channel f32 accumulation
+    against JAX's HIGHEST-precision einsum: f32 sums in another order,
+    rtol 1e-5 (distinct clouds keep every distance far from 0)."""
+    rng = np.random.default_rng(14)
+    src, dst = rng.normal(size=(2, 60, 64)).astype(np.float32), rng.normal(size=(2, 50, 64)).astype(np.float32)
+    want = np.asarray(jgeo.square_distance(jnp.asarray(src), jnp.asarray(dst)))
+    got = tgeo.square_distance(torch.from_numpy(src), torch.from_numpy(dst))
+    assert got.shape == (2, 60, 50)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
+
+
+def test_square_distance_holds_no_channel_axis():
+    """No (N, M, C) intermediate: at N=M=512, C=64 the largest single
+    allocation under the profiler is an (N, M) f32 buffer (1 MiB), where
+    the elementwise product over C would be 64 MiB."""
+    from torch.profiler import ProfilerActivity, profile
+
+    src, dst = torch.randn(512, 64), torch.randn(512, 64)
+    with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
+        d = tgeo.square_distance(src, dst)
+    assert d.shape == (512, 512)
+    largest = max(evt.self_cpu_memory_usage for evt in prof.events())
+    assert largest <= 512 * 512 * 4, largest
+
+
 def test_exact_knn_ties_to_smaller_index():
     """K5's own selection (exact per-coordinate differences) on the lattice
     against a float64 stable argsort."""
@@ -163,6 +189,27 @@ def test_fused_gate():
     assert not tfused.dgcnn_fused_ok(torch.zeros(1, 4, 3), net.convs, net.bns, 5)
     f32 = DGCNN(emb_dims=EMB, k=5, device="cpu").eval()
     assert not tfused.dgcnn_fused_ok(x, f32.convs, f32.bns, 5)
+
+
+@pytest.mark.parametrize("n_pts,k,emb,ok", [
+    (64, 32, 64, True), (64, 33, 64, False), (40, 40, 64, False), (4096, 20, 64, True),
+    (4097, 20, 64, False), (64, 5, 96, False), (8, 9, 64, False),
+])
+def test_fused_gate_holds_the_kernel_limits(n_pts, k, emb, ok):
+    """The gate admits exactly the shapes the kernel takes (k <= 32,
+    k <= N <= 4096, emb % 64 == 0), so no shape it admits reaches the
+    kernel's ValueError; a meta tensor stands in for the cloud."""
+    net = DGCNN(emb_dims=emb, k=k, dtype=torch.bfloat16, device="cpu").eval()
+    x = torch.empty(1, n_pts, 3, device="meta")
+    assert tfused.dgcnn_fused_ok(x, net.convs, net.bns, k) is ok
+    assert (tfused.kernel_limit(n_pts, k, emb) is None) is ok
+    if ok:
+        ws = [torch.empty(tuple(c.weight.shape[::-1])) for c in net.convs]
+        tfused._check_kernel_args(torch.zeros(1, n_pts, 3), ws, [torch.empty(w.shape[1]) for w in ws], k,
+                                  torch.bfloat16)
+    else:
+        with pytest.raises(NotImplementedError, match="K7"):
+            net(x)
 
 
 def test_unfused_path_off_the_cpu_raises():

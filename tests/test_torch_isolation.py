@@ -20,7 +20,7 @@ def port_files(*suffixes):
     files = [p for p in sorted(PORT.rglob("*")) if p.suffix in suffixes and ".build" not in p.parts]
     if ".py" in suffixes:
         files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_serve.py",
-                  ROOT / "tools" / "sweep_torch_kernels.py"]
+                  ROOT / "tools" / "sweep_torch_kernels.py", ROOT / "tools" / "time_kernel_build.py"]
     return files
 
 
@@ -70,6 +70,7 @@ def test_entry_points_default_to_cuda():
     from learning3d_tpu_torch import DEFAULT_DEVICE, resolve_device
     from learning3d_tpu_torch.models import DCP, DGCNN, Classifier, PointNet
     from learning3d_tpu_torch.serve import InferenceEngine
+    from learning3d_tpu_torch.utils.jax_import import load_quant_pointnet
     from learning3d_tpu_torch.utils.layers import MLP1d, BatchNorm, Linear
     from learning3d_tpu_torch.utils.transformer import (
         AnnotatedLayerNorm, FeedForward, MultiHeadedAttention, Transformer,
@@ -77,7 +78,8 @@ def test_entry_points_default_to_cuda():
 
     assert DEFAULT_DEVICE == "cuda"
     for entry in (PointNet, Classifier, DGCNN, DCP, Transformer, MultiHeadedAttention, FeedForward,
-                  AnnotatedLayerNorm, InferenceEngine, MLP1d, BatchNorm, Linear, resolve_device):
+                  AnnotatedLayerNorm, InferenceEngine, MLP1d, BatchNorm, Linear, resolve_device,
+                  load_quant_pointnet):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 

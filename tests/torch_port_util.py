@@ -54,3 +54,47 @@ def rel_err(got, want):
 
 def as_torch(arrays):
     return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def quant_pointnet_arrays(qm):
+    """The arrays of a JAX QuantPointNetClassifier pytree, as numpy, in the
+    layout ``learning3d_tpu_torch.utils.jax_import.load_quant_pointnet``
+    takes."""
+    def layer(q):
+        return {"w_q": np.asarray(q.w_q), "s_w": np.asarray(q.s_w), "b": np.asarray(q.b), "s_x": np.asarray(q.s_x)}
+
+    return {"w1": np.asarray(qm.w1), "b1": np.asarray(qm.b1), "enc": [layer(q) for q in qm.enc],
+            "head": [layer(q) for q in qm.head], "w_out": np.asarray(qm.w_out), "b_out": np.asarray(qm.b_out)}
+
+
+def quant_block_scales(block):
+    """The Python-float scales of a JAX QuantMHA or QuantFF (they live
+    outside its nnx state)."""
+    from learning3d_tpu_torch.quant import FF_SCALES, MHA_SCALES
+
+    names = MHA_SCALES if hasattr(block, "s_in_q") else FF_SCALES
+    return {n: getattr(block, n) for n in names}
+
+
+def quant_dcp_scales(jclone):
+    """{dotted block path: its scales} for every int8 block of a JAX
+    quantize_dcp clone with fused_layers=False."""
+    out = {}
+    for side in ("enc_layers", "dec_layers"):
+        for i, layer in enumerate(getattr(jclone.pointer, side)):
+            for attr in ("self_attn", "cross_attn", "ff"):
+                if hasattr(layer, attr):
+                    out[f"pointer.{side}.{i}.{attr}"] = quant_block_scales(getattr(layer, attr))
+    return out
+
+
+def assert_tie_flip_profile(got, want, steps=3e-2):
+    """The int8 tie-flip profile: all but < 1% of the elements within f32
+    rounding (1e-5 of max|want|), none further than ``steps`` of max|want|
+    (a few int8 quant steps)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    scale = float(np.abs(want).max())
+    diff = np.abs(got - want)
+    assert (diff > 1e-5 * scale).mean() < 0.01, (diff > 1e-5 * scale).mean()
+    assert diff.max() <= steps * scale, diff.max() / scale
