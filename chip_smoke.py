@@ -29,7 +29,8 @@ with the seconds since start:
    torch.topk and a gather (``library_ms``), and the bound;
 6. kernel (K6, attention_pallas): against its plain version at the
    pointer's shape (B=32, H=4, N=M=1024, D=Dv=128), the head's (H=1,
-   D=512, Dv=3) and a ragged N=M=1000; times, with
+   D=512, Dv=3), a ragged N=M=1000 and DCP(DGCNN(emb 1024))'s pointer
+   (D=Dv=256: two 128-wide slabs of output columns); times, with
    scaled_dot_product_attention as ``library_ms`` (at the head's shape with
    the first backend, in PyTorch's order, that takes it, named);
 7. serve_dcp: DCP(DGCNN(512, k=20)) in bf16 eval with numpy-seeded weights
@@ -58,6 +59,25 @@ with the seconds since start:
    requests: K9 launched 2, K10 6 and K6 1 times a chunk, every output
    finite, every est_R a rotation, r and est_t within DCP_TOL of the same
    clone on the plain versions;
+11. kernel (K11a encoder_layer_int8, K11b decoder_layer_int8): the fused
+   int8 pointer layers of quantize_dcp(..., fused_layers=True) in both P.V
+   modes at the DCP shape (B=32, N=1024, d=512, 4 heads, ff 1024) and at
+   N=512, on the encoder's features, against their plain versions with the
+   JAX package's tie-flip profile (max |diff| < 0.08, under 1% of the
+   elements above 2e-4); the unfused int8 layer (QuantMHA + QuantFF on K10
+   and torch._int_mm) as ``library_ms``;
+12. serve_dcp_int8_fused, serve_dcp_int8_hybrid_fused and
+   serve_dcp_int8_hybrid_fused_approx: bench.py's fused int8 DCP
+   configurations (int8 P.V; hybrid P.V; hybrid with DGCNN(approx_knn=True))
+   through InferenceEngine on 5 requests: K9 2, K11a 2, K11b 2, K6 1 and
+   K10 (attention_int8) 0 launches a chunk, so that no layer took the module
+   path; the DCP gates of phase 10; the approx phase also reports the share
+   of (query, neighbor) picks that differ from exact kNN (information only);
+   K5 and K9 with approx_knn=True against their plain versions first;
+13. serve_template: TemplateRegistrar over the hybrid fused clone (bench.py's
+   dcp_template_cached) on 5 requests: K9 1, K11a 2, K11b 2, K6 1, K10 0
+   launches a chunk, and the DCP gates against the same model on the plain
+   versions;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``. Any
 failed check raises, so the script exits non-zero and prints no result. It
@@ -87,6 +107,7 @@ TOL = 2e-2  # max |kernel - plain| <= TOL * max |plain|: same bf16 operands, oth
 AGREE = 0.99
 DCP_B, DCP_N, DCP_EMB, DCP_K = 32, 1024, 512, 20
 DCP_REQUESTS = (32, 10, 70)
+FUSED_REQUESTS = (32, 10, 70, 32, 20)  # 5 requests, 7 chunks of 32
 # r and est_t of the kernel path against the plain path, max |k - p| <=
 # DCP_TOL * max |p|: an f32 sum in another order can round an activation
 # to the neighbouring bf16 value (2^-8 of it), and the encoder, the pointer
@@ -459,6 +480,7 @@ def phase_kernel_k6(rng) -> dict:
         "pointer": qkv(DCP_B, 4, DCP_N, DCP_N, 128, 128),
         "head": qkv(DCP_B, 1, DCP_N, DCP_N, DCP_EMB, 3),
         "ragged": qkv(4, 4, 1000, 1000, 128, 128),
+        "dv256": qkv(DCP_B, 4, DCP_N, DCP_N, 256, 256),
     }
     errs, times = {}, {}
     with torch.inference_mode():
@@ -467,7 +489,7 @@ def phase_kernel_k6(rng) -> dict:
             want = attention_reference(q, k, v)
             torch.cuda.synchronize()
             errs[name] = check_close(got, want, f"K6 vs plain ({name})")
-        for name in ("pointer", "head"):
+        for name in ("pointer", "head", "dv256"):
             q, k, v = cases[name]
             times[name] = {
                 "kernel_ms": cuda_ms(lambda: attention_pallas(q, k, v)),
@@ -479,6 +501,7 @@ def phase_kernel_k6(rng) -> dict:
         l_ms = cuda_ms(lambda: sdpa(q, k, v))
         times["pointer"]["library_ms"] = l_ms
         times["head"]["library_ms"], times["head"]["library"] = head_library_ms(*cases["head"])
+        times["dv256"]["library_ms"] = cuda_ms(lambda: sdpa(*cases["dv256"]))
     bound_ms, bound_by = attention_bound(*cases["pointer"])
     result = {
         "max_abs_err": max(a for a, _ in errs.values()),
@@ -487,7 +510,8 @@ def phase_kernel_k6(rng) -> dict:
         "library_ms": l_ms, "bound_ms": bound_ms, "bound_by": bound_by,
     }
     emit("kernel", name="attention_pallas", tolerance=f"max|k-p| <= {TOL}*max|p|",
-         shapes={"pointer": [DCP_B, 4, DCP_N, DCP_N, 128, 128], "head": [DCP_B, 1, DCP_N, DCP_N, DCP_EMB, 3]},
+         shapes={"pointer": [DCP_B, 4, DCP_N, DCP_N, 128, 128], "head": [DCP_B, 1, DCP_N, DCP_N, DCP_EMB, 3],
+                 "dv256": [DCP_B, 4, DCP_N, DCP_N, 256, 256]},
          errors={k: {"abs": a, "rel": r} for k, (a, r) in errs.items()}, times=times,
          library="torch scaled_dot_product_attention at the pointer's shape, yardstick only", **result)
     return result
@@ -502,14 +526,25 @@ def plain_versions():
     from learning3d_tpu_torch.models import dgcnn
     from learning3d_tpu_torch.utils import svd, transformer
 
-    def encoder(x, convs, bns, k):
+    from learning3d_tpu_torch.kernels import transformer_int8
+
+    def encoder(x, convs, bns, k, approx_knn=False):
         folded = [dgcnn_fused.fold_bn(c, bn) for c, bn in zip(convs, bns)]
-        return dgcnn_fused.dgcnn_encode_reference(x.float(), [w for w, _ in folded], [b for _, b in folded], k)
+        return dgcnn_fused.dgcnn_encode_reference(x.float(), [w for w, _ in folded], [b for _, b in folded], k,
+                                                  approx_knn=approx_knn)
+
+    def fused_layer(layer, x, *memory):
+        if not (layer._on_gate(x) and all(m.shape[1] == x.shape[1] for m in memory)):
+            return layer.inner(x, *memory)
+        ref = transformer_int8.decoder_layer_int8_reference if memory else transformer_int8.encoder_layer_int8_reference
+        return ref(x, *memory, layer.weights(), layer.scales, n_heads=layer.n_heads, int8_pv=layer.int8_pv)
 
     patches = [(dgcnn, "dgcnn_encode_fused", encoder), (transformer, "attention_fused", attention.attention_reference),
                (svd, "attention_fused", attention.attention_reference),
                (dgcnn, "dgcnn_encode_int8_kernel", dgcnn_fused.dgcnn_int8_reference),
-               (quant, "attention_int8", attention.attention_int8_reference)]
+               (quant, "attention_int8", attention.attention_int8_reference),
+               (quant.QuantEncoderLayerFused, "forward", fused_layer),
+               (quant.QuantDecoderLayerFused, "forward", fused_layer)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
@@ -790,60 +825,196 @@ def phase_kernel_k10(rng) -> dict:
     return result
 
 
-def phase_serve_dcp_int8(qdcp, rng) -> dict:
-    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
-    from learning3d_tpu_torch.serve import InferenceEngine
-
-    engine = InferenceEngine(qdcp, batch_size=DCP_B)
-    requests = [(rng.normal(size=(n, DCP_N, 3)).astype(np.float32), rng.normal(size=(n, DCP_N, 3)).astype(np.float32))
-                for n in DCP_REQUESTS]
-    chunks = sum(-(-n // DCP_B) for n in DCP_REQUESTS)
-    reset_launches()
-    outs = [engine(t, s) for t, s in requests]
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
-    for name, per_chunk in (("dgcnn_encode_fused_int8", 2), ("attention_int8", 6), ("attention_pallas", 1),
-                            ("dgcnn_encode_fused", 0)):
-        require(launches[name] == per_chunk * chunks,
-                f"{name} launched {launches[name]} times for {chunks} chunks (want {per_chunk} a chunk)")
+def dcp_gates(outs, plain, what) -> dict:
+    """The DCP output gates: shapes, every output finite, every est_R a
+    rotation, r and est_t within DCP_TOL of the plain versions' run."""
     rot_err = det_err = 0.0
-    for (t, _), out in zip(requests, outs):
-        n = t.shape[0]
-        require(out["est_R"].shape == (n, 3, 3) and out["r"].shape == (n, DCP_N, DCP_EMB), "int8 result shapes")
+    for out in outs:
+        n = out["est_R"].shape[0]
+        require(out["r"].shape == (n, DCP_N, DCP_EMB), f"{what} result shapes")
         for key, val in out.items():
-            require(bool(np.isfinite(val).all()), f"every int8 {key} finite")
+            require(bool(np.isfinite(val).all()), f"every {what} {key} finite")
         R = out["est_R"].astype(np.float64)
         rot_err = max(rot_err, float(np.abs(R @ np.swapaxes(R, -1, -2) - np.eye(3)).max()))
         det_err = max(det_err, float(np.abs(np.linalg.det(R) - 1.0).max()))
-    require(rot_err <= ROT_TOL and det_err <= ROT_TOL, f"int8 est_R not a rotation: {rot_err}, {det_err}")
-
-    with plain_versions():
-        plain = [engine(t, s) for t, s in requests]
+    require(rot_err <= ROT_TOL and det_err <= ROT_TOL, f"{what} est_R not a rotation: {rot_err}, {det_err}")
     agree = {}
     for key in ("r", "est_t"):
         got = torch.from_numpy(np.concatenate([o[key] for o in outs]))
         want = torch.from_numpy(np.concatenate([p[key] for p in plain]))
-        agree[key] = check_close(got, want, f"int8 DCP {key}, kernels vs plain", DCP_TOL)
+        a, r = check_close(got, want, f"{what} {key}, kernels vs plain", DCP_TOL)
+        agree[key] = {"abs": a, "rel": r}
+    return {"tolerance": f"max|k-p| <= {DCP_TOL}*max|p| for r and est_t", "agree": agree,
+            "rotation": {"max_RRt_minus_I": rot_err, "max_det_minus_1": det_err}}
 
-    template, source = requests[0]
-    engine(template, source)
+
+def phase_serve_dcp_variant(phase, model, rng, per_chunk, requests=DCP_REQUESTS, template=False, **extra) -> dict:
+    """Serve an int8 DCP clone through InferenceEngine (or, with
+    ``template``, TemplateRegistrar against one template), hold the launch
+    counts of the kernels a chunk (``per_chunk``; every other kernel of
+    LAUNCHES 0, unless listed) and the DCP gates against the same model on
+    the plain versions; time a 32-pair request."""
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.serve import InferenceEngine, TemplateRegistrar
+
+    cloud = lambda n: rng.normal(size=(n, DCP_N, 3)).astype(np.float32)  # noqa: E731
+    if template:
+        tmpl = cloud(1)[0]
+        sources = [cloud(n) for n in requests]
+        engine = TemplateRegistrar(model, tmpl, batch_size=DCP_B)
+        calls = [(s,) for s in sources]
+    else:
+        engine = InferenceEngine(model, batch_size=DCP_B)
+        calls = [(cloud(n), cloud(n)) for n in requests]
+    chunks = sum(-(-n // DCP_B) for n in requests)
+    reset_launches()
+    outs = [engine(*c) for c in calls]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    for name, count in launches.items():
+        want = per_chunk.get(name, 0) * chunks
+        require(count == want, f"{phase}: {name} launched {count} times for {chunks} chunks (want {want})")
+    with plain_versions():
+        plain_engine = TemplateRegistrar(model, tmpl, batch_size=DCP_B) if template else engine
+        plain = [plain_engine(*c) for c in calls]
+    gates = dcp_gates(outs, plain, phase)
+
+    first = calls[0]
+    engine(*first)
     reps = 5
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        engine(template, source)
+        engine(*first)
     host_s = (time.perf_counter() - t0) / reps
-    t_dev, s_dev = torch.from_numpy(template).cuda(), torch.from_numpy(source).cuda()
+    dev = [torch.from_numpy(a).cuda() for a in first]
     with torch.inference_mode():
-        model_ms = cuda_ms(lambda: qdcp(t_dev, s_dev), reps=5)
-    emit("serve_dcp_int8", requests=list(DCP_REQUESTS), chunks=chunks,
-         launches={k: launches[k] for k in ("dgcnn_encode_fused_int8", "attention_int8", "attention_pallas")},
-         tolerance=f"max|k-p| <= {DCP_TOL}*max|p| for r and est_t",
-         agree={k: {"abs": a, "rel": r} for k, (a, r) in agree.items()},
-         rotation={"max_RRt_minus_I": rot_err, "max_det_minus_1": det_err},
-         pairs_per_s=DCP_B / host_s, engine_ms=1e3 * host_s, model_ms=model_ms,
-         model_pairs_per_s=DCP_B / (model_ms * 1e-3))
+        if template:
+            temb = engine._temb.expand(DCP_B, -1, -1)
+            tdev = engine._template.expand(DCP_B, -1, -1)
+            model_ms = cuda_ms(lambda: model.register_encoded(tdev, temb, dev[0]), reps=5)
+        else:
+            model_ms = cuda_ms(lambda: model(*dev), reps=5)
+    emit(phase, requests=list(requests), chunks=chunks,
+         launches={k: v for k, v in launches.items() if v}, **gates, pairs_per_s=DCP_B / host_s,
+         engine_ms=1e3 * host_s, model_ms=model_ms, model_pairs_per_s=DCP_B / (model_ms * 1e-3), **extra)
     return launches
+
+
+LAYER_TOL = {"max_abs": 0.08, "atol": 2e-4, "frac": 0.01}  # the JAX package's K11 test
+
+
+def tie_flip_profile(got, want, what) -> dict:
+    """K11 against its plain version: max |diff| < 0.08 and under 1% of the
+    elements above 2e-4 (an f32 sum in another order flips round(x / s) at
+    a .5 tie, rarely; a wrong kernel moves every element)."""
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()), f"{what}: shape and finite")
+    d = (got.float() - want.float()).abs()
+    max_abs, frac = d.max().item(), (d > LAYER_TOL["atol"]).float().mean().item()
+    require(max_abs < LAYER_TOL["max_abs"] and frac < LAYER_TOL["frac"],
+            f"{what}: max |diff| {max_abs}, share above {LAYER_TOL['atol']} {frac}")
+    return {"max_abs": max_abs, "share_above_atol": frac}
+
+
+def k11_bound(batch, n, d, d_ff, heads, decoder, int8_pv) -> tuple[float, str]:
+    """K11's bound: its int8 GEMMs and attention products (the hybrid P.V at
+    the bf16 rate); its bytes: x (and the memory) read once as bf16, the
+    int8 weights and their f32 vectors once, the output written once."""
+    rows = batch * n
+    gemm = 2.0 * rows * d * (3 * d + d + 2 * d_ff) + (2.0 * rows * d * 4 * d if decoder else 0.0)
+    att = 2.0 * batch * heads * n * n * (d // heads) * (2 if decoder else 1)  # Q K^T, and as much for P V
+    weights = d * (4 * d + 2 * d_ff) * (2 if decoder else 1)
+    vectors = 4 * 3 * (4 * d + 2 * d_ff) * (2 if decoder else 1)
+    nbytes = 2 * rows * d * (3 if decoder else 2) + weights + vectors
+    return bound(0.0 if int8_pv else att, nbytes, int8_ops=gemm + (2 * att if int8_pv else att))
+
+
+def phase_kernel_k11(layers, inputs) -> dict:
+    """``layers``: {int8_pv: (QuantEncoderLayerFused, QuantDecoderLayerFused)}
+    of the served clones; ``inputs``: bf16 encoder features x, memory."""
+    from learning3d_tpu_torch.kernels import transformer_int8 as k11
+
+    x_full, mem_full = inputs
+    d, heads = x_full.shape[-1], layers[True][0].n_heads
+    d_ff = layers[True][0].inner.ff.w1_q.shape[1]
+    results, errs = {}, {}
+    with torch.inference_mode():
+        for int8_pv, (enc, dec) in layers.items():
+            mode = "int8_pv" if int8_pv else "hybrid"
+            for kind, layer in (("encoder", enc), ("decoder", dec)):
+                ref = k11.decoder_layer_int8_reference if kind == "decoder" else k11.encoder_layer_int8_reference
+                entry = k11.decoder_layer_int8 if kind == "decoder" else k11.encoder_layer_int8
+                for n in (DCP_N, 512):
+                    args = (x_full[:, :n].contiguous(),) + ((mem_full[:, :n].contiguous(),) if kind == "decoder" else ())
+                    require(k11.fused_layer_ok(n, d, heads), f"K11 gate at N={n}")
+                    got = entry(*args, layer.pack, int8_pv=int8_pv)
+                    want = ref(*args, layer.weights(), layer.scales, n_heads=heads, int8_pv=int8_pv)
+                    torch.cuda.synchronize()
+                    errs[f"{kind}/{mode}/N{n}"] = tie_flip_profile(got, want, f"K11 {kind} {mode} N={n}")
+                args = (x_full,) + ((mem_full,) if kind == "decoder" else ())
+                res = {
+                    "kernel_ms": cuda_ms(lambda: entry(*args, layer.pack, int8_pv=int8_pv)),
+                    "plain_ms": cuda_ms(lambda: ref(*args, layer.weights(), layer.scales, n_heads=heads,
+                                                    int8_pv=int8_pv), reps=3, warmup=1),
+                    "library_ms": cuda_ms(lambda: layer.inner(*args), reps=5),
+                }
+                res["bound_ms"], res["bound_by"] = k11_bound(DCP_B, DCP_N, d, d_ff, heads, kind == "decoder", int8_pv)
+                results[f"{kind}/{mode}"] = res
+    out = {}
+    for kind in ("encoder", "decoder"):
+        served = results[f"{kind}/int8_pv"]
+        kerrs = {k: v for k, v in errs.items() if k.startswith(kind)}
+        out[kind] = {
+            **served, "max_abs_err": max(e["max_abs"] for e in kerrs.values()),
+            "max_rel_err": max(e["max_abs"] for e in kerrs.values()) / max(x_full.float().abs().max().item(), 1e-30),
+            "hybrid": results[f"{kind}/hybrid"],
+        }
+        emit("kernel", name=f"{kind}_layer_int8",
+             tolerance=f"max|k-p| < {LAYER_TOL['max_abs']}, under {LAYER_TOL['frac']} of elements above "
+                       f"{LAYER_TOL['atol']}",
+             shape={"B": DCP_B, "N": [DCP_N, 512], "d": d, "heads": heads, "ff": d_ff}, errors=kerrs,
+             library="the unfused int8 layer (QuantMHA + QuantFF: K10 and torch._int_mm), yardstick only",
+             **out[kind])
+    return out
+
+
+def approx_pick_share(x, k) -> float:
+    """The share of (query, neighbor) picks of approx kNN that exact kNN
+    does not make."""
+    from learning3d_tpu_torch.kernels.dgcnn_fused import approx_knn_indices, exact_knn
+
+    a, e = approx_knn_indices(x, k), exact_knn(x, k)
+    same = (a[..., :, None] == e[..., None, :]).any(-1)
+    return 1.0 - same.float().mean().item()
+
+
+def phase_approx_kernels(dcp, qdcp, rng) -> dict:
+    """K5 and K9 with approx_knn=True against their plain versions on the
+    full and a two-tile (N=320) cloud."""
+    from learning3d_tpu_torch.kernels.dgcnn_fused import (
+        dgcnn_encode_int8_kernel, dgcnn_encode_kernel, dgcnn_encode_reference, dgcnn_int8_reference)
+
+    ws, bs = folded_dgcnn(dcp)
+    pack = qdcp.emb_nn.int8_weights
+    errs = {}
+    with torch.inference_mode():
+        for name, shape in (("full", (DCP_B, DCP_N, 3)), ("two_tiles", (3, 320, 3))):
+            x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+            for kname, got, want in (
+                    ("K5", dgcnn_encode_kernel(x, ws, bs, DCP_K, approx_knn=True),
+                     dgcnn_encode_reference(x, ws, bs, DCP_K, approx_knn=True)),
+                    ("K9", dgcnn_encode_int8_kernel(x, pack, DCP_K, approx_knn=True),
+                     dgcnn_int8_reference(x, pack, DCP_K, approx_knn=True))):
+                torch.cuda.synchronize()
+                a, r = check_close(got, want, f"{kname} approx vs plain ({name})")
+                errs[f"{kname}/{name}"] = {"abs": a, "rel": r}
+            if name == "full":
+                share = approx_pick_share(x, DCP_K)
+                k5_ms = cuda_ms(lambda: dgcnn_encode_kernel(x, ws, bs, DCP_K, approx_knn=True))
+                k9_ms = cuda_ms(lambda: dgcnn_encode_int8_kernel(x, pack, DCP_K, approx_knn=True))
+    emit("kernel_approx_knn", tolerance=f"max|k-p| <= {TOL}*max|p|", errors=errs, k5_ms=k5_ms, k9_ms=k9_ms,
+         picks_differing_from_exact=share)
+    return {"share": share}
 
 
 def kernel_entry(name, source, replaces, launches, res) -> dict:
@@ -894,7 +1065,32 @@ def main() -> None:
     qdcp = quantize_dcp(dcp, calib_t, calib_s, int8_pv=True, fused_layers=False)
     k9 = phase_kernel_k9(qdcp, rng)
     k10 = phase_kernel_k10(rng)
-    dcp_int8_launches = phase_serve_dcp_int8(qdcp, rng)
+    dcp_int8_launches = phase_serve_dcp_variant("serve_dcp_int8", qdcp, rng, {
+        "dgcnn_encode_fused_int8": 2, "attention_int8": 6, "attention_pallas": 1})
+    del qdcp
+
+    # bench.py's fused int8 DCP configurations: quantize_dcp's default
+    # fused_layers=True, int8 and hybrid P.V; the approx clone is the hybrid
+    # one with approx kNN switched on after calibration, as bench.py scopes
+    # L3D_APPROX_KNN around the measurement only
+    fused = {pv: quantize_dcp(dcp, calib_t, calib_s, int8_pv=pv, fused_layers=True) for pv in (True, False)}
+    approx = quantize_dcp(dcp, calib_t, calib_s, int8_pv=False, fused_layers=True)
+    approx.emb_nn.approx_knn = True
+    with torch.inference_mode():
+        feats = [fused[True].emb_nn(torch.from_numpy(rng.normal(size=(DCP_B, DCP_N, 3)).astype(np.float32)).cuda())
+                 for _ in range(2)]
+    k11 = phase_kernel_k11({pv: (q.pointer.enc_layers[0], q.pointer.dec_layers[0]) for pv, q in fused.items()},
+                           feats)
+    del feats
+    per_chunk = {"dgcnn_encode_fused_int8": 2, "encoder_layer_int8": 2, "decoder_layer_int8": 2,
+                 "attention_pallas": 1}
+    fused_launches = phase_serve_dcp_variant("serve_dcp_int8_fused", fused[True], rng, per_chunk, FUSED_REQUESTS)
+    phase_serve_dcp_variant("serve_dcp_int8_hybrid_fused", fused[False], rng, per_chunk, FUSED_REQUESTS)
+    share = phase_approx_kernels(dcp, approx, rng)["share"]
+    phase_serve_dcp_variant("serve_dcp_int8_hybrid_fused_approx", approx, rng, per_chunk, FUSED_REQUESTS,
+                            picks_differing_from_exact=share)
+    phase_serve_dcp_variant("serve_template", fused[False], rng, {**per_chunk, "dgcnn_encode_fused_int8": 1},
+                            FUSED_REQUESTS, template=True)
 
     csrc = "learning3d_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
@@ -910,6 +1106,12 @@ def main() -> None:
                      "learning3d_tpu/kernels/dgcnn_fused.py:455", dcp_int8_launches["dgcnn_encode_fused_int8"], k9),
         kernel_entry("attention_int8", csrc + "attention_int8.cu",
                      "learning3d_tpu/kernels/attention.py:222", dcp_int8_launches["attention_int8"], k10),
+        kernel_entry("encoder_layer_int8", csrc + "transformer_int8.cu",
+                     "learning3d_tpu/kernels/transformer_int8.py:274", fused_launches["encoder_layer_int8"],
+                     k11["encoder"]),
+        kernel_entry("decoder_layer_int8", csrc + "transformer_int8.cu",
+                     "learning3d_tpu/kernels/transformer_int8.py:289", fused_launches["decoder_layer_int8"],
+                     k11["decoder"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

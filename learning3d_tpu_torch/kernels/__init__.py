@@ -13,6 +13,8 @@ LAUNCHES: dict[str, int] = {
     "pointnet_pooled_int8": 0,
     "dgcnn_encode_fused_int8": 0,
     "attention_int8": 0,
+    "encoder_layer_int8": 0,
+    "decoder_layer_int8": 0,
 }
 
 

@@ -32,11 +32,15 @@ LINK_FLAGS = (*ARCH, "-shared")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "pointnet_pooled_bf16": ([_P] * 12 + [_I, _I, _I, _P], ctypes.c_int),
-    "dgcnn_encode_bf16": ([_P] * 13 + [_I, _I, _I, _I, _P], ctypes.c_int),
+    "dgcnn_encode_bf16": ([_P] * 14 + [_I] * 5 + [_P], ctypes.c_int),
+    "dgcnn_knn_scale": ([_P] * 2 + [_I] * 3 + [_F, _P], ctypes.c_int),
     "attention_bf16": ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], ctypes.c_int),
     "pointnet_pooled_int8": ([_P] * 11 + [_F] * 4 + [_P, _I, _I, _I, _P], ctypes.c_int),
-    "dgcnn_encode_int8": ([_P] * 13 + [_F] * 4 + [_P, _I, _I, _I, _I, _P], ctypes.c_int),
+    "dgcnn_encode_int8": ([_P] * 13 + [_F] * 4 + [_P, _P] + [_I] * 5 + [_P], ctypes.c_int),
     "attention_int8": ([_P] * 4 + [_I] * 5 + [_F, _F, _I, _P], ctypes.c_int),
+    "layer_ln_quant": ([_P] * 4 + [_I] * 4 + [_F] * 3 + [_P], ctypes.c_int),
+    "layer_gemm_s8": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
+    "layer_attention_s8": ([_P] * 4 + [_I] * 8 + [_F] * 3 + [_I, _P], ctypes.c_int),
     "l3d_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -22,7 +22,7 @@ from learning3d_tpu_torch.kernels import LAUNCHES
 from learning3d_tpu_torch.kernels import _build
 from learning3d_tpu_torch.ops.int8 import f32_scalar
 
-MAX_D, MAX_DV = 512, 128  # what the kernel's shared-memory tiles take
+MAX_D, MAX_DV = 512, 512  # what the kernel's shared-memory tiles take (Dv in 128-wide slabs)
 
 
 def attention_reference(q, k, v):

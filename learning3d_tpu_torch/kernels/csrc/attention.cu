@@ -41,7 +41,10 @@
 //   a multiple of 8) and its B fragments come from ldmatrix.trans. Dv=3
 //   (the head's xyz values) is padded to the mma width inside the kernel:
 //   the tile's columns past Dv are zero, never padded in device memory.
-//   Dv up to 128.
+//   Dv up to 512: Dv > 128 runs pass 2 once per 128-wide slab of output
+//   columns (S recomputed per slab, as K10 does for D > 128), so the V tile
+//   and the O accumulators stay at 128 columns and no third instance is
+//   built. DCP over DGCNN(emb 1024) has d_k = Dv = 256: two slabs.
 // * Ragged N and M: query rows past N are zero and not written; key columns
 //   past M are -inf in pass 1 and p = 0 in pass 2.
 
@@ -60,7 +63,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsQ = 16 * kWarps;  // query rows per block
 constexpr int kTileK = 64;           // keys per tile
 constexpr int kMaxD = 512;
-constexpr int kMaxDv = 128;
+constexpr int kMaxDv = 512;
 
 struct Args {
   const bf16* q;
@@ -117,14 +120,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // Rows [r0, r0 + rows) of a (total, d) bf16 matrix into padded shared rows;
-// rows past `total` are zero.
+// rows past `total` are zero. With `width` < d, only columns [c0, c0 +
+// width) of each source row (width % 8 == 0).
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int rows,
-                                          int total, int d) {
-  const int chunks = d / 8, ld = d + 8;
+                                          int total, int d, int c0 = 0, int width = 0) {
+  if (width == 0) width = d;
+  const int chunks = width / 8, ld = width + 8;
   for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
     const int r = i / chunks, c = (i - r * chunks) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < total) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d + c);
+    if (r0 + r < total) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d + c0 + c);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
   }
 }
@@ -193,78 +198,81 @@ __global__ void __launch_bounds__(kThreads, 2) attention_bf16_kernel(Args args) 
     mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
   }
 
-  // pass 2: p = expf(s - m), l = sum(p), O += bf16(P) @ V
-  float l[2] = {0.f, 0.f};
-  float o[NTV][4];
+  // pass 2, per slab of 8 NTV output columns: p = expf(s - m), l = sum(p),
+  // O += bf16(P) @ V
+  bf16* out = args.out + (size_t)bh * args.n * args.dv;
+  for (int v0 = 0; v0 < args.dv; v0 += 8 * NTV) {
+    float l[2] = {0.f, 0.f};
+    float o[NTV][4];
 #pragma unroll
-  for (int j = 0; j < NTV; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  for (int kt = 0; kt < args.m; kt += kTileK) {
-    __syncthreads();
-    load_tile(ks, kg, kt, kTileK, args.m, d);
-    if (args.dv == 8 * NTV) {
-      load_tile(vs, vg, kt, kTileK, args.m, args.dv);
-    } else {
-      for (int i = threadIdx.x; i < kTileK * 8 * NTV; i += kThreads) {
-        const int key = i / (8 * NTV), col = i - key * (8 * NTV);
-        bf16 val = __float2bfloat16_rn(0.f);
-        if (col < args.dv && kt + key < args.m) val = vg[(size_t)(kt + key) * args.dv + col];
-        vs[key * kLdV + col] = val;
-      }
-    }
-    __syncthreads();
-    float s[8][4];
-    scores(s, qs, ks, d, m0, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = kt + 8 * j + 2 * t;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = c + (e & 1) < args.m ? expf(__fsub_rn(__fmul_rn(s[j][e], args.scale), mx[e >> 1])) : 0.f;
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-    // B fragments of V (row-major [key][col]) by ldmatrix.trans: lane l
-    // addresses key row 16 kk + l % 16, column 8j + 8 (l / 16).
-    const bf16* pv = vs + (lane & 15) * kLdV + (lane >> 4) * 8;
-#pragma unroll
-    for (int kk = 0; kk < kTileK / 16; ++kk) {
-      const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]), pack(s[2 * kk][2], s[2 * kk][3]),
-                             pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      if constexpr (NTV == 1) {
-        uint32_t b[2];
-        ldmatrix_x2_trans(b, pv + 16 * kk * kLdV);
-        mma_bf16(o[0], a, b[0], b[1]);
+    for (int j = 0; j < NTV; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    for (int kt = 0; kt < args.m; kt += kTileK) {
+      __syncthreads();
+      load_tile(ks, kg, kt, kTileK, args.m, d);
+      if (args.dv % 8 == 0 && v0 + 8 * NTV <= args.dv) {
+        load_tile(vs, vg, kt, kTileK, args.m, args.dv, v0, 8 * NTV);
       } else {
+        for (int i = threadIdx.x; i < kTileK * 8 * NTV; i += kThreads) {
+          const int key = i / (8 * NTV), col = i - key * (8 * NTV);
+          bf16 val = __float2bfloat16_rn(0.f);
+          if (v0 + col < args.dv && kt + key < args.m) val = vg[(size_t)(kt + key) * args.dv + v0 + col];
+          vs[key * kLdV + col] = val;
+        }
+      }
+      __syncthreads();
+      float s[8][4];
+      scores(s, qs, ks, d, m0, lane);
 #pragma unroll
-        for (int j = 0; j < NTV; j += 2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, pv + 16 * kk * kLdV + 8 * j);
-          mma_bf16(o[j], a, b[0], b[1]);
-          mma_bf16(o[j + 1], a, b[2], b[3]);
+      for (int j = 0; j < 8; ++j) {
+        const int c = kt + 8 * j + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = c + (e & 1) < args.m ? expf(__fsub_rn(__fmul_rn(s[j][e], args.scale), mx[e >> 1])) : 0.f;
+          s[j][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+      // B fragments of V (row-major [key][col]) by ldmatrix.trans: lane l
+      // addresses key row 16 kk + l % 16, column 8j + 8 (l / 16).
+      const bf16* pv = vs + (lane & 15) * kLdV + (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < kTileK / 16; ++kk) {
+        const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]), pack(s[2 * kk][2], s[2 * kk][3]),
+                               pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        if constexpr (NTV == 1) {
+          uint32_t b[2];
+          ldmatrix_x2_trans(b, pv + 16 * kk * kLdV);
+          mma_bf16(o[0], a, b[0], b[1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < NTV; j += 2) {
+            uint32_t b[4];
+            ldmatrix_x4_trans(b, pv + 16 * kk * kLdV + 8 * j);
+            mma_bf16(o[j], a, b[0], b[1]);
+            mma_bf16(o[j + 1], a, b[2], b[3]);
+          }
         }
       }
     }
-  }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
 
-  bf16* out = args.out + (size_t)bh * args.n * args.dv;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + m0 + g + 8 * half;
-    if (row >= args.n) continue;
+    for (int half = 0; half < 2; ++half) {
+      const int row = q0 + m0 + g + 8 * half;
+      if (row >= args.n) continue;
 #pragma unroll
-    for (int j = 0; j < NTV; ++j) {
+      for (int j = 0; j < NTV; ++j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * j + 2 * t + e;
-        if (c < args.dv)
-          out[(size_t)row * args.dv + c] = __float2bfloat16_rn(o[j][2 * half + e] / l[half]);
+        for (int e = 0; e < 2; ++e) {
+          const int c = v0 + 8 * j + 2 * t + e;
+          if (c < args.dv)
+            out[(size_t)row * args.dv + c] = __float2bfloat16_rn(o[j][2 * half + e] / l[half]);
+        }
       }
     }
   }
@@ -285,7 +293,7 @@ int launch(const Args& args, int bh, cudaStream_t stream) {
 
 // C entry, bound with ctypes. All pointers are device pointers to contiguous
 // bf16 tensors: q (BH, N, D), k (BH, M, D), v (BH, M, Dv), out (BH, N, Dv).
-// Needs D % 16 == 0, D <= 512 and 1 <= Dv <= 128. `scale` is 1/sqrt(D) as a
+// Needs D % 16 == 0, D <= 512 and 1 <= Dv <= 512. `scale` is 1/sqrt(D) as a
 // float. Returns the CUDA error code of the launch (0 on success).
 extern "C" int attention_bf16(const void* q, const void* k, const void* v, void* out, int bh,
                               int n, int m, int d, int dv, float scale, void* stream) {
@@ -295,7 +303,7 @@ extern "C" int attention_bf16(const void* q, const void* k, const void* v, void*
   const Args args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<bf16*>(out), n, m, d, dv, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // two instances: the head's Dv <= 8 and up to 128 (the pointer's); each
-  // instance costs build time, and other widths run on the wider one
+  // two instances: the head's Dv <= 8 and 128-wide slabs (the pointer's);
+  // each instance costs build time, and other widths run on the wider one
   return dv <= 8 ? launch<1>(args, bh, s) : launch<16>(args, bh, s);
 }

@@ -53,6 +53,17 @@
 //   so one block is resident per SM.
 // * Ragged N: query rows past N select neighbor 0, are computed and are not
 //   written.
+// * Approximate kNN (the TPU kernel's `approx_knn`): the high word of the
+//   key is int(trunc(d * scale)) instead of d's bits, scale = f32(levels) /
+//   max(maxd, 1e-20), levels = 2^(30 - bitlen(Np - 1)) - 1, so that near
+//   ties inside one distance bucket go to the smaller index. maxd is the
+//   largest distance over the TPU kernel's whole query tile (tile_n =
+//   min(256, round_up(N, 128)) rows, zero-padded rows included, Np =
+//   round_up(N, tile_n)) and the valid columns: a pre-pass,
+//   `knn_tile_scale`, takes it per (cloud, tile) into `knn_scale`, which
+//   K9 (csrc/dgcnn_int8.cu) reads too. Ordering by (bucket, index) is
+//   ordering by the TPU kernel's int32 key bucket * Np + col, so the same
+//   scan picks the same neighbors. A null `knn_scale` is exact kNN.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,7 +100,8 @@ struct Args {
   const bf16* wt[4];  // stages 2..5 as (out, in) bf16
   const float* b[4];  // their biases, f32
   bf16* out;          // (B, N, emb)
-  int n, k, emb;
+  const float* knn_scale;  // (B, ceil(N / tile_n)) approx-kNN key scales, or null (exact)
+  int n, k, emb, tile_n;
 };
 
 __host__ __device__ constexpr int align16(int v) { return (v + 15) / 16 * 16; }
@@ -275,6 +287,9 @@ __global__ void __launch_bounds__(kThreads, 1) dgcnn_encode_bf16_kernel(Args arg
         continue;
       }
       const float qx = px[q], qy = py[q], qz = pz[q];
+      const float kscale =
+          args.knn_scale == nullptr ? 0.f : args.knn_scale[(size_t)cloud * ((n_pts + args.tile_n - 1) / args.tile_n) +
+                                                           q / args.tile_n];
       for (int i = lane; i < n_pts; i += 32) {
         const float d0 = __fsub_rn(qx, px[i]), d1 = __fsub_rn(qy, py[i]), d2 = __fsub_rn(qz, pz[i]);
         dist[i] = __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
@@ -293,7 +308,9 @@ __global__ void __launch_bounds__(kThreads, 1) dgcnn_encode_bf16_kernel(Args arg
 #pragma unroll
         for (int p = 0; p < kT; ++p) l[p] = kNone;
         for (int i = lane; i < n_pts; i += 32) {
-          const u64 key = (static_cast<u64>(__float_as_uint(dist[i])) << 32) | static_cast<u32>(i);
+          const u32 hi = kscale > 0.f ? static_cast<u32>(__float2int_rz(__fmul_rn(dist[i], kscale)))
+                                      : __float_as_uint(dist[i]);
+          const u64 key = (static_cast<u64>(hi) << 32) | static_cast<u32>(i);
           if ((j == 0 || key > last) && key < l[kT - 1]) {
 #pragma unroll
             for (int p = kT - 1; p > 0; --p) l[p] = key < l[p - 1] ? l[p - 1] : (key < l[p] ? key : l[p]);
@@ -436,20 +453,62 @@ __global__ void __launch_bounds__(kThreads, 1) dgcnn_encode_bf16_kernel(Args arg
   }
 }
 
+// Approx-kNN key scale of each (cloud, query tile): grid (tiles, B). maxd
+// over the tile's rows (rows past N are the origin, as the TPU kernel pads
+// them) and the N valid columns, then f32(levels) / max(maxd, 1e-20).
+__global__ void __launch_bounds__(kThreads) knn_tile_scale_kernel(const float* x, float* scale, int n_pts,
+                                                                  int tile_n, float levels) {
+  __shared__ float red[kWarps];
+  const float* xc = x + (size_t)blockIdx.y * n_pts * 3;
+  const int r0 = blockIdx.x * tile_n;
+  float mx = 0.f;
+  for (int i = threadIdx.x; i < tile_n * n_pts; i += kThreads) {
+    const int r = r0 + i / n_pts, c = i - (i / n_pts) * n_pts;
+    float q[3] = {0.f, 0.f, 0.f};
+    if (r < n_pts)
+      for (int e = 0; e < 3; ++e) q[e] = xc[(size_t)r * 3 + e];
+    const float d0 = __fsub_rn(q[0], xc[(size_t)c * 3]), d1 = __fsub_rn(q[1], xc[(size_t)c * 3 + 1]),
+                d2 = __fsub_rn(q[2], xc[(size_t)c * 3 + 2]);
+    mx = fmaxf(mx, __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2)));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red[w]);
+    scale[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = __fdiv_rn(levels, fmaxf(mx, 1e-20f));
+  }
+}
+
 }  // namespace
+
+// C entry of the approx-kNN pre-pass: x (B, N, 3) f32 -> scale (B, tiles) f32
+// with tiles = ceil(N / tile_n) and levels = 2^(30 - bitlen(Np - 1)) - 1 as
+// a float. Returns the CUDA error code of the launch (0 on success).
+extern "C" int dgcnn_knn_scale(const float* x, float* scale, int batch, int n_pts, int tile_n, float levels,
+                               void* stream) {
+  if (batch <= 0 || n_pts <= 0 || tile_n <= 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((n_pts + tile_n - 1) / tile_n, batch);
+  knn_tile_scale_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, scale, n_pts, tile_n, levels);
+  return (int)cudaGetLastError();
+}
 
 // C entry, bound with ctypes. All pointers are device pointers to contiguous
 // tensors: x (B, N, 3) f32; xw1 (B, N, 64) bf16; wc1 (3, 64) f32; b1 (64,)
 // f32; w2t..w5t (out, in) bf16 of widths 64x64, 128x64, 256x128, emb x 512;
-// b2..b5 f32; out (B, N, emb) bf16. Needs 1 <= k <= 32, k <= N <= 4096 and
-// emb % 64 == 0. Returns the CUDA error code of the launch (0 on success).
+// b2..b5 f32; out (B, N, emb) bf16; knn_scale null (exact kNN) or the
+// (B, ceil(N / tile_n)) scales of dgcnn_knn_scale (approximate). Needs 1 <=
+// k <= 32, k <= N <= 4096 and emb % 64 == 0. Returns the CUDA error code of
+// the launch (0 on success).
 extern "C" int dgcnn_encode_bf16(const float* x, const void* xw1, const float* wc1,
                                  const float* b1, const void* w2t, const float* b2,
                                  const void* w3t, const float* b3, const void* w4t,
                                  const float* b4, const void* w5t, const float* b5, void* out,
-                                 int batch, int n_pts, int k, int emb, void* stream) {
+                                 const float* knn_scale, int batch, int n_pts, int k, int emb,
+                                 int tile_n, void* stream) {
   if (batch <= 0 || k < 1 || k > kMaxK || n_pts < k || n_pts > kMaxN || emb <= 0 ||
-      emb % kSlab != 0)
+      emb % kSlab != 0 || tile_n <= 0)
     return (int)cudaErrorInvalidValue;
   const int bytes = smem_bytes(n_pts, k);
   cudaError_t err = cudaFuncSetAttribute(dgcnn_encode_bf16_kernel,
@@ -463,9 +522,11 @@ extern "C" int dgcnn_encode_bf16(const float* x, const void* xw1, const float* w
              static_cast<const bf16*>(w4t), static_cast<const bf16*>(w5t)},
             {b2, b3, b4, b5},
             static_cast<bf16*>(out),
+            knn_scale,
             n_pts,
             k,
-            emb};
+            emb,
+            tile_n};
   dim3 grid((n_pts + kRows - 1) / kRows, batch);
   dgcnn_encode_bf16_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(args);
   return (int)cudaGetLastError();

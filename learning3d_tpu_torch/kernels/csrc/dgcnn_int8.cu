@@ -45,6 +45,8 @@
 //   scale are made by the wrapper on the device, so nothing syncs the host.
 // * Ragged N: query rows past N select neighbor 0, are computed and are not
 //   written.
+// * Approximate kNN: the key of K5's approx mode (csrc/dgcnn_fused.cu), from
+//   the same per-tile scales.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,7 +84,8 @@ struct Args {
   const float* swb[4];  // (2, out)
   float inv[4];         // 1 / s1 .. 1 / s4
   bf16* out;            // (B, N, emb)
-  int n, k, emb;
+  const float* knn_scale;  // approx-kNN key scales (csrc/dgcnn_fused.cu's pre-pass), or null
+  int n, k, emb, tile_n;
 };
 
 __host__ __device__ constexpr int align16(int v) { return (v + 15) / 16 * 16; }
@@ -265,6 +268,9 @@ __global__ void __launch_bounds__(kThreads, 1) dgcnn_encode_int8_kernel(Args arg
         continue;
       }
       const float qx = px[q], qy = py[q], qz = pz[q];
+      const float kscale =
+          args.knn_scale == nullptr ? 0.f : args.knn_scale[(size_t)cloud * ((n_pts + args.tile_n - 1) / args.tile_n) +
+                                                           q / args.tile_n];
       for (int i = lane; i < n_pts; i += 32) {
         const float d0 = __fsub_rn(qx, px[i]), d1 = __fsub_rn(qy, py[i]), d2 = __fsub_rn(qz, pz[i]);
         dist[i] = __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
@@ -277,7 +283,9 @@ __global__ void __launch_bounds__(kThreads, 1) dgcnn_encode_int8_kernel(Args arg
 #pragma unroll
         for (int p = 0; p < kT; ++p) l[p] = kNone;
         for (int i = lane; i < n_pts; i += 32) {
-          const u64 key = (static_cast<u64>(__float_as_uint(dist[i])) << 32) | static_cast<u32>(i);
+          const u32 hi = kscale > 0.f ? static_cast<u32>(__float2int_rz(__fmul_rn(dist[i], kscale)))
+                                      : __float_as_uint(dist[i]);
+          const u64 key = (static_cast<u64>(hi) << 32) | static_cast<u32>(i);
           if ((j == 0 || key > last) && key < l[kT - 1]) {
 #pragma unroll
             for (int p = kT - 1; p > 0; --p) l[p] = key < l[p - 1] ? l[p - 1] : (key < l[p] ? key : l[p]);
@@ -418,7 +426,8 @@ __global__ void __launch_bounds__(kThreads, 1) dgcnn_encode_int8_kernel(Args arg
 // tensors: x (B, N, 3) f32; xw1q (B, N, 64) int8; s_xw1 a f32 device scalar;
 // wc1 (3, 64) f32; b1 (64,) f32; w2t..w5t int8 (out, in) of widths 64x64,
 // 128x64, 256x128, emb x 512; swb2..swb5 (2, out) f32; inv1..inv4 the
-// reciprocals of the stage scales; out (B, N, emb) bf16. Needs
+// reciprocals of the stage scales; out (B, N, emb) bf16; knn_scale null
+// (exact kNN) or the scales of dgcnn_knn_scale at tile_n (approximate). Needs
 // 1 <= k <= 32, k <= N <= 4096 and emb % 64 == 0. Returns the CUDA error code
 // of the launch (0 on success).
 extern "C" int dgcnn_encode_int8(const float* x, const void* xw1q, const float* s_xw1,
@@ -426,9 +435,10 @@ extern "C" int dgcnn_encode_int8(const float* x, const void* xw1q, const float* 
                                  const float* swb2, const void* w3t, const float* swb3,
                                  const void* w4t, const float* swb4, const void* w5t,
                                  const float* swb5, float inv1, float inv2, float inv3, float inv4,
-                                 void* out, int batch, int n_pts, int k, int emb, void* stream) {
+                                 void* out, const float* knn_scale, int batch, int n_pts, int k, int emb,
+                                 int tile_n, void* stream) {
   if (batch <= 0 || k < 1 || k > kMaxK || n_pts < k || n_pts > kMaxN || emb <= 0 ||
-      emb % kSlab != 0)
+      emb % kSlab != 0 || tile_n <= 0)
     return (int)cudaErrorInvalidValue;
   const int bytes = smem_bytes(n_pts, k);
   cudaError_t err = cudaFuncSetAttribute(dgcnn_encode_int8_kernel,
@@ -444,9 +454,11 @@ extern "C" int dgcnn_encode_int8(const float* x, const void* xw1q, const float* 
             {swb2, swb3, swb4, swb5},
             {inv1, inv2, inv3, inv4},
             static_cast<bf16*>(out),
+            knn_scale,
             n_pts,
             k,
-            emb};
+            emb,
+            tile_n};
   dim3 grid((n_pts + kRows - 1) / kRows, batch);
   dgcnn_encode_int8_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(args);
   return (int)cudaGetLastError();

@@ -18,6 +18,12 @@ squared differences ``(d0*d0 + d1*d1) + d2*d2`` (no FMA), nearest first,
 ties to the smaller index; bf16 operands with f32 sums; f32 bias; every
 stage output rounded to bf16; conv5 on the bf16 concatenation of the
 four k-maxes.
+
+``approx_knn=True`` (K5 and K9) selects by the TPU kernel's quantized keys
+instead (``approx_knn_indices``): key = int32(trunc(d * scale)) * Np + col, with one
+scale per query tile of the TPU kernel, so that near ties inside one
+distance bucket go to the smaller index. The keys are distinct, so kernel
+and plain version pick the same neighbors.
 """
 
 from __future__ import annotations
@@ -57,14 +63,54 @@ def exact_knn(x, k):
     """(B, N, k) neighbor indices over exact f32 squared differences,
     nearest first, ties to the smaller index (the point itself included)."""
     x = x.float()
-    d0 = x[:, :, None, 0] - x[:, None, :, 0]
-    d1 = x[:, :, None, 1] - x[:, None, :, 1]
-    d2 = x[:, :, None, 2] - x[:, None, :, 2]
-    d = (d0 * d0 + d1 * d1) + d2 * d2
-    return torch.sort(d, dim=-1, stable=True)[1][..., :k]
+    return torch.sort(_sq_dist(x, x), dim=-1, stable=True)[1][..., :k]
 
 
-def dgcnn_encode_reference(x, ws, bs, k, dot_dtype=torch.bfloat16):
+def _sq_dist(q, p):
+    """(B, S, N) exact f32 squared distances of queries q to points p."""
+    d0 = q[:, :, None, 0] - p[:, None, :, 0]
+    d1 = q[:, :, None, 1] - p[:, None, :, 1]
+    d2 = q[:, :, None, 2] - p[:, None, :, 2]
+    return (d0 * d0 + d1 * d1) + d2 * d2
+
+
+def knn_tile(n_pts):
+    """The TPU kernel's query tile and padded width: (tile_n, Np) with
+    tile_n = min(256, round_up(N, 128)) and Np = round_up(N, tile_n)."""
+    tile_n = min(256, -(-n_pts // 128) * 128)
+    return tile_n, -(-n_pts // tile_n) * tile_n
+
+
+def approx_knn_scale(x):
+    """(B, Np / tile_n) f32: f32(levels) / max(maxd, 1e-20) per query tile,
+    maxd over the tile's rows (rows past N are the origin, the TPU kernel's
+    zero padding) and the N valid columns; levels = 2^(30 - bitlen(Np - 1))
+    - 1."""
+    x = x.float()
+    B, N, _ = x.shape
+    tile_n, Np = knn_tile(N)
+    q = torch.nn.functional.pad(x, (0, 0, 0, Np - N))
+    maxd = _sq_dist(q, x).reshape(B, Np // tile_n, tile_n * N).amax(-1)
+    levels = (1 << (30 - (Np - 1).bit_length())) - 1
+    return torch.tensor(float(levels), dtype=torch.float32) / torch.clamp_min(maxd, 1e-20)
+
+
+def approx_knn_indices(x, k):
+    """(B, N, k) neighbor indices by the TPU kernel's quantized keys
+    trunc(d * scale) * Np + col, smallest key first (``approx_knn_scale``)."""
+    x = x.float()
+    B, N, _ = x.shape
+    tile_n, Np = knn_tile(N)
+    scale = approx_knn_scale(x).repeat_interleave(tile_n, dim=1)[:, :N, None]
+    key = (_sq_dist(x, x) * scale).to(torch.int32).to(torch.int64) * Np + torch.arange(N, device=x.device)
+    return torch.sort(key, dim=-1)[1][..., :k]
+
+
+def knn_indices(x, k, approx=False):
+    return approx_knn_indices(x, k) if approx else exact_knn(x, k)
+
+
+def dgcnn_encode_reference(x, ws, bs, k, dot_dtype=torch.bfloat16, approx_knn=False):
     """The kernel's plain version. x (B, N, 3); folded weights (in, out) and
     biases f32 -> (B, N, emb) in ``dot_dtype`` (x's dtype for f32)."""
     f32 = torch.float32
@@ -74,7 +120,7 @@ def dgcnn_encode_reference(x, ws, bs, k, dot_dtype=torch.bfloat16):
 
     x = x.float()
     B, N, _ = x.shape
-    idx = exact_knn(x, k)
+    idx = knn_indices(x, k, approx_knn)
     xw1 = _xw1(x, ws[0][:3], dot_dtype)  # (B, N, 64)
     c1 = dot(x.to(dot_dtype), ws[0][3:]) + bs[0]  # (B, N, 64) f32, the center half
     nbr = torch.gather(xw1, 1, idx.reshape(B, -1, 1).expand(-1, -1, xw1.shape[-1]))
@@ -107,12 +153,26 @@ def _check_kernel_args(x, ws, bs, k, dot_dtype):
             raise ValueError(f"bias {tuple(b.shape)} does not match weight {tuple(w.shape)}")
 
 
-def dgcnn_encode_kernel(x, ws, bs, k, *, dot_dtype=torch.bfloat16):
+def _knn_scale_kernel(x, lib, stream, approx):
+    """The approx-kNN key scales on the device (``dgcnn_knn_scale``), with
+    the tile they are per, or (None, 1) for exact kNN."""
+    if not approx:
+        return None, 1
+    B, N, _ = x.shape
+    tile_n, Np = knn_tile(N)
+    scale = torch.empty((B, Np // tile_n), device=x.device, dtype=torch.float32)
+    levels = (1 << (30 - (Np - 1).bit_length())) - 1
+    _build.check(lib.dgcnn_knn_scale(x.data_ptr(), scale.data_ptr(), B, N, tile_n, ctypes.c_float(levels), stream),
+                 "dgcnn_knn_scale")
+    return scale, tile_n
+
+
+def dgcnn_encode_kernel(x, ws, bs, k, *, dot_dtype=torch.bfloat16, approx_knn=False):
     """x (B, N, 3), folded weights (in, out) and biases f32 -> (B, N, emb).
     A CUDA tensor runs the CUDA kernel (bf16 only); a CPU tensor runs the
     plain version ``dgcnn_encode_reference``."""
     if x.device.type == "cpu":
-        return dgcnn_encode_reference(x, ws, bs, k, dot_dtype)
+        return dgcnn_encode_reference(x, ws, bs, k, dot_dtype, approx_knn)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     x = x.contiguous()
@@ -130,19 +190,22 @@ def dgcnn_encode_kernel(x, ws, bs, k, *, dot_dtype=torch.bfloat16):
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dgcnn_encode_bf16(*(t.data_ptr() for t in ptrs), out.data_ptr(), B, N, k, emb, stream)
+        scale, tile_n = _knn_scale_kernel(x, lib, stream, approx_knn)
+        err = lib.dgcnn_encode_bf16(*(t.data_ptr() for t in ptrs), out.data_ptr(),
+                                    0 if scale is None else scale.data_ptr(), B, N, k, emb, tile_n, stream)
     _build.check(err, "dgcnn_encode_bf16")
     LAUNCHES["dgcnn_encode_fused"] += 1
     return out
 
 
-def dgcnn_encode_fused(x, convs, bns, k, *, dot_dtype=torch.bfloat16):
+def dgcnn_encode_fused(x, convs, bns, k, *, dot_dtype=torch.bfloat16, approx_knn=False):
     """Eval-mode DGCNN encoder forward: x (B, N, 3) -> (B, N, emb).
     ``convs``/``bns`` are the module's bias-free Linear and BatchNorm
-    stacks, BN under running statistics."""
+    stacks, BN under running statistics. ``approx_knn`` selects neighbors
+    by quantized keys (the module docstring)."""
     folded = [fold_bn(c, bn) for c, bn in zip(convs, bns)]
     return dgcnn_encode_kernel(x.float(), [w for w, _ in folded], [b for _, b in folded], k,
-                               dot_dtype=dot_dtype)
+                               dot_dtype=dot_dtype, approx_knn=approx_knn)
 
 
 def kernel_limit(n_pts, k, emb):
@@ -234,12 +297,12 @@ def _xw1_int8(x, wn1):
     return to_int8(xw1 / s), s
 
 
-def dgcnn_int8_reference(x, pack, k):
+def dgcnn_int8_reference(x, pack, k, approx_knn=False):
     """K9's plain version: x (B, N, 3) -> (B, N, emb) bf16."""
     f32, bf16 = torch.float32, torch.bfloat16
     x = x.float()
     B, N, _ = x.shape
-    idx = exact_knn(x, k)
+    idx = knn_indices(x, k, approx_knn)
     xw1q, s_xw1 = _xw1_int8(x, pack.wn1)
     c1 = torch.matmul(x.to(bf16).to(f32), pack.wc1.to(bf16).to(f32)) + pack.b1
     nbr = torch.gather(xw1q, 1, idx.reshape(B, -1, 1).expand(-1, -1, xw1q.shape[-1])).reshape(B, N, k, -1)
@@ -253,12 +316,12 @@ def dgcnn_int8_reference(x, pack, k):
     return torch.relu(int8_matmul(torch.cat(pooled, dim=-1), wt.t()).to(f32) * swb[0] + swb[1]).to(bf16)
 
 
-def dgcnn_encode_int8_kernel(x, pack, k):
+def dgcnn_encode_int8_kernel(x, pack, k, approx_knn=False):
     """x (B, N, 3) f32 and a ``DGCNNInt8Weights`` -> (B, N, emb) bf16. A
     CUDA tensor runs K9; a CPU tensor runs the plain version
     ``dgcnn_int8_reference``."""
     if x.device.type == "cpu":
-        return dgcnn_int8_reference(x, pack, k)
+        return dgcnn_int8_reference(x, pack, k, approx_knn)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     x = x.contiguous()
@@ -280,18 +343,20 @@ def dgcnn_encode_int8_kernel(x, pack, k):
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        scale, tile_n = _knn_scale_kernel(x, lib, stream, approx_knn)
         err = lib.dgcnn_encode_int8(x.data_ptr(), xw1q.data_ptr(), s_xw1.data_ptr(), pack.wc1.data_ptr(),
-                                    pack.b1.data_ptr(), *ptrs, *inv, out.data_ptr(), B, N, k, emb, stream)
+                                    pack.b1.data_ptr(), *ptrs, *inv, out.data_ptr(),
+                                    0 if scale is None else scale.data_ptr(), B, N, k, emb, tile_n, stream)
     _build.check(err, "dgcnn_encode_int8")
     LAUNCHES["dgcnn_encode_fused_int8"] += 1
     return out
 
 
-def dgcnn_encode_fused_int8(x, convs, bns, k, scales):
+def dgcnn_encode_fused_int8(x, convs, bns, k, scales, *, approx_knn=False):
     """The JAX package's entry: x (B, N, 3) -> (B, N, emb) bf16 with the
     static scales (s1..s4) of ``calibrate_dgcnn_int8``; the int8 weights are
     built on this call (a module builds them once, ``DGCNN.int8_scales``)."""
-    return dgcnn_encode_int8_kernel(x.float(), DGCNNInt8Weights.from_modules(convs, bns, scales), k)
+    return dgcnn_encode_int8_kernel(x.float(), DGCNNInt8Weights.from_modules(convs, bns, scales), k, approx_knn)
 
 
 def calibrate_dgcnn_int8(convs, bns, k, calib_x, percentile=99.9):

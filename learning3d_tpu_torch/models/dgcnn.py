@@ -7,6 +7,12 @@ BatchNorm. In eval mode with bf16 convs the whole encoder is one CUDA
 kernel, K5 (``kernels.dgcnn_fused``); once ``int8_scales`` is set
 (``quant.quantize_dcp``) it is the int8 kernel K9 instead. On a CPU tensor
 the kernel's plain version runs.
+
+``approx_knn=True`` makes K5 and K9 select neighbors by quantized keys
+(the TPU kernel's ``approx_knn``). The JAX package reads that switch from
+the ``L3D_APPROX_KNN`` environment variable when it traces; here it is a
+constructor flag, kept by ``quant.quantize_dcp``'s clone. The unfused path
+has no approximate mode in either package.
 """
 
 from __future__ import annotations
@@ -27,12 +33,13 @@ from learning3d_tpu_torch.utils.layers import BatchNorm, Linear, to_bnc, validat
 
 
 class DGCNN(nn.Module):
-    def __init__(self, emb_dims: int = 1024, input_shape: str = "bnc", k: int = 20, *, dtype=None,
-                 generator: torch.Generator | None = None, device=DEFAULT_DEVICE):
+    def __init__(self, emb_dims: int = 1024, input_shape: str = "bnc", k: int = 20, *, approx_knn: bool = False,
+                 dtype=None, generator: torch.Generator | None = None, device=DEFAULT_DEVICE):
         super().__init__()
         self.input_shape = validate_input_shape(input_shape)
         self.emb_dims = emb_dims
         self.k = k
+        self.approx_knn = bool(approx_knn)
         dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, emb_dims)]
         self.convs = nn.ModuleList(
             Linear(i, o, use_bias=False, dtype=dtype, generator=generator, device=device) for i, o in dims
@@ -62,8 +69,8 @@ class DGCNN(nn.Module):
             raise RuntimeError("expected 3-channel point clouds")
         if dgcnn_fused_ok(x, self.convs, self.bns, self.k):
             if self.int8_scales is not None:
-                return dgcnn_encode_int8_kernel(x.float(), self.int8_weights, self.k)
-            return dgcnn_encode_fused(x, list(self.convs), list(self.bns), self.k)
+                return dgcnn_encode_int8_kernel(x.float(), self.int8_weights, self.k, approx_knn=self.approx_knn)
+            return dgcnn_encode_fused(x, list(self.convs), list(self.bns), self.k, approx_knn=self.approx_knn)
         if x.device.type != "cpu":
             # on the card the unfused path's edge features come from K7
             # (learning3d_tpu/kernels/edgeconv.py::knn_neighbors_pallas)

@@ -18,8 +18,10 @@ serves it as it is. On the card:
   (``DGCNN.int8_scales``) and the pointer's attention cores as K10
   (``kernels.attention.attention_int8``), with the projections and the
   feed-forwards as plain int8 products (``torch._int_mm``), as the JAX
-  package leaves them to XLA. ``fused_layers=True`` needs K11a/K11b, which
-  are not ported: on the card such a layer raises.
+  package leaves them to XLA;
+* ``quantize_dcp(..., fused_layers=True)`` (the default) runs each pointer
+  layer as one layer kernel, K11a or K11b
+  (``kernels.transformer_int8``), at the shapes of the JAX package's gate.
 
 Each epilogue repeats the JAX package's order of float32 operations, so the
 integer tensors equal its own on the CPU wherever the two round alike.
@@ -38,6 +40,15 @@ from learning3d_tpu_torch.kernels.pointnet_fused import (
     PointNetInt8Weights,
     fold_conv_bn,
     pointnet_pooled_int8_kernel,
+)
+from learning3d_tpu_torch.kernels.transformer_int8 import (
+    FusedLayerWeights,
+    LayerScales,
+    decoder_layer_int8,
+    decoder_layer_int8_reference,
+    encoder_layer_int8,
+    encoder_layer_int8_reference,
+    fused_layer_ok,
 )
 from learning3d_tpu_torch.ops.int8 import div, f32_scalar, int8_matmul, percentile, quantize_weight, to_int8
 from learning3d_tpu_torch.utils.layers import to_bnc
@@ -346,34 +357,101 @@ def _pointer_blocks(pointer):
     return out
 
 
-class _FusedInt8Layer(nn.Module):
-    """A pointer layer whose quantized blocks the JAX package runs as ONE
-    kernel (K11a/K11b, ``kernels/transformer_int8.py``) on its accelerator
-    and composes elsewhere. The kernels are not ported: on the CPU the layer
-    composes its blocks, as the JAX package does off its accelerator; on any
-    other device it raises rather than compose them in place of the
-    kernel."""
+def _fused_weights_mha(qmha, prefix=""):
+    """Weight-dict entries of one QuantMHA for the fused layer: its merged
+    K|V GEMM splits back exactly (per-output-channel scales)."""
+    d = qmha.h * qmha.d_k
+    p = prefix
+    return {
+        p + "wq": qmha.wq_q, p + "swq": qmha.s_wq, p + "bq": qmha.bq,
+        p + "wk": qmha.wkv_q[:, :d], p + "swk": qmha.s_wkv[:d], p + "bk": qmha.bkv[:d],
+        p + "wv": qmha.wkv_q[:, d:], p + "swv": qmha.s_wkv[d:], p + "bv": qmha.bkv[d:],
+        p + "wo": qmha.wo_q, p + "swo": qmha.s_wo, p + "bo": qmha.bo,
+    }
 
-    kernel = ""
+
+def _fused_weights_ff(qff):
+    return {"w1": qff.w1_q, "sw1": qff.s_w1, "b1": qff.b1, "w2": qff.w2_q, "sw2": qff.s_w2, "b2": qff.b2}
+
+
+class _FusedInt8Layer(nn.Module):
+    """A pointer layer whose quantized blocks run as ONE layer kernel, K11a
+    or K11b (``kernels/transformer_int8.py``), where the JAX package's gate
+    ``fused_layer_ok`` holds: a CUDA tensor launches the kernel, a CPU tensor
+    runs its plain version (the JAX package composes the blocks off its
+    accelerator; ROADMAP Queue 3 records the departure), any other device
+    raises. Off the gate the layer composes its blocks, on every device, as
+    the JAX package does. The kernel's operands are packed once, here."""
 
     def __init__(self, layer, int8_pv=True):
         super().__init__()
         self.inner = layer
         self.int8_pv = bool(int8_pv)
+        self.n_heads = layer.self_attn.h
+        self.scales = self._scales()
+        with torch.no_grad():
+            self.pack = FusedLayerWeights(self.weights(), self.scales, self.n_heads, self.decoder)
 
-    def forward(self, x, *memory):
-        if x.device.type != "cpu":
-            raise NotImplementedError(f"fused_layers=True runs each pointer layer as {self.kernel}, which is "
-                                      "not ported yet; quantize with fused_layers=False")
-        return self.inner(x, *memory)
+    def weights(self):
+        """The JAX package's weight dict of the layer (views of the blocks'
+        buffers), as the plain versions take it."""
+        lyr = self.inner
+        w = _fused_weights_mha(lyr.self_attn)
+        if self.decoder:
+            w.update(_fused_weights_mha(lyr.cross_attn, prefix="x"))
+        w.update(_fused_weights_ff(lyr.ff))
+        for i in (1, 2, 3) if self.decoder else (1, 2):
+            norm = getattr(lyr, f"norm{i}")
+            w[f"ln{i}a"], w[f"ln{i}b"] = norm.a.detach(), norm.b.detach()
+        return w
+
+    def _on_gate(self, x):
+        return fused_layer_ok(x.shape[1], x.shape[2], self.n_heads)
+
+    @property
+    def self_attn(self):
+        return self.inner.self_attn
+
+    @property
+    def ff(self):
+        return self.inner.ff
 
 
 class QuantEncoderLayerFused(_FusedInt8Layer):
-    kernel = "K11a (encoder_layer_int8)"
+    decoder = False
+
+    def _scales(self):
+        m, f = self.inner.self_attn, self.inner.ff
+        return LayerScales(s_y=m.s_in_q, s_q=m.s_q, s_k=m.s_k, s_v=m.s_v, s_att=m.s_att, s_ff=f.s_in, s_h=f.s_h)
+
+    def forward(self, x):
+        if not self._on_gate(x):
+            return self.inner(x)
+        if x.device.type == "cpu":
+            return encoder_layer_int8_reference(x, self.weights(), self.scales, n_heads=self.n_heads,
+                                                int8_pv=self.int8_pv)
+        return encoder_layer_int8(x, self.pack, int8_pv=self.int8_pv)
 
 
 class QuantDecoderLayerFused(_FusedInt8Layer):
-    kernel = "K11b (decoder_layer_int8)"
+    decoder = True
+
+    def _scales(self):
+        m, c, f = self.inner.self_attn, self.inner.cross_attn, self.inner.ff
+        return LayerScales(s_y=m.s_in_q, s_q=m.s_q, s_k=m.s_k, s_v=m.s_v, s_att=m.s_att, s_ff=f.s_in, s_h=f.s_h,
+                           s_y2=c.s_in_q, s_mem=c.s_in_kv, s_q2=c.s_q, s_k2=c.s_k, s_v2=c.s_v, s_att2=c.s_att)
+
+    @property
+    def cross_attn(self):
+        return self.inner.cross_attn
+
+    def forward(self, x, memory):
+        if not (self._on_gate(x) and memory.shape[1] == x.shape[1]):
+            return self.inner(x, memory)
+        if x.device.type == "cpu":
+            return decoder_layer_int8_reference(x, memory, self.weights(), self.scales, n_heads=self.n_heads,
+                                                int8_pv=self.int8_pv)
+        return decoder_layer_int8(x, memory, self.pack, int8_pv=self.int8_pv)
 
 
 def _fuse_layers(pointer, int8_pv):

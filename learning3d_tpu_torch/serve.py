@@ -13,8 +13,13 @@ one host-to-device copy per input and one device-to-host copy per output
 (per key of a dict result), under ``torch.inference_mode()``. A bf16
 output comes back as float32 numpy (numpy has no bf16). A dict result
 stays a dict, each key concatenated across chunks; ``output_key`` picks one
-key. Mesh serving, ``TemplateRegistrar`` and per-shape CUDA graphs are not
-ported yet.
+key.
+
+    reg = TemplateRegistrar(dcp, template, batch_size=32)
+    result = reg(sources)       # numpy (n, N, 3), any n -> dict
+
+registers many sources against one fixed template, whose encoder pass runs
+once. Mesh serving and per-shape CUDA graphs are not ported yet.
 """
 
 from __future__ import annotations
@@ -66,3 +71,45 @@ class InferenceEngine:
             out = {key: np.concatenate([p[key] for p in pieces], axis=0) for key in pieces[0]}
             return out if self.output_key is None else out[self.output_key]
         return pieces[0] if len(pieces) == 1 else np.concatenate(pieces, axis=0)
+
+
+class TemplateRegistrar:
+    """One-template-many-sources registration serving, for a model with
+    ``encode()`` / ``register_encoded()`` (DCP, and its int8 clone from
+    ``quant.quantize_dcp``). The template's encoder features are computed
+    once, here; each chunk of sources is registered against them broadcast
+    to the chunk, so a request pays only the sources' encoder, the pointer
+    and the head. Chunks are ``batch_size`` sources, the tail zero-padded
+    and stripped, as in ``InferenceEngine``; est_* map each source onto the
+    template."""
+
+    def __init__(self, model: torch.nn.Module, template, batch_size: int = 32, *, device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.batch_size = int(batch_size)
+        t = np.asarray(template, np.float32)
+        if t.ndim == 2:
+            t = t[None]
+        if t.ndim != 3 or t.shape[0] != 1:
+            raise ValueError("template must be one (N, 3) cloud")
+        self._template = torch.from_numpy(np.ascontiguousarray(t)).to(self.device)
+        with torch.inference_mode():
+            self._temb = self.model.encode(self._template)  # (1, N, E), cached
+
+    def __call__(self, sources):
+        sources = np.asarray(sources, np.float32)
+        if sources.ndim == 2:
+            sources = sources[None]
+        n, bs = sources.shape[0], self.batch_size
+        pieces = []
+        with torch.inference_mode():
+            for lo in range(0, n, bs):
+                chunk = sources[lo : lo + bs]
+                got = chunk.shape[0]
+                if got < bs:  # pad the tail to keep the batch shape
+                    chunk = np.concatenate([chunk, np.zeros((bs - got,) + chunk.shape[1:], chunk.dtype)])
+                src = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+                out = self.model.register_encoded(self._template.expand(bs, -1, -1), self._temb.expand(bs, -1, -1),
+                                                  src)
+                pieces.append({key: _to_numpy(val, got) for key, val in out.items()})
+        return {key: np.concatenate([p[key] for p in pieces], axis=0) for key in pieces[0]}

@@ -95,17 +95,19 @@ def test_gate():
 
 
 def test_wide_values_raise_off_the_cpu():
-    """Dv > MAX_DV at the kernel's shapes: on the CPU the plain version
-    runs; off the CPU (a meta tensor stands in for a CUDA one here;
+    """Dv > MAX_DV (512) at the kernel's shapes: on the CPU the plain
+    version runs; off the CPU (a meta tensor stands in for a CUDA one here;
     tests/test_torch_cuda.py checks the card) ``_attention`` raises
     NotImplementedError naming the limit instead of leaving the kernel's
-    path."""
-    q, k, v = (torch.from_numpy(a) for a in qkv(1, 1, 256, 256, 128, 256, seed=12))
+    path. Dv=256 (DCP over DGCNN(emb 1024)) is inside the limit."""
+    assert tattn.MAX_DV == 512
+    q, k, v = (torch.from_numpy(a) for a in qkv(1, 1, 256, 256, 128, 640, seed=12))
     got = ttr._attention(q, k, v)
     torch.testing.assert_close(got, tattn.attention_reference(q, k, v), rtol=0, atol=0)
     meta = [torch.empty(t.shape, device="meta") for t in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="Dv <= 128"):
+    with pytest.raises(NotImplementedError, match="Dv <= 512"):
         ttr._attention(*meta)
+    tattn.check_value_width(meta[0], torch.empty(1, 1, 256, 256, device="meta"))  # Dv=256 passes
 
 
 @pytest.mark.parametrize("bad", ["rank", "k_shape", "d_odd", "dv_wide"])
@@ -118,7 +120,7 @@ def test_kernel_argument_checks(bad):
     elif bad == "d_odd":
         q, k = q[..., :24], k[..., :24]
     else:
-        v = torch.zeros(1, 2, 9, 129)
+        v = torch.zeros(1, 2, 9, tattn.MAX_DV + 1)  # 513: past K6's Dv <= 512
     with pytest.raises(ValueError):
         tattn._check_kernel_args(q, k, v)
 

@@ -143,15 +143,53 @@ def test_k5_gate_refuses_what_the_kernel_refuses(cuda):
 
 
 def test_k6_wide_values_raise(cuda):
-    """Dv=256 at the pointer's shapes: the attention raises
-    NotImplementedError naming K6's limit instead of running the plain
-    chain on the card."""
+    """Dv=640 at the pointer's shapes, past K6's Dv <= 512: the attention
+    raises NotImplementedError naming K6's limit instead of running the
+    plain chain on the card."""
     from learning3d_tpu_torch.utils.transformer import _attention
 
     q = torch.zeros(1, 1, 256, 128, device=cuda, dtype=torch.bfloat16)
-    v = torch.zeros(1, 1, 256, 256, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Dv <= 128"):
+    v = torch.zeros(1, 1, 256, 640, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="Dv <= 512"):
         _attention(q, q, v)
+
+
+def test_k6_wide_values_match_plain(cuda):
+    """Dv=256 (DCP over DGCNN(emb 1024): d_k = 256) runs pass 2 in two
+    128-wide slabs; against the plain version, as the other K6 cases."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.attention import attention_pallas, attention_reference
+
+    rng = np.random.default_rng(256)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 4, 1024, 256)).astype(np.float32)).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    before = LAUNCHES["attention_pallas"]
+    got = attention_pallas(q, k, v).float()
+    want = attention_reference(q, k, v).float()
+    torch.cuda.synchronize()
+    assert LAUNCHES["attention_pallas"] == before + 1
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+def test_dcp_emb1024_serves_bf16(cuda):
+    """bf16 DCP(DGCNN(emb_dims=1024)): the pointer's attention has Dv = 256,
+    which K6 takes now; served through InferenceEngine, finite, rotations."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.models import DCP, DGCNN
+    from learning3d_tpu_torch.serve import InferenceEngine
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    bf16 = torch.bfloat16
+    model = DCP(DGCNN(emb_dims=1024, dtype=bf16, generator=gen, device=cuda), dtype=bf16, generator=gen,
+                device=cuda).eval()
+    rng = np.random.default_rng(1024)
+    template, source = (rng.normal(size=(3, 512, 3)).astype(np.float32) for _ in range(2))
+    before = LAUNCHES["attention_pallas"]
+    out = InferenceEngine(model, batch_size=2, device=cuda)(template, source)
+    assert LAUNCHES["attention_pallas"] - before == 2 * 6  # the head (D = 1024) is past K6's gate
+    assert out["r"].shape == (3, 512, 1024) and all(np.isfinite(v).all() for v in out.values())
+    R = out["est_R"].astype(np.float64)
+    assert np.abs(R @ np.swapaxes(R, -1, -2) - np.eye(3)).max() <= 1e-3
 
 
 def int8_chain(rng, emb, device):
@@ -230,3 +268,80 @@ def test_k10_matches_plain(cuda, int8_pv, batch, heads, n, m, d):
     # exact int8 products; exp, the row sum's order and round(127 p) may
     # differ by an ulp or one step of P
     assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+def quantized_layer(kind, d, heads, d_ff, batch, n, device, seed):
+    """A port encoder or decoder layer with numpy-seeded weights and
+    LayerNorm affines, quantized by ``quantize_transformer_layer`` on a
+    calibration pass, wrapped as K11's fused layer; and bf16 inputs."""
+    from learning3d_tpu_torch import quant
+    from learning3d_tpu_torch.utils import transformer
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    cls = transformer._EncoderLayer if kind == "encoder" else transformer._DecoderLayer
+    layer = cls(d, heads, d_ff, dtype=torch.bfloat16, generator=gen, device=device).eval()
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            if name.endswith((".a", ".b")):
+                p.copy_(torch.from_numpy(rng.normal(1.0 if name.endswith(".a") else 0.0, 0.1, p.shape)
+                                         .astype(np.float32)))
+    x, mem = (torch.from_numpy(rng.normal(size=(batch, n, d)).astype(np.float32)).to(device, torch.bfloat16)
+              for _ in range(2))
+    args = (x,) if kind == "encoder" else (x, mem)
+    return quant.quantize_transformer_layer(layer, lambda lyr: lyr(*args)), args
+
+
+def assert_tie_flip_close(got, want, atol=2e-4, max_abs=0.08, frac=0.01):
+    """The JAX package's K11 tolerance (tests/test_transformer_int8.py): an
+    f32 sum in another order flips round(x / s) at a .5 tie, rarely."""
+    d = (got.float() - want.float()).abs()
+    assert d.max().item() < max_abs, d.max().item()
+    assert (d > atol).float().mean().item() < frac, (d > atol).float().mean().item()
+
+
+# the DCP pointer's shape (B cut to 4), a wider head (d=1024, one head:
+# d_k = 1024, the largest the gate admits) and N=512
+@pytest.mark.parametrize("int8_pv", [True, False])
+@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+@pytest.mark.parametrize("batch,n,d,heads,d_ff", [(4, 1024, 512, 4, 1024), (2, 256, 1024, 1, 512),
+                                                  (2, 512, 256, 2, 200)])
+def test_k11_matches_plain(cuda, kind, int8_pv, batch, n, d, heads, d_ff):
+    from learning3d_tpu_torch import quant
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels import transformer_int8 as k11
+
+    assert k11.fused_layer_ok(n, d, heads)
+    layer, args = quantized_layer(kind, d, heads, d_ff, batch, n, cuda, seed=n + d)
+    wrap = (quant.QuantEncoderLayerFused if kind == "encoder" else quant.QuantDecoderLayerFused)(layer, int8_pv)
+    name = f"{kind}_layer_int8"
+    before = LAUNCHES[name]
+    with torch.inference_mode():
+        got = wrap(*args)
+        ref = getattr(k11, f"{name}_reference")
+        want = ref(*args, wrap.weights(), wrap.scales, n_heads=heads, int8_pv=int8_pv)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (batch, n, d)
+    assert_tie_flip_close(got, want)
+
+
+@pytest.mark.parametrize("case,batch,n_pts", [("full", 2, 1024), ("ragged", 3, 1000), ("two_tiles", 2, 320)])
+def test_k5_k9_approx_match_plain(cuda, case, batch, n_pts):
+    """K5 and K9 with approx_knn=True against their plain versions: the
+    keys are distinct, so the same neighbors; K5's and K9's tolerances."""
+    from learning3d_tpu_torch.kernels.dgcnn_fused import (
+        DGCNNInt8Weights, approx_knn_indices, dgcnn_encode_int8_kernel, dgcnn_encode_kernel, dgcnn_encode_reference,
+        dgcnn_int8_reference)
+
+    rng = np.random.default_rng(n_pts + 7)
+    ws, bs = dgcnn_weights(rng, 512, cuda)
+    pack = DGCNNInt8Weights(ws, bs, (0.02, 0.03, 0.03, 0.04))
+    x = torch.from_numpy(rng.normal(size=(batch, n_pts, 3)).astype(np.float32)).to(cuda)
+    for got, want in ((dgcnn_encode_kernel(x, ws, bs, 20, approx_knn=True),
+                       dgcnn_encode_reference(x, ws, bs, 20, approx_knn=True)),
+                      (dgcnn_encode_int8_kernel(x, pack, 20, approx_knn=True),
+                       dgcnn_int8_reference(x, pack, 20, approx_knn=True))):
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
+    assert approx_knn_indices(x, 20).shape == (batch, n_pts, 20)

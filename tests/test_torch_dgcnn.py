@@ -114,6 +114,77 @@ def test_exact_knn_ties_to_smaller_index():
     np.testing.assert_array_equal(tfused.exact_knn(torch.from_numpy(x), 20).numpy(), want)
 
 
+def jax_approx_picks(x, k):
+    """The JAX kernel's approx-kNN picks, tile by tile as ``_fused_kernel``
+    makes them: the (tile_n, Np) distance tile of the zero-padded queries,
+    ``_selection_matrix`` and k rounds of ``_pick_mask``."""
+    B, N, _ = x.shape
+    tile_n = min(256, -(-N // 128) * 128)
+    Np = -(-N // tile_n) * tile_n
+    xp = jnp.asarray(np.pad(x, ((0, 0), (0, Np - N), (0, 0))))
+    out = np.zeros((B, Np, k), np.int64)
+    for b in range(B):
+        p = xp[b]
+        for t in range(0, Np, tile_n):
+            q = p[t:t + tile_n]
+            d0, d1, d2 = (q[:, c][:, None] - p[:, c][None, :] for c in range(3))
+            d = d0 * d0 + d1 * d1 + d2 * d2
+            col = jnp.broadcast_to(jnp.arange(Np, dtype=jnp.int32)[None, :], d.shape)
+            sel, masked = jfused._selection_matrix(d, col, N, True)
+            m = jnp.min(sel, axis=1)
+            for j in range(k):
+                eq = jfused._pick_mask(sel, m, col, N, True)
+                out[b, t:t + tile_n, j] = np.asarray(jnp.argmax(eq, axis=1))
+                sel = jnp.where(eq, masked, sel)
+                m = jnp.min(sel, axis=1)
+    return out[:, :N]
+
+
+@pytest.mark.parametrize("n_pts", [200, 256, 320])
+def test_approx_selection_matches_jax(n_pts):
+    """The port's approx-kNN selection equals the JAX kernel's index for
+    index (k=20). N=200 pads the one query tile with origin rows, which
+    count toward its maxd; N=320 gives two query tiles of 256 rows, each
+    with its own maxd (and so its own scale)."""
+    x = cloud(2, n_pts, seed=70 + n_pts)
+    got = tfused.approx_knn_indices(torch.from_numpy(x), 20).numpy()
+    np.testing.assert_array_equal(got, jax_approx_picks(x, 20))
+    scale = tfused.approx_knn_scale(torch.from_numpy(x))
+    assert scale.shape == (2, 2 if n_pts == 320 else 1)
+    if n_pts == 320:
+        assert (scale[:, 0] != scale[:, 1]).any()
+
+
+@pytest.mark.parametrize("n_pts", [256, 200])
+def test_k5_approx_plain_matches_jax_interpret(n_pts):
+    """K5's plain version with approx_knn=True against the JAX kernel with
+    approx_knn=True in interpret mode, in f32 (the tolerance of the exact
+    f32 case below: the same neighbors, f32 sums in another order)."""
+    jnet = jax_dgcnn()
+    ws, bs = folded(jnet)
+    x = cloud(2, n_pts, seed=80 + n_pts)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfused.dgcnn_encode_fused(jnp.asarray(x), jnet.convs, jnet.bns, 5, dot_dtype=jnp.float32,
+                                                    approx_knn=True), np.float32)
+    got = tfused.dgcnn_encode_kernel(torch.from_numpy(x), as_torch(ws), as_torch(bs), 5, dot_dtype=torch.float32,
+                                     approx_knn=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_dgcnn_approx_flag_routes_to_approx_selection():
+    """``DGCNN(approx_knn=True)`` in bf16 eval runs K5 (its plain version on
+    the CPU) with the approx selection."""
+    jnet = jax_dgcnn(jnp.bfloat16)
+    net = load_nnx_state(DGCNN(emb_dims=EMB, k=5, dtype=torch.bfloat16, approx_knn=True, device="cpu"),
+                         nnx_flat(jnet)).eval()
+    assert net.approx_knn
+    x = torch.from_numpy(cloud(2, 128, seed=90))
+    ws, bs = zip(*(tfused.fold_bn(c, bn) for c, bn in zip(net.convs, net.bns)))
+    with torch.inference_mode():
+        torch.testing.assert_close(net(x), tfused.dgcnn_encode_reference(x, list(ws), list(bs), 5,
+                                                                         approx_knn=True), rtol=0, atol=0)
+
+
 # f32: the same operands and neighbors, only f32 sums in another order
 # (atol as the JAX package's own interpret test). bf16: the same bf16
 # roundings, but a sum in another order can round an activation to the

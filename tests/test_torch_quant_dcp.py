@@ -93,6 +93,23 @@ def test_k9_plain_matches_jax_interpret(case, batch, n_pts):
     assert_tie_flip_profile(got.float().numpy(), want)
 
 
+@pytest.mark.parametrize("n_pts", [128, 100])
+def test_k9_approx_plain_matches_jax_interpret(n_pts):
+    """K9's plain version with approx_knn=True against the JAX kernel with
+    approx_knn=True in interpret mode; the same scales, the tie-flip
+    profile as the exact case."""
+    jnet = jax_dgcnn()
+    tnet = port_dgcnn(jnet)
+    x = cloud(2, n_pts, seed=44 + n_pts)
+    scales = jfused.calibrate_dgcnn_int8(jnet.convs, jnet.bns, K, jnp.asarray(x))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfused.dgcnn_encode_fused_int8(jnp.asarray(x), jnet.convs, jnet.bns, K, scales,
+                                                         approx_knn=True), np.float32)
+    got = tfused.dgcnn_encode_fused_int8(torch.from_numpy(x), list(tnet.convs), list(tnet.bns), K, scales,
+                                         approx_knn=True)
+    assert_tie_flip_profile(got.float().numpy(), want)
+
+
 def test_dgcnn_int8_scales_route_to_k9():
     """Setting ``int8_scales`` builds K9's weights once and routes the eval
     forward of a bf16 DGCNN to K9 (its plain version on the CPU); clearing
@@ -366,11 +383,30 @@ def test_quantize_dcp_structure(int8_dcp):
     np.testing.assert_allclose(own.emb_nn.int8_scales, jq.emb_nn.int8_scales, rtol=1e-5)
 
 
+def test_approx_knn_flag_survives_quantize_dcp(int8_dcp):
+    """``DGCNN(approx_knn=True)``: quantize_dcp's clone keeps the flag, and
+    its encoder runs K9's approx selection (the plain version here)."""
+    _, _, tm, _, _, (template, _) = int8_dcp
+    tm.emb_nn.approx_knn = True
+    try:
+        calib = torch.from_numpy(cloud(2, 64, seed=47)), torch.from_numpy(cloud(2, 64, seed=48))
+        clone = tquant.quantize_dcp(tm, *calib, int8_pv=True, fused_layers=True)
+    finally:
+        tm.emb_nn.approx_knn = False
+    assert clone.emb_nn.approx_knn
+    x = torch.from_numpy(template)
+    with torch.inference_mode():
+        want = tfused.dgcnn_int8_reference(x, clone.emb_nn.int8_weights, K, True)
+        torch.testing.assert_close(clone.emb_nn(x), want, rtol=0, atol=0)
+
+
 def test_fused_layers_compose_on_cpu_and_raise_elsewhere(int8_dcp):
-    """fused_layers=True: on the CPU each layer composes its blocks (as the
-    JAX package off its accelerator), so the result equals
-    fused_layers=False; off the CPU (a meta tensor here) it raises naming
-    K11, never composing in place of the kernel."""
+    """fused_layers=True off JAX's gate ``fused_layer_ok`` (d=64 with 4
+    heads here): each layer composes its blocks, on every device, as the JAX
+    package does, so the result equals fused_layers=False. On the gate a CPU tensor runs K11's plain version
+    (tests/test_torch_transformer_int8.py) and any tensor off the CPU other
+    than a CUDA one (a meta tensor here) raises naming K11a/K11b, never
+    composing in place of the kernel."""
     _, _, tm, _, own, (template, source) = int8_dcp
     calib = torch.from_numpy(cloud(2, 64, seed=47)), torch.from_numpy(cloud(2, 64, seed=48))
     fused = tquant.quantize_dcp(tm, *calib, int8_pv=True, fused_layers=True)
@@ -380,10 +416,17 @@ def test_fused_layers_compose_on_cpu_and_raise_elsewhere(int8_dcp):
         b = own(torch.from_numpy(template), torch.from_numpy(source))
     for key in KEYS:
         torch.testing.assert_close(a[key], b[key], rtol=0, atol=0)
+
+    rng = np.random.default_rng(53)
+    x, mem = (torch.from_numpy(rng.normal(size=(1, 256, 256)).astype(np.float32)) for _ in range(2))
+    enc = tquant.quantize_transformer_layer(ttr._EncoderLayer(256, 2, 512, device="cpu"), lambda lyr: lyr(x))
+    dec = tquant.quantize_transformer_layer(ttr._DecoderLayer(256, 2, 512, device="cpu"), lambda lyr: lyr(x, mem))
+    enc, dec = tquant.QuantEncoderLayerFused(enc), tquant.QuantDecoderLayerFused(dec)
+    meta = torch.empty(1, 256, 256, device="meta")
     with pytest.raises(NotImplementedError, match="K11a"):
-        fused.pointer.enc_layers[0](torch.empty(1, 8, EMB, device="meta"))
+        enc(meta)
     with pytest.raises(NotImplementedError, match="K11b"):
-        fused.pointer.dec_layers[0](torch.empty(1, 8, EMB, device="meta"), torch.empty(1, 8, EMB, device="meta"))
+        dec(meta, meta)
 
 
 def test_inference_engine_serves_int8_dcp(int8_dcp):

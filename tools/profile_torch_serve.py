@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving goes, on one card.
 
-    python3 tools/profile_torch_serve.py [--model pointnet|dcp|pointnet-int8|dcp-int8] [--requests 20]
+    python3 tools/profile_torch_serve.py [--model pointnet|dcp|pointnet-int8|dcp-int8|dcp-int8-fused|
+                                          dcp-int8-hybrid-fused] [--requests 20]
 
 ``pointnet``: Classifier(PointNet(emb_dims=1024, use_bn=True)), requests of
 B=256 clouds of N=1024 points. ``dcp``: DCP(DGCNN(emb_dims=512, k=20)) with
@@ -9,7 +10,9 @@ the transformer pointer and the SVD head, requests of B=32 (template,
 source) pairs of N=1024 points. ``pointnet-int8`` and ``dcp-int8``: the same
 models quantized as bench.py quantizes them (the classifier on 64 clouds,
 served through K2; DCP on 8 + 8 clouds with int8 P.V and fused_layers=False,
-served through K9, K10 and K6). All in bf16 eval with the numpy-seeded
+served through K9, K10 and K6). ``dcp-int8-fused`` and
+``dcp-int8-hybrid-fused``: DCP quantized with fused_layers=True (int8 and
+hybrid P.V), the pointer's layers served through K11a/K11b. All in bf16 eval with the numpy-seeded
 weights of chip_smoke.py, served through learning3d_tpu_torch's
 InferenceEngine under torch.profiler. Prints one JSON line: host wall time
 per request, device time per request by kernel (largest first), the
@@ -39,17 +42,17 @@ def build(name: str, rng):
     from learning3d_tpu_torch.utils.jax_import import load_nnx_state
 
     bf16 = torch.bfloat16
-    if name.endswith("-int8"):
+    if "-int8" in name:
         from learning3d_tpu_torch.quant import make_fused_quant_forward, quantize_dcp, quantize_pointnet_classifier
 
-        model, B, inputs = build(name[: -len("-int8")], rng)
+        model, B, inputs = build(name.split("-")[0], rng)
         model.cuda().eval()
         if name == "pointnet-int8":
             calib = torch.from_numpy(rng.normal(size=(chip_smoke.CALIB_CLOUDS, inputs[0].shape[1], 3))
                                      .astype(np.float32)).cuda()
             return make_fused_quant_forward(quantize_pointnet_classifier(model, calib)), B, inputs
         t, s = (torch.from_numpy(a[: chip_smoke.DCP_CALIB_PAIRS]).cuda() for a in inputs)
-        return quantize_dcp(model, t, s, int8_pv=True, fused_layers=False), B, inputs
+        return quantize_dcp(model, t, s, int8_pv="hybrid" not in name, fused_layers=name.endswith("-fused")), B, inputs
     if name == "pointnet":
         B, N = chip_smoke.B, chip_smoke.N
         model = Classifier(PointNet(emb_dims=chip_smoke.EMB, use_bn=True, dtype=bf16), chip_smoke.CLASSES,
@@ -64,7 +67,8 @@ def build(name: str, rng):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", choices=("pointnet", "dcp", "pointnet-int8", "dcp-int8"), default="pointnet")
+    parser.add_argument("--model", choices=("pointnet", "dcp", "pointnet-int8", "dcp-int8", "dcp-int8-fused",
+                                            "dcp-int8-hybrid-fused"), default="pointnet")
     parser.add_argument("--requests", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():

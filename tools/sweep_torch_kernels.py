@@ -9,8 +9,12 @@ N, so the sweep separates them. The wrapper's torch preparation (the
 per-point stage-1 product and the bf16 weight copies) is timed alone.
 K6 (attention_pallas) at B=32, N=M=1024: the pointer's H=4, D=128 over
 Dv (Dv=8 leaves the two Q K^T passes and the exponentials, Dv=128 adds the
-P V product) and the head's H=1, D=512, Dv=3. Prints one JSON line of
-times per call (ms, chip_smoke.cuda_ms).
+P V product), DCP(DGCNN(emb 1024))'s H=4, D=Dv=256 (two 128-wide slabs)
+and the head's H=1, D=512, Dv=3. K11 (the fused int8 pointer layers) at
+the DCP shape, B=32, N=1024, d=512, 4 heads, ff 1024: each launch of a
+layer alone (LayerNorm + quant, the four GEMMs, the attention in both P.V
+modes), on random int8 weights. Prints one JSON line of times per call
+(ms, chip_smoke.cuda_ms).
 Needs a CUDA card.
 """
 
@@ -24,6 +28,44 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def k11_stages(rng, chip_smoke, batch=32, n=1024, d=512, heads=4, d_ff=1024) -> dict:
+    """Each of K11's launches alone on random int8 operands."""
+    from learning3d_tpu_torch.kernels import transformer_int8 as k11
+
+    def mat(i, o):
+        return torch.from_numpy(rng.integers(-127, 128, (i, o)).astype(np.int8)).cuda()
+
+    def vec(c, lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, c).astype(np.float32)).cuda()
+
+    w = {}
+    for p in ("", "x"):
+        for m in ("q", "k", "v", "o"):
+            w[f"{p}w{m}"], w[f"{p}sw{m}"], w[f"{p}b{m}"] = mat(d, d), vec(d, 1e-4, 1e-3), vec(d, -0.1, 0.1)
+    w["w1"], w["sw1"], w["b1"] = mat(d, d_ff), vec(d_ff, 1e-4, 1e-3), vec(d_ff, -0.1, 0.1)
+    w["w2"], w["sw2"], w["b2"] = mat(d_ff, d), vec(d, 1e-4, 1e-3), vec(d, -0.1, 0.1)
+    for i in (1, 2, 3):
+        w[f"ln{i}a"], w[f"ln{i}b"] = vec(d, 0.9, 1.1), vec(d, -0.1, 0.1)
+    sc = k11.LayerScales(*(0.02,) * 7)
+    pack = k11.FusedLayerWeights(w, sc, heads, decoder=True)
+    x = torch.from_numpy(rng.normal(size=(batch, n, d)).astype(np.float32)).cuda().to(torch.bfloat16)
+    y = torch.from_numpy(rng.integers(-127, 128, (batch, n, d)).astype(np.int8)).cuda()
+    qkv = torch.from_numpy(rng.integers(-20, 21, (batch, n, 3 * d)).astype(np.int8)).cuda()
+    h = torch.from_numpy(rng.integers(0, 128, (batch, n, d_ff)).astype(np.int8)).cuda()
+    x2 = x.float()
+    f32 = torch.float32
+    stages = {
+        "ln_quant": lambda: k11._ln_quant(x, pack.ln1a, pack.ln1b, sc.s_y),
+        "gemm_qkv": lambda: k11._gemm(y, pack, "qkv", k11._REQUANT),
+        "attention_int8_pv": lambda: k11._attention(qkv, qkv, d, d, 2 * d, heads, pack.att, True),
+        "attention_hybrid": lambda: k11._attention(qkv, qkv, d, d, 2 * d, heads, pack.att, False),
+        "gemm_o_residual": lambda: k11._gemm(y, pack, "o", k11._RESIDUAL, res=x, out_dtype=f32),
+        "gemm_ff1": lambda: k11._gemm(y, pack, "ff1", k11._RELU_REQUANT),
+        "gemm_ff2_residual": lambda: k11._gemm(h, pack, "ff2", k11._RESIDUAL, res=x2, out_dtype=torch.bfloat16),
+    }
+    return {name: chip_smoke.cuda_ms(fn) for name, fn in stages.items()}
 
 
 def main() -> None:
@@ -48,13 +90,15 @@ def main() -> None:
         k5["prep_only,N=1024"] = chip_smoke.cuda_ms(
             lambda: (_xw1(x, ws[0][:3], torch.bfloat16), [w.t().to(torch.bfloat16).contiguous() for w in ws[1:]]))
         k6 = {}
-        for h, d, dv in ((4, 128, 8), (4, 128, 128), (1, 512, 3)):
+        for h, d, dv in ((4, 128, 8), (4, 128, 128), (4, 256, 256), (1, 512, 3)):
             q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(torch.bfloat16)
                        for s in ((32, h, 1024, d), (32, h, 1024, d), (32, h, 1024, dv)))
             k6[f"H={h},D={d},Dv={dv}"] = chip_smoke.cuda_ms(lambda: attention_pallas(q, k, v))
+        k11 = k11_stages(rng, chip_smoke)
     smi = chip_smoke.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                                     capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"device": smi, "k5_ms_B32_emb512": k5, "k6_ms_B32_N1024": k6}), flush=True)
+    print(json.dumps({"device": smi, "k5_ms_B32_emb512": k5, "k6_ms_B32_N1024": k6,
+                      "k11_stage_ms_B32_N1024_d512": k11}), flush=True)
 
 
 if __name__ == "__main__":
