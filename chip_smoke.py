@@ -6,8 +6,9 @@
 Drives the port's main paths at full width, bf16 and int8 (post-training
 quantized) eval serving of the PointNet-1024 classifier and of DCP
 registration (DGCNN-512, the co-attention pointer and the SVD head), and
-holds every CUDA kernel of those paths against its plain PyTorch version. Phases, one JSON line each
-with the seconds since start:
+training of the PointNet-1024 classifier through the Trainer, and holds
+every CUDA kernel of those paths against its plain PyTorch version. Phases,
+one JSON line each with the seconds since start:
 
 1. device: the card, and its name and power limit from nvidia-smi;
 2. build: every kernel compiled from the checkout's sources, one nvcc
@@ -78,6 +79,28 @@ with the seconds since start:
    dcp_template_cached) on 5 requests: K9 1, K11a 2, K11b 2, K6 1, K10 0
    launches a chunk, and the DCP gates against the same model on the plain
    versions;
+14. kernel (K3, pool_stats_pallas): against its plain version at the train
+   step's shape (B=256, N=1024, K=128, E=1024) in bf16 and in f32 and on a
+   ragged B=3, N=1000 cloud: max/min within TOL of the largest value, G and
+   the column sum within POOL_SUM_TOL, z at the kernel's argmax/argmin
+   within TOL of the plain max/min (the share of indices that differ is
+   reported); times of the kernel, the plain version, an eager chain
+   (torch.matmul materializing z, torch.max/min with indices, x^T x) as
+   ``library_ms``, and the bound;
+15. kernel (K4, pool_bwd_pallas): against its plain version with the
+   indices of the K3 run (bf16 and f32, main shape; the ragged cloud) and
+   with every channel on one point; dense dx_sp and dW_sel within
+   POOL_SUM_TOL; index_add_ plus a gathered einsum as ``library_ms``;
+16. train: bench.py's training configuration (Classifier(PointNet(1024,
+   use_bn=True)) in bf16, B=256, N=1024, Adam 1e-3, augmentation on) through
+   Trainer.fit for one epoch of SyntheticModelNet40 (6 steps) in a temporary
+   directory: K3 and K4 launched once a step, the epoch's loss finite, no
+   step skipped, parameters and BN running statistics changed; one step on
+   the kernels against the same step on their plain versions (same weights,
+   batch and dropout generator) in bf16 and f32: loss, every gradient and
+   the running statistics; a save -> load round trip that restores the
+   parameters and the optimizer state exactly; the step's forward, backward
+   and optimizer times (CUDA events) and clouds/s;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``. Any
 failed check raises, so the script exits non-zero and prints no result. It
@@ -121,6 +144,32 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SFU_EXP_PER_S = 16 * 132 * 1.98e9  # H100 SXM: 16 exponentials a clock on each of 132 SMs at 1.98 GHz
 CALIB_CLOUDS, DCP_CALIB_PAIRS = 64, 8  # bench.py's calibration batches
+K_TAIL = 128  # the input width of PointNet's fused last stage (conv5)
+# G and the column sum are sums over all B*N = 262,144 rows: the kernel sums
+# per cloud and then over the clouds, the plain version in cuBLAS's order
+# (and for f32 the kernel's hi/lo bf16 split is about 2^-16 of a product)
+POOL_SUM_TOL = 1e-4
+TRAIN_STEPS, TRAIN_LR = 6, 1e-3
+# one train step on the kernels against the same step on the plain
+# versions, per-tensor relative error: in bf16 an f32 sum in another order
+# can move an activation to the neighbouring bf16 value (2^-8) and the
+# head's BatchNorm, the log-softmax and the backward carry it on. In f32,
+# K3 multiplies through a bf16 hi/lo split (about 2^-16 of a product, as the
+# TPU kernel does) where the plain version multiplies in f32, so a channel
+# whose two largest values lie that close picks another critical point
+# (1e-5 of the picks in phase 14); each such pick moves that channel's
+# gradient to another point, some 0.5% of an encoder gradient's norm
+STEP_TOL = {"bf16": 3e-2, "f32": 2e-2}
+# biases whose exact gradient is 0: those of the Linears that feed a
+# train-mode BatchNorm (the batch mean takes them out), and the last encoder
+# BatchNorm's (it shifts every cloud's pooled feature alike, which the
+# head's train-mode bn1 takes out again while the ReLU passes every cloud).
+# What is computed is rounding noise (in bf16 a few % of the layer's weight
+# gradient, in the JAX package's bf16 step as in the port's): it is held to
+# NOISE_TOL of the layer's weight gradient instead
+ZERO_GRADIENT_BIASES = tuple(f"feature_model.convs.{i}.bias" for i in range(5)) + (
+    "feature_model.bns.4.bias", "linear1.bias", "linear2.bias")
+NOISE_TOL = 5e-2
 
 
 def emit(phase: str, **fields) -> None:
@@ -1017,6 +1066,315 @@ def phase_approx_kernels(dcp, qdcp, rng) -> dict:
     return {"share": share}
 
 
+def pool_tail_inputs(rng, batch: int, n_pts: int, emb: int, dtype):
+    """The fused tail's operands as the train step hands them over: ReLU'd
+    activations (many zeros, so a few critical points win many channels),
+    conv5's W (K, E) and c, on the card in ``dtype``."""
+    x = np.maximum(rng.normal(size=(batch, n_pts, K_TAIL)), 0.0).astype(np.float32)
+    w = rng.normal(0.0, K_TAIL**-0.5, (K_TAIL, emb)).astype(np.float32)
+    c = rng.normal(0.0, 0.1, emb).astype(np.float32)
+    return [torch.from_numpy(a).cuda().to(dtype) for a in (x, w, c)]
+
+
+def library_pool_stats(x, w, c):
+    """Yardstick only, never used by the port: z materialized by
+    torch.matmul, torch.max/min with indices, x^T x and the column sum,
+    eagerly in x's dtype."""
+    z = torch.matmul(x, w) + c
+    mx, amax = torch.max(z, dim=1)
+    mn, amin = torch.min(z, dim=1)
+    flat = x.reshape(-1, x.shape[-1])
+    return mx, mn, amax, amin, flat.t() @ flat, flat.sum(0)
+
+
+def k3_bound(x, w) -> tuple[float, str]:
+    """K3's bound: z's and G's multiply-adds (for f32 operands the three
+    bf16 products of each hi/lo split, as the kernel computes them); x, W
+    and c read once, the four (B, E) outputs, G and the column sum written
+    once."""
+    B, N, K = x.shape
+    E = w.shape[1]
+    flops = 2.0 * B * N * K * (E + K) * (3 if x.dtype == torch.float32 else 1)
+    nbytes = (x.numel() + w.numel()) * x.element_size() + 4 * E + 4 * 4 * B * E + 4 * (K * K + K)
+    return bound(flops, nbytes)
+
+
+def pool_stats_errors(got, want, x, w, c, what) -> dict:
+    mx, mn, amax, amin, G, cs = got
+    scale = max(want[0].abs().max().item(), want[1].abs().max().item())
+    abs_err = max((mx - want[0]).abs().max().item(), (mn - want[1]).abs().max().item())
+    require(abs_err <= TOL * scale, f"K3 {what}: max/min err {abs_err} > {TOL} * {scale}")
+    sums = {}
+    for key, g, r in (("G", G, want[4]), ("colsum", cs, want[5])):
+        sums[key] = (g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+        require(sums[key] <= POOL_SUM_TOL, f"K3 {what}: {key} rel err {sums[key]}")
+    n_pts = x.shape[1]
+    z = torch.matmul(x.float(), w.float()) + c.float()
+    at_err = 0.0
+    for ai, ref in ((amax, want[0]), (amin, want[1])):
+        require(ai.dtype == torch.int32 and int(ai.min()) >= 0 and int(ai.max()) < n_pts, f"K3 {what}: index range")
+        at = torch.gather(z, 1, ai.long()[:, None, :])[:, 0]
+        at_err = max(at_err, (at - ref).abs().max().item())
+    require(at_err <= TOL * scale, f"K3 {what}: z at the kernel's argmax/argmin off the plain max/min by {at_err}")
+    differ = 0.5 * ((amax != want[2]).float().mean().item() + (amin != want[3]).float().mean().item())
+    return {"abs": abs_err, "rel": abs_err / scale, "G_rel": sums["G"], "colsum_rel": sums["colsum"],
+            "z_at_index_rel": at_err / scale, "indices_differing": differ}
+
+
+def phase_kernel_k3(rng) -> tuple[dict, dict]:
+    """K3 against its plain version; returns the result and, per case, the
+    inputs and the kernel's outputs (K4 takes its indices from them)."""
+    from learning3d_tpu_torch.kernels.poolgrad import pool_stats, pool_stats_reference
+
+    shapes = {"full": (B, N, torch.bfloat16), "f32": (B, N, torch.float32), "ragged": (3, 1000, torch.bfloat16)}
+    errs, cases = {}, {}
+    with torch.inference_mode():
+        for name, (b, n, dt) in shapes.items():
+            x, w, c = pool_tail_inputs(rng, b, n, EMB, dt)
+            got = pool_stats(x, w, c)
+            want = pool_stats_reference(x, w, c)
+            torch.cuda.synchronize()
+            errs[name] = pool_stats_errors(got, want, x, w, c, name)
+            cases[name] = ((x, w, c), got)
+            del want
+        x, w, c = cases["full"][0]
+        k_ms = cuda_ms(lambda: pool_stats(x, w, c))
+        p_ms = cuda_ms(lambda: pool_stats_reference(x, w, c), reps=3, warmup=1)
+        l_ms = cuda_ms(lambda: library_pool_stats(x, w, c))
+        xf, wf, cf = cases["f32"][0]
+        f32_ms = cuda_ms(lambda: pool_stats(xf, wf, cf))
+    bound_ms, bound_by = k3_bound(x, w)
+    f32_bound = k3_bound(xf, wf)[0]
+    result = {
+        "max_abs_err": max(e["abs"] for e in errs.values()), "max_rel_err": max(e["rel"] for e in errs.values()),
+        "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    emit("kernel", name="pool_stats_pallas",
+         tolerance=f"max/min and z at the indices <= {TOL}*max|plain|; G, colsum <= {POOL_SUM_TOL}*max|plain|",
+         shape={"B": B, "N": N, "K": K_TAIL, "E": EMB}, errors=errs, f32_kernel_ms=f32_ms, f32_bound_ms=f32_bound,
+         library="eager torch.matmul (z materialized) + torch.max/min with indices + x^T x, yardstick only",
+         **result)
+    return result, cases
+
+
+def library_pool_bwd(idx, dsel, w, x):
+    """Yardstick only, never used by the port: index_add_ of the dsel-scaled
+    weight columns and a gathered einsum."""
+    Bq, Nq, K = x.shape
+    E = idx.shape[1]
+    il = idx.long()
+    rows = (il + Nq * torch.arange(Bq, device=x.device)[:, None]).reshape(-1)
+    vals = (dsel[:, :, None] * w.t()[None].float()).reshape(Bq * E, K)
+    dx = torch.zeros(Bq * Nq, K, device=x.device).index_add_(0, rows, vals)
+    x_sel = torch.gather(x, 1, il[:, :, None].expand(Bq, E, K))
+    return dx.view(Bq, Nq, K), torch.einsum("bek,be->ke", x_sel.float(), dsel)
+
+
+def k4_bound(idx, w, x) -> tuple[float, str]:
+    """K4's bound: dx_sp and dW_sel written once, idx, dsel and W read
+    once, and the x rows this run's indices pick (each distinct row once);
+    2 * B * E * K f32 multiply-adds on the CUDA cores."""
+    Bq, Nq, K = x.shape
+    E = idx.shape[1]
+    rows = (idx.long() + Nq * torch.arange(Bq, device=x.device)[:, None]).unique().numel()
+    nbytes = 4 * Bq * Nq * K + 4 * K * E + 8 * Bq * E + w.numel() * w.element_size() + rows * K * x.element_size()
+    return bound(0.0, nbytes, f32_flops=4.0 * Bq * E * K)
+
+
+def phase_kernel_k4(rng, k3_cases) -> dict:
+    from learning3d_tpu_torch.kernels.poolgrad import pool_bwd, pool_bwd_reference
+
+    cases = {name: (inp[0], inp[1], out[2]) for name, (inp, out) in k3_cases.items()}
+    x, w, _ = k3_cases["full"][0]
+    cases["one_point"] = (x, w, torch.full((B, EMB), 17, dtype=torch.int32, device="cuda"))
+    errs = {}
+    with torch.inference_mode():
+        for name, (x, w, idx) in cases.items():
+            dsel = torch.from_numpy(rng.normal(size=idx.shape).astype(np.float32)).cuda()
+            dx, dw = pool_bwd(idx, dsel, w, x)
+            want_dx, want_dw = pool_bwd_reference(idx, dsel, w, x)
+            torch.cuda.synchronize()
+            a1, r1 = check_close(dx, want_dx, f"K4 dx_sp ({name})", POOL_SUM_TOL)
+            a2, r2 = check_close(dw, want_dw, f"K4 dW_sel ({name})", POOL_SUM_TOL)
+            touched = torch.zeros(x.shape[:2], dtype=torch.bool, device="cuda").scatter_(1, idx.long(), True)
+            require(bool((dx[~touched] == 0).all()), f"K4 ({name}): untouched rows of dx_sp are 0")
+            errs[name] = {"abs": max(a1, a2), "rel": max(r1, r2), "dx_rel": r1, "dW_rel": r2}
+            if name == "full":
+                full = (idx, dsel, w, x)
+        k_ms = cuda_ms(lambda: pool_bwd(*full))
+        p_ms = cuda_ms(lambda: pool_bwd_reference(*full), reps=5)
+        l_ms = cuda_ms(lambda: library_pool_bwd(*full), reps=5)
+    bound_ms, bound_by = k4_bound(full[0], full[2], full[3])
+    result = {
+        "max_abs_err": max(e["abs"] for e in errs.values()), "max_rel_err": max(e["rel"] for e in errs.values()),
+        "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    emit("kernel", name="pool_bwd_pallas", tolerance=f"dx_sp, dW_sel <= {POOL_SUM_TOL}*max|plain|",
+         shape={"B": B, "N": N, "K": K_TAIL, "E": EMB}, errors=errs,
+         distinct_rows_picked=int((full[0].long() + N * torch.arange(B, device="cuda")[:, None]).unique().numel()),
+         library="index_add_ + gathered einsum (f32), yardstick only", **result)
+    return result
+
+
+@contextlib.contextmanager
+def plain_poolgrad():
+    """Route the train-mode fused tail to K3's and K4's plain versions (on
+    the same card); restored on exit."""
+    from learning3d_tpu_torch.kernels import poolgrad
+    from learning3d_tpu_torch.utils import layers
+
+    saved = layers.pool_stats, layers.pool_bwd
+    layers.pool_stats, layers.pool_bwd = poolgrad.pool_stats_reference, poolgrad.pool_bwd_reference
+    try:
+        yield
+    finally:
+        layers.pool_stats, layers.pool_bwd = saved
+
+
+def step_agreement(make_trainer, batch, kind) -> dict:
+    """One forward and backward through the Trainer on the kernels against
+    the same on their plain versions (fresh trainers: same weights, the same
+    augmentation and dropout generators): loss, every gradient and the BN
+    running statistics, per-tensor relative error."""
+    runs = []
+    for plain in (False, True):
+        trainer = make_trainer()
+        with plain_poolgrad() if plain else contextlib.nullcontext():
+            loss, _ = trainer.forward_backward(batch)
+        torch.cuda.synchronize()
+        trainer.close()
+        grads = {n: p.grad for n, p in trainer.model.named_parameters()}
+        runs.append((loss.float().item(), grads, dict(trainer.model.named_buffers())))
+    (lk, gk, bk), (lp, gp, bp) = runs
+    tol = STEP_TOL[kind]
+    loss_rel = abs(lk - lp) / abs(lp)
+    require(np.isfinite(lk) and loss_rel <= tol, f"train step {kind}: loss {lk} vs plain {lp}")
+    worst = {"loss": loss_rel, "grad": 0.0, "zero_gradient_bias": 0.0, "running": 0.0}
+    failed = {}
+    for name, g in gk.items():
+        err = (g - gp[name]).norm().item()
+        if name in ZERO_GRADIENT_BIASES:
+            rel = err / gp[name.rsplit(".", 1)[0] + ".weight"].norm().item()
+            key, limit = "zero_gradient_bias", NOISE_TOL
+        else:
+            rel, key, limit = err / gp[name].norm().item(), "grad", tol
+        worst[key] = max(worst[key], rel)
+        if not rel <= limit:
+            failed[name] = rel
+    for name, b in bk.items():
+        rel = (b - bp[name]).abs().max().item() / max(bp[name].abs().max().item(), 1e-30)
+        worst["running"] = max(worst["running"], rel)
+        if not rel <= tol:
+            failed[name] = rel
+    require(not failed, f"train step {kind}: kernels vs plain versions {failed}")
+    return worst
+
+
+def time_train_step(trainer, batch, reps: int = 5) -> dict:
+    """The step's parts on one device batch, CUDA events: forward
+    (augmentation and loss), backward (with the gradient guard), optimizer;
+    and the whole step on the host clock."""
+    params = [p for p in trainer.model.parameters() if p.requires_grad]
+    parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for p in params:
+            p.grad = None
+        ev[0].record()
+        b = trainer.augment_fn(trainer.generator, batch)
+        loss, _ = trainer.loss_fn(trainer.model, b, trainer.generator)
+        ev[1].record()
+        loss.backward()
+        trainer.guard_grads([p.grad for p in params])
+        ev[2].record()
+        trainer.update()
+        ev[3].record()
+        ev[3].synchronize()
+        for key, (a, z) in zip(parts, zip(ev, ev[1:])):
+            parts[key].append(a.elapsed_time(z))
+    step_s = (time.perf_counter() - t0) / reps
+    out = {k: statistics.median(v) for k, v in parts.items()}
+    out["step_ms"] = 1e3 * step_s
+    out["clouds_per_s"] = B / step_s
+    return out
+
+
+def phase_train(rng) -> dict:
+    import dataclasses
+    import tempfile
+
+    from learning3d_tpu_torch.data import ClassificationData, SyntheticModelNet40, batch_iterator, to_device
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.models import Classifier, PointNet
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    state = random_nnx_state(rng, EMB, CLASSES)
+
+    def build(dtype):
+        model = Classifier(PointNet(emb_dims=EMB, use_bn=True, dtype=dtype), CLASSES, dtype=dtype,
+                           dropout_generator=torch.Generator(device="cuda").manual_seed(SEED))
+        return load_nnx_state(model, state)
+
+    data = ClassificationData(SyntheticModelNet40(num_points=N, size=TRAIN_STEPS * B))
+    kinds = {"bf16": torch.bfloat16, "f32": None}
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = TrainConfig(exp_name="chip_smoke_train", batch_size=B, num_points=N, optimizer="adam", lr=TRAIN_LR,
+                          epochs=1, augment=True, ckpt_dir=ckpt)
+        trainer = Trainer(cfg, build(torch.bfloat16))
+        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # the Trainer's epoch line
+            trainer.fit(data)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in ("pool_stats_pallas", "pool_bwd_pallas")}
+        require(all(v == TRAIN_STEPS for v in launches.values()), f"K3/K4 launches {launches} for {TRAIN_STEPS} steps")
+        epoch = trainer.history[-1]
+        require(np.isfinite(epoch["train_loss"]), f"train loss {epoch['train_loss']}")
+        skipped = int(trainer.skipped_steps)
+        require(skipped == 0, f"{skipped} steps skipped as non-finite")
+        after = trainer.model.state_dict()
+        changed = {k: not torch.equal(before[k], after[k]) for k in before}
+        require(all(v for k, v in changed.items() if k.endswith("weight") or "running" in k),
+                f"unchanged after training: {[k for k, v in changed.items() if not v]}")
+
+        batch = to_device(next(batch_iterator(data, B, seed=SEED)), "cuda")
+        agreement = {}
+        for kind, dtype in kinds.items():
+            agreement[kind] = step_agreement(lambda: Trainer(cfg, build(dtype)), batch, kind)
+
+        trainer.save("latest")
+        again = Trainer(dataclasses.replace(cfg, resume="latest"), build(torch.bfloat16))
+        with contextlib.redirect_stdout(sys.stderr):
+            again.fit(data, epochs=0)  # makes the optimizer and restores the checkpoint; runs no epoch
+        for k, v in trainer.model.state_dict().items():
+            require(torch.equal(v, again.model.state_dict()[k]), f"round trip: {k}")
+        saved, loaded = trainer.optimizer.state_dict(), again.optimizer.state_dict()
+        for i, st in saved["state"].items():
+            for key, v in st.items():
+                require(torch.equal(v.cpu(), loaded["state"][i][key].cpu()), f"round trip: optimizer state {i}.{key}")
+        timing = time_train_step(trainer, batch)
+        trainer.close()
+        again.close()
+    # fit_s includes set-up (torch.optim imports torch._dynamo when the first
+    # optimizer is built); the epoch's clouds/s includes the host's making of
+    # the synthetic clouds, which the prefetch thread overlaps with the steps
+    result = {"launches": launches, "train_loss": epoch["train_loss"], "train_accuracy": epoch["train_accuracy"],
+              "fit_s": fit_s, "epoch_s": epoch["seconds"], "epoch_clouds_per_s": TRAIN_STEPS * B / epoch["seconds"],
+              **timing}
+    emit("train", config={"model": "Classifier(PointNet(1024, use_bn=True)) bf16", "B": B, "N": N, "optimizer": "adam",
+                          "lr": TRAIN_LR, "augment": True, "steps": TRAIN_STEPS},
+         dataset=data.data_class.version_tag(), skipped_steps=skipped, tensors_changed=sum(changed.values()),
+         tensors=len(changed), step_vs_plain={k: {"tolerance": STEP_TOL[k], **v} for k, v in agreement.items()},
+         roundtrip="exact", **result)
+    return result
+
+
 def kernel_entry(name, source, replaces, launches, res) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -1091,6 +1449,12 @@ def main() -> None:
                             picks_differing_from_exact=share)
     phase_serve_dcp_variant("serve_template", fused[False], rng, {**per_chunk, "dgcnn_encode_fused_int8": 1},
                             FUSED_REQUESTS, template=True)
+    del fused, approx, dcp
+
+    k3, k3_cases = phase_kernel_k3(rng)
+    k4 = phase_kernel_k4(rng, k3_cases)
+    del k3_cases
+    train = phase_train(rng)
 
     csrc = "learning3d_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
@@ -1112,6 +1476,10 @@ def main() -> None:
         kernel_entry("decoder_layer_int8", csrc + "transformer_int8.cu",
                      "learning3d_tpu/kernels/transformer_int8.py:289", fused_launches["decoder_layer_int8"],
                      k11["decoder"]),
+        kernel_entry("pool_stats_pallas", csrc + "poolgrad.cu", "learning3d_tpu/kernels/poolgrad.py:146",
+                     train["launches"]["pool_stats_pallas"], k3),
+        kernel_entry("pool_bwd_pallas", csrc + "poolgrad.cu", "learning3d_tpu/kernels/poolgrad.py:203",
+                     train["launches"]["pool_bwd_pallas"], k4),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -15,6 +15,8 @@ LAUNCHES: dict[str, int] = {
     "attention_int8": 0,
     "encoder_layer_int8": 0,
     "decoder_layer_int8": 0,
+    "pool_stats_pallas": 0,
+    "pool_bwd_pallas": 0,
 }
 
 

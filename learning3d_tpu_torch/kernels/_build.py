@@ -41,6 +41,8 @@ SIGNATURES = {
     "layer_ln_quant": ([_P] * 4 + [_I] * 4 + [_F] * 3 + [_P], ctypes.c_int),
     "layer_gemm_s8": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
     "layer_attention_s8": ([_P] * 4 + [_I] * 8 + [_F] * 3 + [_I, _P], ctypes.c_int),
+    "pool_stats": ([_P] * 3 + [_I] + [_P] * 8 + [_I] * 3 + [_P], ctypes.c_int),
+    "pool_bwd": ([_P] * 4 + [_I] + [_P] * 2 + [_I] * 3 + [_P], ctypes.c_int),
     "l3d_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -99,15 +99,16 @@ def pointnet_pooled_kernel(x, ws, bs, *, dot_dtype=torch.bfloat16):
     return out
 
 
-def pointnet_fused_ok(x, convs, bns):
-    """Dispatch guard: eval-mode BN, bf16 compute, 3-channel clouds, and
-    the widths the kernel takes."""
+def pointnet_fused_ok(x, convs, bns, use_running_average=None):
+    """Dispatch guard: eval-mode BN (the module's mode, or
+    ``use_running_average`` where given), bf16 compute, 3-channel clouds,
+    and the widths the kernel takes."""
     if x.ndim != 3 or x.shape[-1] != 3 or convs[0].in_features != 3:
         return False
     if convs[0].dtype != torch.bfloat16 or convs[-1].out_features % 64:
         return False
     # train-mode BN needs batch statistics: the unfused path
-    return not any(bn is not None and bn.training for bn in bns)
+    return all(bn is None or bn.use_running(use_running_average) for bn in bns)
 
 
 class _FusedBF16(torch.autograd.Function):

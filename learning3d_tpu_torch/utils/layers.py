@@ -1,11 +1,14 @@
-"""Shared-MLP stacks, BatchNorm and pooling: counterpart of
-``learning3d_tpu/utils/layers.py``, eval branch only.
+"""Shared-MLP stacks, BatchNorm, dropout and pooling: counterpart of
+``learning3d_tpu/utils/layers.py``.
 
 The reference's Conv1d(kernel=1) stacks are per-point Linear layers over
 channel-last (B, N, C) inputs. Parameters are kept in float32 and the
 arithmetic runs in the module's ``dtype`` (e.g. bf16), as flax nnx does
-with ``param_dtype`` and ``dtype``. Train-mode BatchNorm statistics are
-not ported yet: a BatchNorm in training mode raises.
+with ``param_dtype`` and ``dtype``. BatchNorm follows ``nnx.BatchNorm``
+(``momentum=0.9``, fast variance, biased running variance), dropout
+``nnx.Dropout`` with an explicit ``torch.Generator``. The train-mode fused
+PointNet tail ``linear_bn_relu_maxpool`` is a ``torch.autograd.Function``
+over K3 and K4 (``kernels/poolgrad.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from learning3d_tpu_torch import DEFAULT_DEVICE, resolve_device
+from learning3d_tpu_torch.kernels.poolgrad import pool_bwd, pool_bwd_ok, pool_stats, pool_stats_ok
+
+BN_MOMENTUM = 0.9  # flax's BatchNorm momentum: the EMA keeps 0.9 of the old statistics (torch's momentum 0.1)
 
 
 def _compute_dtype(dtype, *tensors):
@@ -63,9 +69,19 @@ class Linear(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-    """``nnx.BatchNorm`` over the last axis, eval mode: running ``mean`` and
-    ``var``, eps 1e-5, arithmetic in the module's ``dtype``:
-    y = (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    """``nnx.BatchNorm(momentum=0.9)`` over the last axis, eps 1e-5.
+
+    Eval (``use_running_average``): the running ``mean`` and ``var``, the
+    arithmetic in the module's ``dtype``: y = (x - mean) * (rsqrt(var + eps)
+    * scale) + bias.
+
+    Train: the batch statistics over every axis but the last, in at least
+    f32, with the fast variance E[x^2] - E[x]^2 clipped at 0; y is computed
+    in that type and rounded to ``dtype``. The running statistics become
+    0.9 * old + 0.1 * batch (flax's momentum 0.9 is torch's 0.1), with the
+    *biased* fast variance (torch's own BatchNorm keeps the unbiased one),
+    under ``no_grad``. ``use_running_average`` on a call overrides the mode
+    (``self.training``)."""
 
     def __init__(self, num_features, *, eps=1e-5, dtype=None, device=DEFAULT_DEVICE):
         super().__init__()
@@ -78,21 +94,63 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
         self.register_buffer("running_var", torch.ones(num_features, device=device))
 
-    def _stats(self, dtype):
-        if self.training:
-            raise NotImplementedError("train-mode BatchNorm statistics are not ported yet")
-        return (t.to(dtype) for t in (self.running_mean, self.running_var, self.weight, self.bias))
+    def use_running(self, use_running_average=None) -> bool:
+        return not self.training if use_running_average is None else bool(use_running_average)
 
     def affine(self, dtype):
-        """(s, b) with bn(x) == x * s + b, both in ``dtype``."""
-        mean, var, scale, bias = self._stats(dtype)
+        """(s, b) with bn(x) == x * s + b under the running statistics, both
+        in ``dtype``."""
+        mean, var, scale, bias = (t.to(dtype) for t in (self.running_mean, self.running_var, self.weight,
+                                                        self.bias))
         s = scale * torch.rsqrt(var + self.eps)
         return s, bias - mean * s
 
-    def forward(self, x):
+    @torch.no_grad()
+    def update_running(self, mean, var):
+        """The EMA of the running statistics: 0.9 * old + 0.1 * batch."""
+        m = BN_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean.to(self.running_mean.dtype))
+        self.running_var.copy_(m * self.running_var + (1 - m) * var.to(self.running_var.dtype))
+
+    def forward(self, x, use_running_average=None):
         dt = _compute_dtype(self.dtype, x, self.weight)
-        mean, var, scale, bias = self._stats(dt)
-        return (x.to(dt) - mean) * (torch.rsqrt(var + self.eps) * scale) + bias
+        if self.use_running(use_running_average):
+            mean, var, scale, bias = (t.to(dt) for t in (self.running_mean, self.running_var, self.weight,
+                                                         self.bias))
+            return (x.to(dt) - mean) * (torch.rsqrt(var + self.eps) * scale) + bias
+        st = torch.promote_types(dt, torch.float32)
+        xs = x.to(dt).to(st)
+        red = tuple(range(x.ndim - 1))
+        mean = xs.mean(red)
+        var = torch.clamp((xs * xs).mean(red) - mean * mean, min=0.0)
+        self.update_running(mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(dt).to(st)
+        return ((xs - mean) * mul + self.bias.to(dt).to(st)).to(dt)
+
+
+class Dropout(nn.Module):
+    """``nnx.Dropout``: in training, keep each value with probability
+    1 - rate and scale the kept ones by 1 / (1 - rate); identity in eval or
+    at rate 0. The mask is drawn from ``generator``, a ``torch.Generator`` on
+    the inputs' device (one generator for the model, so that a run replays
+    from its seed; a new one seeded with 0 by default), never from the
+    global RNG."""
+
+    def __init__(self, rate: float, *, generator: torch.Generator | None = None, device=DEFAULT_DEVICE):
+        super().__init__()
+        self.rate = float(rate)
+        if generator is None:
+            generator = torch.Generator(device=resolve_device(device)).manual_seed(0)
+        self.generator = generator
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def fused_bn_relu_maxpool(z, bn):
@@ -108,6 +166,134 @@ def fused_bn_relu_maxpool(z, bn):
     s, b = bn.affine(dt)
     sel = torch.where(s >= 0, torch.amax(z, dim=-2), torch.amin(z, dim=-2))
     return torch.relu(s * sel + b)
+
+
+class _LinearBnReluMaxpoolTrain(torch.autograd.Function):
+    """relu(bn(x @ W + c)) max-pooled over the points, with train-mode batch
+    statistics; ``learning3d_tpu/utils/layers.py``'s
+    ``_linear_bn_relu_maxpool_train`` formula for formula.
+
+    Forward (M = B*N rows, z = x W + c): the statistics come from the K x K
+    Gram matrix G = sum_bn x x^T instead of a pass over the (M, E) z:
+      mean = colmean(x) W + c,  E[z^2] = diag(W^T G W)/M + 2 c mean - c^2,
+      var = max(E[z^2] - mean^2, 0),  s = gamma rsqrt(var + eps),
+      b = beta - mean s,  out = relu(s sel + b),
+    with sel the max of z over the points where s >= 0, else the min.
+    Backward: dz is onehot(argsel) dsel + dmean/M + (2/M) dE2 z, so every
+    dense term collapses onto G and only the one-hot part is a scatter
+    (K4) and a gather.
+
+    Where JAX's gate holds (f32 statistics, K and E multiples of 128) the
+    max/min/argmax/argmin, G and colsum come from K3 and the scatter and
+    gather from K4, on every device (their plain versions on the CPU);
+    elsewhere the XLA branch's math runs in plain torch. The dense K x K
+    terms are plain torch, as they are XLA in JAX. Returns (out, batch mean,
+    batch var); the caller applies the running-statistics EMA."""
+
+    @staticmethod
+    def forward(ctx, x, W, c, gamma, beta, eps):
+        B, N, K = x.shape
+        E = W.shape[1]
+        M = B * N
+        st = torch.promote_types(x.dtype, torch.float32)  # statistics in at least f32
+        Wf, cf = W.to(st), c.to(st)
+        kernels = st == torch.float32 and pool_stats_ok(N, E, K)
+        if kernels:
+            mx, mn, amax, amin, G, colsum = pool_stats(x, W, c)
+            out_dtype = x.dtype
+            colmean_x = colsum / M
+        else:
+            z = x @ W + c  # compute dtype; consumed only by the four reductions
+            out_dtype = z.dtype
+            mx, amax = z.amax(1), z.argmax(1).to(torch.int32)
+            mn, amin = z.amin(1), z.argmin(1).to(torch.int32)
+            xs = x.to(st)
+            colmean_x = xs.mean((0, 1))
+            G = torch.einsum("bnk,bnl->kl", xs, xs)
+        T = G @ Wf  # (K, E), reused in the backward
+        mean = colmean_x @ Wf + cf
+        e2 = (Wf * T).sum(0) / M + 2.0 * cf * mean - cf * cf
+        var = torch.clamp(e2 - mean * mean, min=0.0)
+        s = gamma.to(st) * torch.rsqrt(var + eps)
+        b = beta.to(st) - mean * s
+        spos = s >= 0
+        sel = torch.where(spos, mx, mn).to(st)
+        idx = torch.where(spos[None, :], amax, amin)
+        a = s * sel + b
+        ctx.eps, ctx.kernels = eps, kernels and pool_bwd_ok(N, E, K)
+        ctx.save_for_backward(x, W, c, gamma, beta, mean, var, e2, s, sel, idx, a > 0, colmean_x, T)
+        return torch.relu(a).to(out_dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dout, dmean_out, dvar_out):
+        x, W, c, gamma, beta, mean, var, e2, s, sel, idx, pos, colmean_x, T = ctx.saved_tensors
+        st = torch.promote_types(x.dtype, torch.float32)
+        Wf, cf = W.to(st), c.to(st)
+        B, N, K = x.shape
+        M = B * N
+
+        da = dout.to(st) * pos  # (B, E)
+        dsel = da * s
+        db2 = da.sum(0)
+        ds = (da * sel).sum(0) - mean * db2
+        rstd = torch.rsqrt(var + ctx.eps)
+        dgamma = ds * rstd
+        dvar = -0.5 * ds * gamma.to(st) * rstd / (var + ctx.eps) + dvar_out.to(st)
+        # var = max(e2 - mean^2, 0): the clip only bites in degenerate cases
+        dd = torch.where(e2 - mean * mean > 0, dvar, torch.zeros_like(dvar))
+        dmean = -s * db2 - 2.0 * mean * dd + dmean_out.to(st)
+        dE2 = dd
+
+        if ctx.kernels:
+            dx, dW_sel = pool_bwd(idx, dsel, W, x)
+        else:
+            E = idx.shape[1]
+            il = idx.long()
+            x_sel = torch.gather(x, 1, il[:, :, None].expand(B, E, K)).to(st)  # (B, E, K)
+            dW_sel = torch.einsum("bek,be->ke", x_sel, dsel)
+            vals = dsel[:, :, None] * Wf.t()[None]  # (B, E, K)
+            rows = (il + N * torch.arange(B, device=x.device)[:, None]).reshape(-1)
+            dx = torch.zeros(M, K, device=x.device, dtype=st).index_add_(0, rows, vals.reshape(B * E, K))
+            dx = dx.view(B, N, K)
+        dW = (dW_sel + torch.outer(colmean_x, dmean) + (2.0 / M) * T * dE2[None, :]
+              + 2.0 * torch.outer(colmean_x, cf * dE2))
+        dc = dsel.sum(0) + dmean + 2.0 * dE2 * mean
+        P = (Wf * (2.0 * dE2 / M)[None, :]) @ Wf.t()  # (K, K)
+        row = Wf @ (dmean / M) + (2.0 / M) * (Wf @ (cf * dE2))  # (K,)
+        dx = dx.reshape(M, K).addmm(x.reshape(M, K).to(st), P.to(x.dtype).to(st)) + row[None, :]
+        return (dx.view(B, N, K).to(x.dtype), dW.to(W.dtype), dc.to(c.dtype), dgamma.to(gamma.dtype),
+                db2.to(beta.dtype), None)
+
+
+def linear_bn_relu_maxpool(x, linear, bn, use_running_average=None):
+    """``max over points of relu(bn(linear(x)))`` for (B, N, K) inputs, the
+    whole encoder tail as one fused stage. Train mode runs the Gram-matrix
+    autograd Function (K3 and K4 where JAX's gate holds) and applies the
+    running-statistics EMA outside it; eval mode the affine selection of
+    ``fused_bn_relu_maxpool``.
+
+    As ``nnx.Linear`` promotes, the Function receives x, the weight and the
+    bias in the linear's compute dtype (bf16 for a bf16 model) and returns
+    dW in that dtype: a bf16 model's weight gradient is rounded to bf16
+    before it reaches the f32 parameter, as in JAX."""
+    if bn.use_running(use_running_average):
+        return fused_bn_relu_maxpool(linear(x), bn)
+    dt = _compute_dtype(linear.dtype, x, linear.weight)
+    W = linear.weight.to(dt).t()  # (K, E), a view of the (E, K) weight
+    c = linear.bias.to(dt) if linear.bias is not None else torch.zeros(W.shape[1], device=x.device, dtype=dt)
+    out, mean, var = _LinearBnReluMaxpoolTrain.apply(x.to(dt), W, c, bn.weight, bn.bias, bn.eps)
+    bn.update_running(mean.detach(), var.detach())
+    return out
+
+
+def set_bn_mode(model: nn.Module, use_running_average: bool):
+    """Flip every BatchNorm between train and eval statistics (the
+    PointNetLK warm-then-freeze trick); like the JAX package, this sets the
+    mode of the whole model."""
+    if use_running_average:
+        model.eval()
+    else:
+        model.train()
 
 
 class MLP1d(nn.Module):

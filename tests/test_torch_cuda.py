@@ -345,3 +345,156 @@ def test_k5_k9_approx_match_plain(cuda, case, batch, n_pts):
         torch.cuda.synchronize()
         assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
     assert approx_knn_indices(x, 20).shape == (batch, n_pts, 20)
+
+
+def pool_inputs(rng, batch, n_pts, emb, dtype, device, repeat=None):
+    """ReLU'd activations (many zeros, so a few critical points win many
+    channels, as in PointNet) and weights of the fused tail. ``repeat``: every
+    point is a copy of one of the first ``repeat`` points (exact ties)."""
+    x = np.maximum(rng.normal(size=(batch, n_pts, 128)), 0.0).astype(np.float32)
+    if repeat:
+        x = x[:, np.arange(n_pts) % repeat]
+    w = rng.normal(0, 128**-0.5, (128, emb)).astype(np.float32)
+    c = rng.normal(0, 0.1, emb).astype(np.float32)
+    return [torch.from_numpy(a).to(device).to(dt) for a, dt in ((x, dtype), (w, dtype), (c, dtype))]
+
+
+# the same operands on both sides; f32 sums in another order (and for f32
+# the kernel's hi/lo bf16 split, about 2^-16 of each product)
+POOL_TOL = 1e-4
+
+
+@pytest.mark.parametrize("case,batch,n_pts,emb,dtype", [
+    ("full", 4, 1024, 1024, torch.bfloat16), ("f32", 4, 1024, 1024, torch.float32),
+    ("ragged", 3, 1000, 256, torch.bfloat16), ("tiny", 2, 37, 128, torch.float32),
+    ("ties", 2, 300, 128, torch.bfloat16)])
+def test_k3_matches_plain(cuda, case, batch, n_pts, emb, dtype):
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.poolgrad import pool_stats, pool_stats_reference
+
+    rng = np.random.default_rng(n_pts + emb)
+    x, w, c = pool_inputs(rng, batch, n_pts, emb, dtype, cuda, repeat=7 if case == "ties" else None)
+    before = LAUNCHES["pool_stats_pallas"]
+    got = pool_stats(x, w, c)
+    want = pool_stats_reference(x, w, c)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pool_stats_pallas"] == before + 1
+    mx, mn, amax, amin, G, cs = got
+    scale = max(want[0].abs().max().item(), want[1].abs().max().item())
+    for g, r in ((mx, want[0]), (mn, want[1])):
+        assert (g - r).abs().max().item() <= POOL_TOL * scale
+    for g, r in ((G, want[4]), (cs, want[5])):
+        assert (g - r).abs().max().item() <= POOL_TOL * r.abs().max().item()
+    z = torch.matmul(x.float(), w.float()) + c.float()
+    for ai, ref in ((amax, want[0]), (amin, want[1])):
+        assert ai.dtype == torch.int32 and int(ai.min()) >= 0 and int(ai.max()) < n_pts
+        at = torch.gather(z, 1, ai.long()[:, None, :])[:, 0]
+        assert (at - ref).abs().max().item() <= POOL_TOL * scale
+    if case == "ties":  # equal rows give bitwise-equal z: the first copy wins
+        assert int(amax.max()) < 7 and int(amin.max()) < 7
+
+
+@pytest.mark.parametrize("case,batch,n_pts,emb,dtype", [
+    ("k3_picks", 4, 1024, 1024, torch.bfloat16), ("k3_picks_f32", 4, 1024, 1024, torch.float32),
+    ("ragged", 3, 1000, 256, torch.bfloat16), ("one_point", 2, 512, 1024, torch.bfloat16),
+    ("one_point_f32", 2, 100, 640, torch.float32)])
+def test_k4_matches_plain(cuda, case, batch, n_pts, emb, dtype):
+    """Indices from a real K3 run (many channels share a critical point),
+    and every channel on one point; dense dx_sp with zero rows elsewhere."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.poolgrad import pool_bwd, pool_bwd_reference, pool_stats
+
+    rng = np.random.default_rng(n_pts + emb + 1)
+    x, w, c = pool_inputs(rng, batch, n_pts, emb, dtype, cuda)
+    if case.startswith("one_point"):
+        idx = torch.full((batch, emb), 5, dtype=torch.int32, device=cuda)
+    else:
+        idx = pool_stats(x, w, c)[2]
+    dsel = torch.from_numpy(rng.normal(size=(batch, emb)).astype(np.float32)).to(cuda)
+    before = LAUNCHES["pool_bwd_pallas"]
+    dx, dw = pool_bwd(idx, dsel, w, x)
+    want_dx, want_dw = pool_bwd_reference(idx, dsel, w, x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pool_bwd_pallas"] == before + 1
+    assert dx.shape == (batch, n_pts, 128) and dw.shape == (128, emb)
+    assert (dx - want_dx).abs().max().item() <= POOL_TOL * want_dx.abs().max().item()
+    assert (dw - want_dw).abs().max().item() <= POOL_TOL * want_dw.abs().max().item()
+    touched = torch.zeros(batch, n_pts, dtype=torch.bool, device=cuda)
+    touched.scatter_(1, idx.long(), True)
+    assert bool((dx[~touched] == 0).all())
+
+
+def test_k3_k4_refuse_what_they_do_not_take(cuda):
+    from learning3d_tpu_torch.kernels.poolgrad import pool_bwd, pool_stats
+
+    x = torch.zeros(2, 16, 256, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(256, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="K == 128"):
+        pool_stats(x, w, torch.zeros(128, device=cuda))
+    x, w = x[..., :128].contiguous(), torch.zeros(128, 4224, device=cuda, dtype=torch.bfloat16)
+    idx = torch.zeros(2, 4224, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="E <= 4096"):
+        pool_bwd(idx, torch.zeros(2, 4224, device=cuda), w, x)
+    with pytest.raises(ValueError, match="both bf16 or both f32"):
+        pool_stats(x, w.float(), torch.zeros(4224, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_train_step_kernels_match_plain(cuda, dtype, monkeypatch):
+    """One forward and backward of the PointNet-1024 classifier in train mode
+    on K3/K4 against the same step on their plain versions: loss, every
+    gradient and the BN running statistics."""
+    from learning3d_tpu_torch.kernels import LAUNCHES, poolgrad
+    from learning3d_tpu_torch.models import Classifier, PointNet
+    from learning3d_tpu_torch.train import tasks
+    from learning3d_tpu_torch.utils import layers
+
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(32, 512, 3)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 40, 32)).to(cuda)
+    dt = None if dtype == torch.float32 else dtype
+    base = Classifier(PointNet(emb_dims=1024, use_bn=True, dtype=dt, device=cuda), 40, dtype=dt, device=cuda)
+    runs = []
+    for plain in (False, True):
+        model = Classifier(PointNet(emb_dims=1024, use_bn=True, dtype=dt, device=cuda), 40, dtype=dt, device=cuda,
+                           dropout_generator=torch.Generator(device=cuda).manual_seed(3))
+        model.load_state_dict(base.state_dict())
+        if plain:
+            monkeypatch.setattr(layers, "pool_stats", poolgrad.pool_stats_reference)
+            monkeypatch.setattr(layers, "pool_bwd", poolgrad.pool_bwd_reference)
+        before = (LAUNCHES["pool_stats_pallas"], LAUNCHES["pool_bwd_pallas"])
+        loss, _ = tasks.classification(model.train(), (x, y))
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (LAUNCHES["pool_stats_pallas"] - before[0], LAUNCHES["pool_bwd_pallas"] - before[1])
+        assert launched == ((0, 0) if plain else (1, 1))
+        runs.append((loss.float().item(), {n: p.grad for n, p in model.named_parameters()},
+                     {n: b for n, b in model.named_buffers()}))
+    (lk, gk, bk), (lp, gp, bp) = runs
+    # bf16: an f32 sum in another order can move a bf16 activation one step
+    # (2^-8), and the head's BN, the log-softmax and the backward carry it.
+    # f32: K3's bf16 hi/lo split (2^-16 of a product) against the plain
+    # version's f32 products can pick another point for a channel whose two
+    # largest values lie that close, moving that channel's gradient (some
+    # 0.5% of an encoder gradient's norm at this size)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-2
+    # biases with no gradient in exact arithmetic: those feeding a train-mode
+    # BatchNorm (the batch mean takes them out) and the last encoder BN's
+    # (the head's bn1 takes a shift common to every cloud out again): their
+    # rounding noise is held to 5% of the layer's weight gradient
+    zero_grad = {f"feature_model.convs.{i}.bias" for i in range(5)} | {
+        "feature_model.bns.4.bias", "linear1.bias", "linear2.bias"}
+    assert abs(lk - lp) <= tol * abs(lp)
+    failed = {}
+    for name, g in gk.items():
+        err = (g - gp[name]).norm().item()
+        if name in zero_grad:
+            rel, limit = err / gp[name.rsplit(".", 1)[0] + ".weight"].norm().item(), 5e-2
+        else:
+            rel, limit = err / gp[name].norm().item(), tol
+        if not rel <= limit:
+            failed[name] = rel
+    for name, b in bk.items():
+        if not (b - bp[name]).abs().max().item() <= tol * bp[name].abs().max().item() + 1e-6:
+            failed[name] = (b - bp[name]).abs().max().item()
+    assert not failed, failed

@@ -20,7 +20,8 @@ def port_files(*suffixes):
     files = [p for p in sorted(PORT.rglob("*")) if p.suffix in suffixes and ".build" not in p.parts]
     if ".py" in suffixes:
         files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_serve.py",
-                  ROOT / "tools" / "sweep_torch_kernels.py", ROOT / "tools" / "time_kernel_build.py"]
+                  ROOT / "tools" / "sweep_torch_kernels.py", ROOT / "tools" / "time_kernel_build.py",
+                  ROOT / "tools" / "profile_torch_train.py"]
     return files
 
 
@@ -71,7 +72,8 @@ def test_entry_points_default_to_cuda():
     from learning3d_tpu_torch.models import DCP, DGCNN, Classifier, PointNet
     from learning3d_tpu_torch.serve import InferenceEngine
     from learning3d_tpu_torch.utils.jax_import import load_quant_pointnet
-    from learning3d_tpu_torch.utils.layers import MLP1d, BatchNorm, Linear
+    from learning3d_tpu_torch.train import Trainer
+    from learning3d_tpu_torch.utils.layers import MLP1d, BatchNorm, Dropout, Linear
     from learning3d_tpu_torch.utils.transformer import (
         AnnotatedLayerNorm, FeedForward, MultiHeadedAttention, Transformer,
     )
@@ -79,8 +81,24 @@ def test_entry_points_default_to_cuda():
     assert DEFAULT_DEVICE == "cuda"
     for entry in (PointNet, Classifier, DGCNN, DCP, Transformer, MultiHeadedAttention, FeedForward,
                   AnnotatedLayerNorm, InferenceEngine, MLP1d, BatchNorm, Linear, resolve_device,
-                  load_quant_pointnet):
+                  load_quant_pointnet, Trainer, Dropout):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
+
+
+def test_training_subpackages_are_covered():
+    """The training slice's subpackages (train, data, losses) are among the
+    modules the checks above import and read."""
+    import pkgutil
+
+    import learning3d_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(learning3d_tpu_torch.__path__, "learning3d_tpu_torch.")}
+    for sub in ("train", "train.trainer", "train.tasks", "train.config", "data", "data.dataloaders",
+                "data.device_pipeline", "losses", "losses.losses", "kernels.poolgrad"):
+        assert f"learning3d_tpu_torch.{sub}" in names
+    files = {p.relative_to(PORT).as_posix() for p in port_files(".py", ".cu") if PORT in p.parents}
+    for f in ("train/trainer.py", "data/dataloaders.py", "losses/losses.py", "kernels/csrc/poolgrad.cu"):
+        assert f in files
 
 
 def test_no_silent_cpu_fallback():
@@ -98,6 +116,10 @@ def test_no_silent_cpu_fallback():
         PointNet(emb_dims=64)
     with pytest.raises(RuntimeError, match="CUDA"):
         DGCNN(emb_dims=64)
+    from learning3d_tpu_torch.utils.layers import Dropout
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Dropout(0.5)
 
 
 def test_chip_smoke_fails_without_card(tmp_path):

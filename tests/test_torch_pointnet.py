@@ -262,8 +262,12 @@ def test_fused_gate():
     assert not tfused.pointnet_fused_ok(torch.zeros(1, 8, 6), bf16.convs, bf16.bns)
     f32 = PointNet(emb_dims=EMB, use_bn=True, device="cpu").eval()
     assert not tfused.pointnet_fused_ok(x, f32.convs, f32.bns)
-    with pytest.raises(NotImplementedError):
-        PointNet(emb_dims=EMB, use_bn=True, device="cpu").pooled_features(x)
+    assert not tfused.pointnet_fused_ok(x, bf16.convs, bf16.bns, use_running_average=False)
+    # train-mode BN takes the fused tail with batch statistics, not K1
+    launches = LAUNCHES["pointnet_pooled_kernel"]
+    train = PointNet(emb_dims=EMB, use_bn=True, dtype=torch.bfloat16, device="cpu")
+    assert train.pooled_features(x).shape == (1, EMB)
+    assert LAUNCHES["pointnet_pooled_kernel"] == launches
 
 
 @pytest.mark.parametrize("bad", ["dtype", "emb", "x_shape", "dot_dtype"])

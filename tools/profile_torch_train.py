@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Where the time of the port's training step goes, on one card.
+
+    python3 tools/profile_torch_train.py [--dtype bf16|f32] [--steps 10]
+
+bench.py's training configuration: Classifier(PointNet(emb_dims=1024,
+use_bn=True)), 40 classes, B=256 clouds of N=1024 points, Adam at 1e-3 with
+on-device augmentation, through learning3d_tpu_torch's Trainer (its
+train_step on one device batch), with the numpy-seeded weights of
+chip_smoke.py. After a few warm-up steps, ``--steps`` steps run under
+torch.profiler. Prints one JSON line: host wall time per step, device time
+per step by kernel (largest first), the device's idle share (1 - device busy
+time / wall time) and the launches per step. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    parser.add_argument("--steps", type=int, default=10)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_train: needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from learning3d_tpu_torch.models import Classifier, PointNet
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(chip_smoke.SEED)
+    B, N = chip_smoke.B, chip_smoke.N
+    dtype = torch.bfloat16 if args.dtype == "bf16" else None
+    model = Classifier(PointNet(emb_dims=chip_smoke.EMB, use_bn=True, dtype=dtype), chip_smoke.CLASSES, dtype=dtype)
+    load_nnx_state(model, chip_smoke.random_nnx_state(rng, chip_smoke.EMB, chip_smoke.CLASSES))
+    batch = (torch.from_numpy(rng.normal(size=(B, N, 3)).astype(np.float32)).cuda(),
+             torch.from_numpy(rng.integers(0, chip_smoke.CLASSES, B)).cuda())
+    with tempfile.TemporaryDirectory() as ckpt:
+        trainer = Trainer(TrainConfig(batch_size=B, num_points=N, lr=chip_smoke.TRAIN_LR, augment=True,
+                                      ckpt_dir=ckpt), model)
+        trainer._ensure_optimizer(1)
+        for _ in range(3):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        trainer.close()
+
+    per_kernel, launches = {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", 0.0)
+        if us > 0:
+            per_kernel[evt.key] = per_kernel.get(evt.key, 0.0) + us
+            launches += evt.count
+    busy_ms = sum(per_kernel.values()) / 1e3 / args.steps
+    wall_ms = 1e3 * wall_s / args.steps
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:25]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "dtype": args.dtype, "steps": args.steps, "batch": B, "points": N,
+        "wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_launches_per_step": launches / args.steps,
+        "clouds_per_s": B / (wall_ms * 1e-3),
+        "device_ms_per_step": {k: v / 1e3 / args.steps for k, v in top},
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()
