@@ -6,9 +6,9 @@
 Drives the port's main paths at full width, bf16 and int8 (post-training
 quantized) eval serving of the PointNet-1024 classifier and of DCP
 registration (DGCNN-512, the co-attention pointer and the SVD head), and
-training of the PointNet-1024 classifier through the Trainer, and holds
-every CUDA kernel of those paths against its plain PyTorch version. Phases,
-one JSON line each with the seconds since start:
+training of the PointNet-1024 classifier and of DCP through the Trainer,
+and holds every CUDA kernel of those paths against its plain PyTorch
+version. Phases, one JSON line each with the seconds since start:
 
 1. device: the card, and its name and power limit from nvidia-smi;
 2. build: every kernel compiled from the checkout's sources, one nvcc
@@ -31,7 +31,9 @@ one JSON line each with the seconds since start:
 6. kernel (K6, attention_pallas): against its plain version at the
    pointer's shape (B=32, H=4, N=M=1024, D=Dv=128), the head's (H=1,
    D=512, Dv=3), a ragged N=M=1000 and DCP(DGCNN(emb 1024))'s pointer
-   (D=Dv=256: two 128-wide slabs of output columns); times, with
+   (D=Dv=256: two 128-wide slabs of output columns), and the pointer's and
+   head's shapes in f32 (f32 DCP's calls), whose output must be f32, not
+   rounded to bf16, within K6_F32_TOL of the plain version; times, with
    scaled_dot_product_attention as ``library_ms`` (at the head's shape with
    the first backend, in PyTorch's order, that takes it, named);
 7. serve_dcp: DCP(DGCNN(512, k=20)) in bf16 eval with numpy-seeded weights
@@ -101,6 +103,23 @@ one JSON line each with the seconds since start:
    the running statistics; a save -> load round trip that restores the
    parameters and the optimizer state exactly; the step's forward, backward
    and optimizer times (CUDA events) and clouds/s;
+17. kernel (K7, knn_neighbors_pallas): the edge features against the plain
+   version, bit for bit (on clouds of distinct points, so the neighbor
+   indices are the same too), at B=32, N=1024, k=20,
+   on a lattice cloud (exact ties at the 20th neighbor), on a ragged B=3,
+   N=1000 cloud and at k=40 (past K5's k <= 32); times of the kernel, the
+   plain version, an eager chain of torch.cdist, torch.topk and a gather
+   (``library_ms``), and the bound;
+18. train_dcp: examples/train.py's DCP configuration (DCP(DGCNN(512, k=20))
+   in f32, B=32, N=1024, Adam 1e-3) through Trainer.fit on
+   RegistrationData("DCP", SyntheticModelNet40) for one epoch of
+   TRAIN_DCP_STEPS steps and an eval pass (f32 DCP in eval mode): K7
+   launched twice and K6 seven times a forward, K5 never; the loss finite,
+   no step skipped, parameters and BN running statistics changed, the eval
+   pass's rot_deg and trans finite; one step on the kernels against the same
+   step on their plain versions (loss, every gradient, the running
+   statistics); a save -> load round trip; the step's parts (CUDA events)
+   and pairs/s;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``. Any
 failed check raises, so the script exits non-zero and prints no result. It
@@ -127,6 +146,13 @@ SEED = 0
 B, N, EMB, CLASSES = 256, 1024, 1024, 40
 REQUESTS = (256, 100, 600)
 TOL = 2e-2  # max |kernel - plain| <= TOL * max |plain|: same bf16 operands, other sum order
+# K6 on f32 q, k, v writes f32: only the sum order differs from the plain
+# version (a probability now and then rounds to the neighbouring bf16
+# value): 4.5e-4 and 5.9e-4 of max at the pointer's and head's shapes on
+# the H100. An output rounded to bf16 moves each value by up to 2^-9 of
+# it; the check also rejects it outright (an f32 output is not all bf16
+# values)
+K6_F32_TOL = 1e-3
 AGREE = 0.99
 DCP_B, DCP_N, DCP_EMB, DCP_K = 32, 1024, 512, 20
 DCP_REQUESTS = (32, 10, 70)
@@ -170,6 +196,25 @@ STEP_TOL = {"bf16": 3e-2, "f32": 2e-2}
 ZERO_GRADIENT_BIASES = tuple(f"feature_model.convs.{i}.bias" for i in range(5)) + (
     "feature_model.bns.4.bias", "linear1.bias", "linear2.bias")
 NOISE_TOL = 5e-2
+TRAIN_DCP_STEPS = 4
+# one DCP train step on K7 and K6 against the same step on their plain
+# versions, per-tensor relative error. K7 is exact (the same neighbors, the
+# coordinates copied), and both steps take the attention's backward through
+# the oracle. K6 and its plain version round the same bf16 operands and P
+# and both write f32, but sum in another order, so a probability can round
+# to the neighbouring bf16 value (2^-8 of it); the soft correspondences
+# carry that through the Kabsch solver and the backward into every
+# gradient: 6.1e-4 to 2.6e-3 on the H100 over this phase's weights and
+# those of tools/torch_dcp_step_gaps.py. K6's output rounded to bf16 (the
+# control, k6_bf16_output) gives 5.3e-3 to 1.7e-2 there, and must fail
+DCP_STEP_TOL = 4e-3
+# the key projections' biases have no gradient in exact arithmetic (a bias
+# on every key shifts a query's scores by one constant, which the softmax
+# takes out): what is computed is rounding noise, held to DCP_NOISE_TOL of
+# the projection's weight gradient
+DCP_ZERO_GRADIENT_BIASES = tuple(f"pointer.{layer}.{attn}.wk.bias" for layer, attn in (
+    ("enc_layers.0", "self_attn"), ("dec_layers.0", "self_attn"), ("dec_layers.0", "cross_attn")))
+DCP_NOISE_TOL = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -521,8 +566,8 @@ def head_library_ms(q, k, v) -> tuple[float, str]:
 def phase_kernel_k6(rng) -> dict:
     from learning3d_tpu_torch.kernels.attention import attention_pallas, attention_reference
 
-    def qkv(b, h, n, m, d, dv):
-        return [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(torch.bfloat16)
+    def qkv(b, h, n, m, d, dv, dtype=torch.bfloat16):
+        return [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(dtype)
                 for shape in ((b, h, n, d), (b, h, m, d), (b, h, m, dv))]
 
     cases = {
@@ -530,6 +575,9 @@ def phase_kernel_k6(rng) -> dict:
         "head": qkv(DCP_B, 1, DCP_N, DCP_N, DCP_EMB, 3),
         "ragged": qkv(4, 4, 1000, 1000, 128, 128),
         "dv256": qkv(DCP_B, 4, DCP_N, DCP_N, 256, 256),
+        # f32 DCP's calls (training, its eval pass, f32 serving)
+        "pointer_f32": qkv(DCP_B, 4, DCP_N, DCP_N, 128, 128, torch.float32),
+        "head_f32": qkv(DCP_B, 1, DCP_N, DCP_N, DCP_EMB, 3, torch.float32),
     }
     errs, times = {}, {}
     with torch.inference_mode():
@@ -537,7 +585,11 @@ def phase_kernel_k6(rng) -> dict:
             got = attention_pallas(q, k, v)
             want = attention_reference(q, k, v)
             torch.cuda.synchronize()
-            errs[name] = check_close(got, want, f"K6 vs plain ({name})")
+            require(got.dtype == q.dtype, f"K6 ({name}): output {got.dtype} for q {q.dtype}")
+            if q.dtype == torch.float32:
+                require(bool((got != got.to(torch.bfloat16).float()).any()), f"K6 ({name}): output rounded to bf16")
+            errs[name] = check_close(got, want, f"K6 vs plain ({name})",
+                                     K6_F32_TOL if q.dtype == torch.float32 else TOL)
         for name in ("pointer", "head", "dv256"):
             q, k, v = cases[name]
             times[name] = {
@@ -558,9 +610,11 @@ def phase_kernel_k6(rng) -> dict:
         "kernel_ms": times["pointer"]["kernel_ms"], "plain_ms": times["pointer"]["plain_ms"],
         "library_ms": l_ms, "bound_ms": bound_ms, "bound_by": bound_by,
     }
-    emit("kernel", name="attention_pallas", tolerance=f"max|k-p| <= {TOL}*max|p|",
+    emit("kernel", name="attention_pallas",
+         tolerance=f"max|k-p| <= {TOL}*max|p| in bf16, {K6_F32_TOL}*max|p| in f32 (an f32 output)",
          shapes={"pointer": [DCP_B, 4, DCP_N, DCP_N, 128, 128], "head": [DCP_B, 1, DCP_N, DCP_N, DCP_EMB, 3],
-                 "dv256": [DCP_B, 4, DCP_N, DCP_N, 256, 256]},
+                 "dv256": [DCP_B, 4, DCP_N, DCP_N, 256, 256], "pointer_f32": "pointer in f32",
+                 "head_f32": "head in f32"},
          errors={k: {"abs": a, "rel": r} for k, (a, r) in errs.items()}, times=times,
          library="torch scaled_dot_product_attention at the pointer's shape, yardstick only", **result)
     return result
@@ -571,11 +625,9 @@ def plain_versions():
     """Route the DCP modules' kernel entries to the kernels' plain versions
     (on the same card) for the reference run; restored on exit."""
     from learning3d_tpu_torch import quant
-    from learning3d_tpu_torch.kernels import attention, dgcnn_fused
-    from learning3d_tpu_torch.models import dgcnn
-    from learning3d_tpu_torch.utils import svd, transformer
-
+    from learning3d_tpu_torch.kernels import attention, dgcnn_fused, edgeconv
     from learning3d_tpu_torch.kernels import transformer_int8
+    from learning3d_tpu_torch.models import dgcnn
 
     def encoder(x, convs, bns, k, approx_knn=False):
         folded = [dgcnn_fused.fold_bn(c, bn) for c, bn in zip(convs, bns)]
@@ -588,8 +640,11 @@ def plain_versions():
         ref = transformer_int8.decoder_layer_int8_reference if memory else transformer_int8.encoder_layer_int8_reference
         return ref(x, *memory, layer.weights(), layer.scales, n_heads=layer.n_heads, int8_pv=layer.int8_pv)
 
-    patches = [(dgcnn, "dgcnn_encode_fused", encoder), (transformer, "attention_fused", attention.attention_reference),
-               (svd, "attention_fused", attention.attention_reference),
+    # K6's plain version goes inside attention_fused's autograd Function, so
+    # that a train step on the plain versions keeps the kernel path's
+    # backward (the oracle's)
+    patches = [(dgcnn, "dgcnn_encode_fused", encoder), (edgeconv, "edge_features", edgeconv.edge_features_reference),
+               (attention, "attention_pallas", attention.attention_reference),
                (dgcnn, "dgcnn_encode_int8_kernel", dgcnn_fused.dgcnn_int8_reference),
                (quant, "attention_int8", attention.attention_int8_reference),
                (quant.QuantEncoderLayerFused, "forward", fused_layer),
@@ -1143,6 +1198,8 @@ def phase_kernel_k3(rng) -> tuple[dict, dict]:
         l_ms = cuda_ms(lambda: library_pool_stats(x, w, c))
         xf, wf, cf = cases["f32"][0]
         f32_ms = cuda_ms(lambda: pool_stats(xf, wf, cf))
+        f32_plain_ms = cuda_ms(lambda: pool_stats_reference(xf, wf, cf), reps=3, warmup=1)
+        f32_library_ms = cuda_ms(lambda: library_pool_stats(xf, wf, cf))
     bound_ms, bound_by = k3_bound(x, w)
     f32_bound = k3_bound(xf, wf)[0]
     result = {
@@ -1152,6 +1209,7 @@ def phase_kernel_k3(rng) -> tuple[dict, dict]:
     emit("kernel", name="pool_stats_pallas",
          tolerance=f"max/min and z at the indices <= {TOL}*max|plain|; G, colsum <= {POOL_SUM_TOL}*max|plain|",
          shape={"B": B, "N": N, "K": K_TAIL, "E": EMB}, errors=errs, f32_kernel_ms=f32_ms, f32_bound_ms=f32_bound,
+         f32_plain_ms=f32_plain_ms, f32_library_ms=f32_library_ms,
          library="eager torch.matmul (z materialized) + torch.max/min with indices + x^T x, yardstick only",
          **result)
     return result, cases
@@ -1231,34 +1289,52 @@ def plain_poolgrad():
         layers.pool_stats, layers.pool_bwd = saved
 
 
-def step_agreement(make_trainer, batch, kind) -> dict:
-    """One forward and backward through the Trainer on the kernels against
-    the same on their plain versions (fresh trainers: same weights, the same
-    augmentation and dropout generators): loss, every gradient and the BN
-    running statistics, per-tensor relative error."""
+@contextlib.contextmanager
+def k6_bf16_output():
+    """The control of the DCP step's check: K6 with its f32 output rounded
+    to bf16, the value a bf16 store in the kernel would give, as if the
+    kernel computed below the configuration's f32."""
+    from learning3d_tpu_torch.kernels import attention
+
+    kernel = attention.attention_pallas
+    attention.attention_pallas = lambda q, k, v: kernel(q, k, v).to(torch.bfloat16).to(q.dtype)
+    try:
+        yield
+    finally:
+        attention.attention_pallas = kernel
+
+
+def step_runs(make_trainer, batch, contexts) -> list:
+    """(loss, gradients, buffers) of one forward and backward through a
+    fresh trainer inside each context."""
     runs = []
-    for plain in (False, True):
+    for ctx in contexts:
         trainer = make_trainer()
-        with plain_poolgrad() if plain else contextlib.nullcontext():
+        with ctx():
             loss, _ = trainer.forward_backward(batch)
         torch.cuda.synchronize()
         trainer.close()
         grads = {n: p.grad for n, p in trainer.model.named_parameters()}
         runs.append((loss.float().item(), grads, dict(trainer.model.named_buffers())))
-    (lk, gk, bk), (lp, gp, bp) = runs
-    tol = STEP_TOL[kind]
-    loss_rel = abs(lk - lp) / abs(lp)
-    require(np.isfinite(lk) and loss_rel <= tol, f"train step {kind}: loss {lk} vs plain {lp}")
-    worst = {"loss": loss_rel, "grad": 0.0, "zero_gradient_bias": 0.0, "running": 0.0}
+    return runs
+
+
+def step_differences(run, ref, tol, zero_gradient, noise_tol) -> tuple[dict, dict]:
+    """Per-tensor relative errors of one (loss, gradients, buffers) run
+    against a reference run: (the worst of each kind, the tensors past
+    their limit)."""
+    (lk, gk, bk), (lp, gp, bp) = run, ref
+    worst = {"loss": abs(lk - lp) / abs(lp), "grad": 0.0, "zero_gradient_bias": 0.0, "running": 0.0}
     failed = {}
     for name, g in gk.items():
         err = (g - gp[name]).norm().item()
-        if name in ZERO_GRADIENT_BIASES:
+        if name in zero_gradient:
             rel = err / gp[name.rsplit(".", 1)[0] + ".weight"].norm().item()
-            key, limit = "zero_gradient_bias", NOISE_TOL
+            key, limit = "zero_gradient_bias", noise_tol
         else:
             rel, key, limit = err / gp[name].norm().item(), "grad", tol
-        worst[key] = max(worst[key], rel)
+        if rel >= worst[key]:
+            worst[key], worst[f"{key}_tensor"] = rel, name
         if not rel <= limit:
             failed[name] = rel
     for name, b in bk.items():
@@ -1266,14 +1342,36 @@ def step_agreement(make_trainer, batch, kind) -> dict:
         worst["running"] = max(worst["running"], rel)
         if not rel <= tol:
             failed[name] = rel
-    require(not failed, f"train step {kind}: kernels vs plain versions {failed}")
+    return worst, failed
+
+
+def step_agreement(make_trainer, batch, tol, plain, zero_gradient=ZERO_GRADIENT_BIASES, noise_tol=NOISE_TOL,
+                   what="train step", control=None) -> dict:
+    """One forward and backward through the Trainer on the kernels against
+    the same on their plain versions (the context ``plain``; fresh trainers:
+    same weights, the same augmentation and dropout generators): loss, every
+    gradient and the BN running statistics, per-tensor relative error; the
+    ``zero_gradient`` biases against their layer's weight gradient. A
+    ``control`` context, if given, is a known departure from the plain
+    versions that the tolerance must catch: its step is run as well and
+    must fail the comparison."""
+    runs = step_runs(make_trainer, batch, (contextlib.nullcontext, plain) + ((control,) if control else ()))
+    worst, failed = step_differences(runs[0], runs[1], tol, zero_gradient, noise_tol)
+    require(np.isfinite(runs[0][0]) and worst["loss"] <= tol, f"{what}: loss {runs[0][0]} vs plain {runs[1][0]}")
+    require(not failed, f"{what}: kernels vs plain versions {failed}")
+    if control:
+        caught, failed = step_differences(runs[2], runs[1], tol, zero_gradient, noise_tol)
+        require(bool(failed) or caught["loss"] > tol, f"{what}: the control passed the tolerance {tol}: {caught}")
+        worst["control"] = {"loss": caught["loss"], "grad": caught["grad"], "grad_tensor": caught["grad_tensor"],
+                            "tensors_failed": len(failed)}
     return worst
 
 
-def time_train_step(trainer, batch, reps: int = 5) -> dict:
+def time_train_step(trainer, batch, reps: int = 5, unit: str = "clouds") -> dict:
     """The step's parts on one device batch, CUDA events: forward
-    (augmentation and loss), backward (with the gradient guard), optimizer;
-    and the whole step on the host clock."""
+    (augmentation, if any, and loss), backward (with the gradient guard),
+    optimizer; and the whole step on the host clock, with its rate in
+    ``unit`` (batch items) a second."""
     params = [p for p in trainer.model.parameters() if p.requires_grad]
     parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
     trainer.train_step(batch)
@@ -1284,7 +1382,7 @@ def time_train_step(trainer, batch, reps: int = 5) -> dict:
         for p in params:
             p.grad = None
         ev[0].record()
-        b = trainer.augment_fn(trainer.generator, batch)
+        b = batch if trainer.augment_fn is None else trainer.augment_fn(trainer.generator, batch)
         loss, _ = trainer.loss_fn(trainer.model, b, trainer.generator)
         ev[1].record()
         loss.backward()
@@ -1298,8 +1396,40 @@ def time_train_step(trainer, batch, reps: int = 5) -> dict:
     step_s = (time.perf_counter() - t0) / reps
     out = {k: statistics.median(v) for k, v in parts.items()}
     out["step_ms"] = 1e3 * step_s
-    out["clouds_per_s"] = B / step_s
+    out[f"{unit}_per_s"] = batch[0].shape[0] / step_s
     return out
+
+
+def check_trained(trainer, before) -> tuple[int, dict]:
+    """After ``Trainer.fit``: the last epoch's loss finite, no step skipped
+    by the non-finite guard, every weight and running statistic changed.
+    -> (skipped steps, {tensor: changed})."""
+    loss = trainer.history[-1]["train_loss"]
+    require(np.isfinite(loss), f"train loss {loss}")
+    skipped = int(trainer.skipped_steps)
+    require(skipped == 0, f"{skipped} steps skipped as non-finite")
+    after = trainer.model.state_dict()
+    changed = {k: not torch.equal(before[k], after[k]) for k in before}
+    require(all(v for k, v in changed.items() if k.endswith("weight") or "running" in k),
+            f"unchanged after training: {[k for k, v in changed.items() if not v]}")
+    return skipped, changed
+
+
+def check_round_trip(trainer, make_resumed, data) -> None:
+    """Save ``trainer`` as "latest" and restore it into a fresh Trainer made
+    with resume="latest": the parameters, the buffers and the optimizer
+    state come back exactly."""
+    trainer.save("latest")
+    again = make_resumed()
+    with contextlib.redirect_stdout(sys.stderr):
+        again.fit(data, epochs=0)  # makes the optimizer and restores the checkpoint; runs no epoch
+    for k, v in trainer.model.state_dict().items():
+        require(torch.equal(v, again.model.state_dict()[k]), f"round trip: {k}")
+    saved, loaded = trainer.optimizer.state_dict(), again.optimizer.state_dict()
+    for i, st in saved["state"].items():
+        for key, v in st.items():
+            require(torch.equal(v.cpu(), loaded["state"][i][key].cpu()), f"round trip: optimizer state {i}.{key}")
+    again.close()
 
 
 def phase_train(rng) -> dict:
@@ -1335,32 +1465,18 @@ def phase_train(rng) -> dict:
         launches = {k: LAUNCHES[k] for k in ("pool_stats_pallas", "pool_bwd_pallas")}
         require(all(v == TRAIN_STEPS for v in launches.values()), f"K3/K4 launches {launches} for {TRAIN_STEPS} steps")
         epoch = trainer.history[-1]
-        require(np.isfinite(epoch["train_loss"]), f"train loss {epoch['train_loss']}")
-        skipped = int(trainer.skipped_steps)
-        require(skipped == 0, f"{skipped} steps skipped as non-finite")
-        after = trainer.model.state_dict()
-        changed = {k: not torch.equal(before[k], after[k]) for k in before}
-        require(all(v for k, v in changed.items() if k.endswith("weight") or "running" in k),
-                f"unchanged after training: {[k for k, v in changed.items() if not v]}")
+        skipped, changed = check_trained(trainer, before)
 
         batch = to_device(next(batch_iterator(data, B, seed=SEED)), "cuda")
         agreement = {}
         for kind, dtype in kinds.items():
-            agreement[kind] = step_agreement(lambda: Trainer(cfg, build(dtype)), batch, kind)
+            agreement[kind] = step_agreement(lambda: Trainer(cfg, build(dtype)), batch, STEP_TOL[kind], plain_poolgrad,
+                                             what=f"train step {kind}")
 
-        trainer.save("latest")
-        again = Trainer(dataclasses.replace(cfg, resume="latest"), build(torch.bfloat16))
-        with contextlib.redirect_stdout(sys.stderr):
-            again.fit(data, epochs=0)  # makes the optimizer and restores the checkpoint; runs no epoch
-        for k, v in trainer.model.state_dict().items():
-            require(torch.equal(v, again.model.state_dict()[k]), f"round trip: {k}")
-        saved, loaded = trainer.optimizer.state_dict(), again.optimizer.state_dict()
-        for i, st in saved["state"].items():
-            for key, v in st.items():
-                require(torch.equal(v.cpu(), loaded["state"][i][key].cpu()), f"round trip: optimizer state {i}.{key}")
+        check_round_trip(trainer, lambda: Trainer(dataclasses.replace(cfg, resume="latest"), build(torch.bfloat16)),
+                         data)
         timing = time_train_step(trainer, batch)
         trainer.close()
-        again.close()
     # fit_s includes set-up (torch.optim imports torch._dynamo when the first
     # optimizer is built); the epoch's clouds/s includes the host's making of
     # the synthetic clouds, which the prefetch thread overlaps with the steps
@@ -1371,6 +1487,125 @@ def phase_train(rng) -> dict:
                           "lr": TRAIN_LR, "augment": True, "steps": TRAIN_STEPS},
          dataset=data.data_class.version_tag(), skipped_steps=skipped, tensors_changed=sum(changed.values()),
          tensors=len(changed), step_vs_plain={k: {"tolerance": STEP_TOL[k], **v} for k, v in agreement.items()},
+         roundtrip="exact", **result)
+    return result
+
+
+def library_edges(x, k):
+    """Yardstick only, never used by the port: the edge features by an eager
+    chain of torch.cdist, torch.topk over the distances and a gather, with
+    the center beside each neighbor."""
+    idx = torch.topk(torch.cdist(x, x), k, dim=-1, largest=False).indices
+    B, n, _ = x.shape
+    nbr = torch.gather(x, 1, idx.reshape(B, -1, 1).expand(-1, -1, 3)).reshape(B, n, k, 3)
+    return torch.cat([nbr, x[:, :, None].expand(nbr.shape)], dim=-1)
+
+
+def k7_bound(x, k) -> tuple[float, str]:
+    """K7's bound: B N^2 distances of 8 f32 operations each and one
+    comparison a distance to select (on the CUDA cores); x read once, the
+    (B, N, k, 6) edge tensor written once."""
+    B, n, _ = x.shape
+    return bound(0.0, 4 * B * n * 3 + 4 * B * n * k * 6, f32_flops=9.0 * B * n * n)
+
+
+def phase_kernel_k7(rng) -> dict:
+    from learning3d_tpu_torch.kernels.edgeconv import edge_features, edge_features_reference
+
+    cases = {
+        "full": (rng.normal(size=(DCP_B, DCP_N, 3)).astype(np.float32), DCP_K),
+        "ties": (lattice_cloud(rng, 2, 1000), DCP_K),
+        "ragged": (rng.normal(size=(3, 1000, 3)).astype(np.float32), DCP_K),
+        "k40": (rng.normal(size=(4, DCP_N, 3)).astype(np.float32), 40),
+    }
+    checked = {}
+    with torch.inference_mode():
+        for name, (x_np, k) in cases.items():
+            x = torch.from_numpy(x_np).cuda()
+            # distinct points: equal neighbor coordinates are equal indices
+            require(all(torch.unique(c, dim=0).shape[0] == x.shape[1] for c in x), f"K7 ({name}): repeated points")
+            edges = edge_features(x, k)
+            want_edges = edge_features_reference(x, k)
+            torch.cuda.synchronize()
+            require(torch.equal(edges, want_edges), f"K7 vs plain ({name}): edge features differ")
+            checked[name] = {"B": x.shape[0], "N": x.shape[1], "k": k}
+        x = torch.from_numpy(cases["full"][0]).cuda()
+        k_ms = cuda_ms(lambda: edge_features(x, DCP_K))
+        p_ms = cuda_ms(lambda: edge_features_reference(x, DCP_K), reps=3, warmup=1)
+        l_ms = cuda_ms(lambda: library_edges(x, DCP_K))
+    bound_ms, bound_by = k7_bound(x, DCP_K)
+    result = {"max_abs_err": 0.0, "max_rel_err": 0.0, "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by}
+    emit("kernel", name="knn_neighbors_pallas", tolerance="edge features bit-equal (distinct points, so the same neighbor indices)",
+         cases=checked, shape={"B": DCP_B, "N": DCP_N, "k": DCP_K, "out": "(B, N, k, 6) edge features"},
+         library="eager torch.cdist + torch.topk + gather, yardstick only", **result)
+    return result
+
+
+def phase_train_dcp(rng) -> dict:
+    import dataclasses
+    import tempfile
+
+    from learning3d_tpu_torch.data import RegistrationData, SyntheticModelNet40, batch_iterator, to_device
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.models import DCP, DGCNN
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    state = random_dcp_state(rng, DCP_EMB)
+
+    def build():
+        return load_nnx_state(DCP(DGCNN(emb_dims=DCP_EMB, k=DCP_K)), state)
+
+    data = RegistrationData("DCP", SyntheticModelNet40(num_points=DCP_N, size=TRAIN_DCP_STEPS * DCP_B))
+    test_data = RegistrationData("DCP", SyntheticModelNet40(num_points=DCP_N, size=DCP_B, train=False))
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = TrainConfig(exp_name="chip_smoke_train_dcp", task="dcp", batch_size=DCP_B, num_points=DCP_N,
+                          optimizer="adam", lr=TRAIN_LR, epochs=1, best_metric="rot_deg", ckpt_dir=ckpt)
+        trainer = Trainer(cfg, build())
+        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # the Trainer's epoch line
+            trainer.fit(data, test_data)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        forwards = TRAIN_DCP_STEPS + len(test_data) // DCP_B
+        require(launches["knn_neighbors_pallas"] == 2 * forwards,
+                f"K7 launched {launches['knn_neighbors_pallas']} times in {forwards} forwards (want 2 each)")
+        require(launches["attention_pallas"] == 7 * forwards,
+                f"K6 launched {launches['attention_pallas']} times in {forwards} forwards (want 7 each)")
+        require(launches["dgcnn_encode_fused"] == 0, "K5 launched on the f32 path")
+        epoch = trainer.history[-1]
+        skipped, changed = check_trained(trainer, before)
+        require(all(np.isfinite(epoch[k]) for k in ("test_loss", "test_rot_deg", "test_trans")),
+                f"eval pass: {epoch}")
+
+        batch = to_device(next(batch_iterator(data, DCP_B, seed=SEED)), "cuda")
+        agreement = step_agreement(lambda: Trainer(cfg, build()), batch, DCP_STEP_TOL, plain_versions,
+                                   DCP_ZERO_GRADIENT_BIASES, DCP_NOISE_TOL, what="DCP train step",
+                                   control=k6_bf16_output)
+        check_round_trip(trainer, lambda: Trainer(dataclasses.replace(cfg, resume="latest"), build()), data)
+        trainer.model.train()  # fit ended on the eval pass
+        torch.cuda.reset_peak_memory_stats()
+        timing = time_train_step(trainer, batch, unit="pairs")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        trainer.close()
+    # fit_s includes the eval pass and the best checkpoint's save; the
+    # epoch's pairs/s includes the host's making of the synthetic clouds and
+    # pairs, which the prefetch thread overlaps with the steps
+    result = {"launches": {k: launches[k] for k in ("knn_neighbors_pallas", "attention_pallas")},
+              "train_loss": epoch["train_loss"], "train_rot_deg": epoch["train_rot_deg"],
+              "test_rot_deg": epoch["test_rot_deg"], "test_trans": epoch["test_trans"], "fit_s": fit_s,
+              "epoch_s": epoch["seconds"], "epoch_pairs_per_s": TRAIN_DCP_STEPS * DCP_B / epoch["seconds"],
+              "peak_memory_gib": peak_gib, **timing}
+    emit("train_dcp", config={"model": "DCP(DGCNN(512, k=20)) f32, transformer pointer, SVD head", "B": DCP_B,
+                              "N": DCP_N, "optimizer": "adam", "lr": TRAIN_LR, "steps": TRAIN_DCP_STEPS,
+                              "eval_pairs": len(test_data)},
+         dataset=f"RegistrationData(DCP) over {data.data_class.version_tag()}", skipped_steps=skipped,
+         tensors_changed=sum(changed.values()), tensors=len(changed),
+         step_vs_plain={"tolerance": DCP_STEP_TOL, "zero_gradient_bias_tolerance": DCP_NOISE_TOL, **agreement},
          roundtrip="exact", **result)
     return result
 
@@ -1455,6 +1690,8 @@ def main() -> None:
     k4 = phase_kernel_k4(rng, k3_cases)
     del k3_cases
     train = phase_train(rng)
+    k7 = phase_kernel_k7(rng)
+    train_dcp = phase_train_dcp(rng)
 
     csrc = "learning3d_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
@@ -1480,6 +1717,8 @@ def main() -> None:
                      train["launches"]["pool_stats_pallas"], k3),
         kernel_entry("pool_bwd_pallas", csrc + "poolgrad.cu", "learning3d_tpu/kernels/poolgrad.py:203",
                      train["launches"]["pool_bwd_pallas"], k4),
+        kernel_entry("knn_neighbors_pallas", csrc + "edgeconv.cu", "learning3d_tpu/kernels/edgeconv.py:73",
+                     train_dcp["launches"]["knn_neighbors_pallas"], k7),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

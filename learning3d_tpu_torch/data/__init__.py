@@ -1,8 +1,13 @@
-"""Data pipeline of the port: the synthetic ModelNet40 stand-in and the
-classification wrapper (host numpy, as the JAX package's), host batching,
-prefetch to the card and on-device augmentation."""
+"""Data pipeline of the port: the synthetic ModelNet40 stand-in, the
+classification wrapper and the registration pairs (host numpy, as the JAX
+package's), host batching, prefetch to the card and on-device
+augmentation."""
 
-from learning3d_tpu_torch.data.dataloaders import ClassificationData, SyntheticModelNet40  # noqa: F401
+from learning3d_tpu_torch.data.dataloaders import (  # noqa: F401
+    ClassificationData,
+    RegistrationData,
+    SyntheticModelNet40,
+)
 from learning3d_tpu_torch.data.device_pipeline import (  # noqa: F401
     augment_classification_batch,
     batch_iterator,

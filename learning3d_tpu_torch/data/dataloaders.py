@@ -1,10 +1,12 @@
-"""Host-side datasets (numpy), the port's own copy of the classification
-half of ``learning3d_tpu/data/dataloaders.py``: ``SHAPE_NAMES``, the
-procedural ``SyntheticModelNet40`` (the stand-in for ModelNet40 where the
-archive cannot be downloaded) and ``ClassificationData``. Items are numpy
-arrays, identical to the JAX package's bit for bit; batching for the device
-loop lives in ``device_pipeline``. The HDF5-backed ModelNet40 and the
-registration, segmentation and flow datasets are not ported yet.
+"""Host-side datasets (numpy), the port's own copy of parts of
+``learning3d_tpu/data/dataloaders.py``: ``SHAPE_NAMES``, the procedural
+``SyntheticModelNet40`` (the stand-in for ModelNet40 where the archive
+cannot be downloaded), ``ClassificationData``, and ``RegistrationData`` with
+its pair synthesis (per-algorithm transforms, partial crops, jitter). Items
+are numpy arrays, identical to the JAX package's bit for bit; batching for
+the device loop lives in ``device_pipeline``. The HDF5-backed ModelNet40,
+DeepGMR's RRI features and the segmentation and flow datasets are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -221,3 +223,173 @@ def estimate_normals_pca(pts, k=16):
     sign = np.sign(np.sum(normals * outward, -1, keepdims=True))
     sign[sign == 0] = 1.0
     return (normals * sign).astype(np.float32)
+
+
+def deg_to_rad(deg):
+    return np.pi / 180.0 * deg
+
+
+def jitter_pointcloud(pointcloud, sigma=0.04, clip=0.05, rng=None):
+    """The reference's noise model: sigma is itself scaled by a uniform draw
+    per call."""
+    rng = rng or np.random.default_rng()
+    sigma = sigma * rng.random()
+    noise = np.clip(sigma * rng.standard_normal(pointcloud.shape), -clip, clip)
+    return (pointcloud + noise).astype(np.float32)
+
+
+def farthest_subsample_points(pointcloud, num_subsampled_points=768, rng=None):
+    """Keep the ``num_subsampled_points`` nearest to a random far-away pivot.
+    Returns (subsampled, gt_mask)."""
+    rng = rng or np.random.default_rng()
+    n = pointcloud.shape[0]
+    pivot = rng.random((1, 3)) + np.array([[500.0, 500.0, 500.0]]) * rng.choice([1, -1])
+    d = np.sum((pointcloud[:, :3] - pivot) ** 2, -1)
+    idx = np.argsort(d)[:num_subsampled_points]
+    mask = np.zeros(n, dtype=np.float32)
+    mask[idx] = 1
+    return pointcloud[idx], mask
+
+
+def uniform_2_sphere(rng=None):
+    rng = rng or np.random.default_rng()
+    phi = rng.uniform(0.0, 2 * np.pi)
+    cos_theta = rng.uniform(-1.0, 1.0)
+    theta = np.arccos(cos_theta)
+    return np.array(
+        [np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)],
+        dtype=np.float32,
+    )
+
+
+def planar_crop(points, p_keep=0.7, rng=None):
+    """Crop by a random plane, keeping the top ``p_keep`` share of the
+    points. Returns (points, kept_indices)."""
+    rng = rng or np.random.default_rng()
+    normal = uniform_2_sphere(rng)
+    centered = points[:, :3] - points[:, :3].mean(0, keepdims=True)
+    d = centered @ normal
+    mask = d > np.percentile(d, (1.0 - p_keep) * 100)
+    return points[mask, :3], np.nonzero(mask)[0]
+
+
+class RegistrationData:
+    """Per-algorithm registration pair synthesis over a classification
+    dataset: items (template, source, igt), igt (4, 4) mapping template ->
+    source (with ``additional_params["use_masknet"]`` the masks of the
+    partial clouds follow).
+
+    Transform modes: "twist" (PointNetLK, RPMNet: an se(3) exponential of a
+    random direction scaled by up to 0.8), "euler_pm" (PCRNet, iPCRNet: XYZ
+    Euler angles in +-45 degrees), "euler_pos" (DCP, PRNet: zyx Euler angles
+    in [0, 45] degrees; DeepGMR: [0, 90]), each with a uniform translation
+    in +-1 for the Euler modes. Every draw comes from one numpy generator
+    seeded by (seed, index, epoch), so an item is a function of those and of
+    the difficulty. ``set_epoch`` gives fresh pairs per training epoch (not
+    for the PCRNet family, which keeps one transform per index);
+    ``set_difficulty`` scales the rotation and translation draws (the
+    Trainer's curriculum)."""
+
+    ALGORITHMS = ("PCRNet", "PointNetLK", "DCP", "PRNet", "iPCRNet", "RPMNet", "DeepGMR")
+
+    def __init__(self, algorithm="iPCRNet", data_class=None, partial_source=False, partial_template=False,
+                 noise=False, additional_params=None, seed=0):
+        if algorithm not in self.ALGORITHMS:
+            raise ValueError(f"Algorithm {algorithm} not available for registration.")
+        self.algorithm = algorithm
+        self.data_class = data_class
+        self.partial_source = partial_source
+        self.partial_template = partial_template
+        self.noise = noise
+        self.additional_params = additional_params or {}
+        self.seed = seed
+        if algorithm == "DeepGMR" and self.additional_params.get("nearest_neighbors", 0) > 0:
+            raise NotImplementedError("DeepGMR's RRI features (nearest_neighbors > 0) are not ported yet: "
+                                      "they come with DeepGMR's slice (ROADMAP Queue 1 item 8.6)")
+        self.resample_per_epoch = algorithm not in ("PCRNet", "iPCRNet")
+        self._epoch = 0
+        self._difficulty = 1.0
+        if algorithm in ("PCRNet", "iPCRNet"):
+            self.mode, self.angle_range, self.translation_range = "euler_pm", 45.0, 1.0
+        elif algorithm in ("PointNetLK", "RPMNet"):
+            self.mode, self.mag = "twist", 0.8
+        elif algorithm in ("DCP", "PRNet"):
+            self.mode, self.angle_range, self.translation_range = "euler_pos", 45.0, 1.0
+        else:  # DeepGMR
+            self.mode, self.angle_range, self.translation_range = "euler_pos", 90.0, 1.0
+
+    def __len__(self):
+        return len(self.data_class)
+
+    def set_epoch(self, epoch):
+        """Advance the per-epoch transform stream (a no-op for the PCRNet
+        family, which keeps its transform per index)."""
+        self._epoch = int(epoch) if self.resample_per_epoch else 0
+
+    def set_difficulty(self, scale):
+        """Scale the rotation and translation draws by ``scale``, clipped to
+        [0, 1]; 1.0 is the full per-algorithm distribution."""
+        self._difficulty = float(min(max(scale, 0.0), 1.0))
+
+    def _sample_transform(self, rng):
+        from scipy.spatial.transform import Rotation
+
+        s = self._difficulty
+        if self.mode == "twist":
+            x = rng.standard_normal(6)
+            x = x / np.linalg.norm(x) * (s * self.mag * rng.random())
+            w, v = x[:3], x[3:]
+            R = Rotation.from_rotvec(w).as_matrix()
+            t_norm = np.linalg.norm(w)
+            W = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+            if t_norm < 1e-8:
+                V = np.eye(3)
+            else:  # the V matrix of the se(3) exponential
+                V = (np.eye(3) + (1 - np.cos(t_norm)) / t_norm**2 * W
+                     + (t_norm - np.sin(t_norm)) / t_norm**3 * (W @ W))
+            t = V @ v
+        elif self.mode == "euler_pm":
+            mr = deg_to_rad(self.angle_range)
+            e = s * rng.uniform(-mr, mr, 3)
+            R = Rotation.from_euler("XYZ", e).as_matrix()
+            t = s * rng.uniform(-self.translation_range, self.translation_range, 3)
+        else:  # euler_pos
+            mr = deg_to_rad(self.angle_range)
+            e = s * rng.uniform(0, mr, 3)
+            R = Rotation.from_euler("zyx", e).as_matrix()
+            t = s * rng.uniform(-self.translation_range, self.translation_range, 3)
+        igt = np.eye(4, dtype=np.float32)
+        igt[:3, :3] = R
+        igt[:3, 3] = t
+        return igt
+
+    def __getitem__(self, index):
+        template, _ = self.data_class[index]
+        template = np.asarray(template, dtype=np.float32)
+        rng = np.random.default_rng(self.seed * 1_000_003 + index + self._epoch * 7_777_777)
+        igt = self._sample_transform(rng)
+        xyz = template[:, :3]
+        source = (xyz @ igt[:3, :3].T + igt[:3, 3]).astype(np.float32)
+        if template.shape[1] == 6:  # normals rotate too
+            source = np.concatenate([source, (template[:, 3:6] @ igt[:3, :3].T).astype(np.float32)], -1)
+
+        template_mask = source_mask = None
+        if self.additional_params.get("partial_point_cloud_method") == "planar_crop":
+            source, idx_s = planar_crop(source, rng=rng)
+            template, idx_t = planar_crop(template, rng=rng)
+            inter = np.intersect1d(idx_s, idx_t)
+            template_mask = np.isin(idx_t, inter).astype(np.float32)
+            source_mask = np.isin(idx_s, inter).astype(np.float32)
+        else:
+            if self.partial_source:
+                source, source_mask = farthest_subsample_points(source, rng=rng)
+            if self.partial_template:
+                template, template_mask = farthest_subsample_points(template, rng=rng)
+
+        if self.noise:
+            source = jitter_pointcloud(source, rng=rng)
+
+        if self.additional_params.get("use_masknet", False):
+            extras = [m for m in (template_mask, source_mask) if m is not None]
+            return (template, source, igt, *extras)
+        return template, source, igt

@@ -17,6 +17,7 @@ LAUNCHES: dict[str, int] = {
     "decoder_layer_int8": 0,
     "pool_stats_pallas": 0,
     "pool_bwd_pallas": 0,
+    "knn_neighbors_pallas": 0,
 }
 
 

@@ -34,7 +34,7 @@ SIGNATURES = {
     "pointnet_pooled_bf16": ([_P] * 12 + [_I, _I, _I, _P], ctypes.c_int),
     "dgcnn_encode_bf16": ([_P] * 14 + [_I] * 5 + [_P], ctypes.c_int),
     "dgcnn_knn_scale": ([_P] * 2 + [_I] * 3 + [_F, _P], ctypes.c_int),
-    "attention_bf16": ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], ctypes.c_int),
+    "attention_bf16": ([_P] * 4 + [_I] * 6 + [ctypes.c_float, _P], ctypes.c_int),
     "pointnet_pooled_int8": ([_P] * 11 + [_F] * 4 + [_P, _I, _I, _I, _P], ctypes.c_int),
     "dgcnn_encode_int8": ([_P] * 13 + [_F] * 4 + [_P, _P] + [_I] * 5 + [_P], ctypes.c_int),
     "attention_int8": ([_P] * 4 + [_I] * 5 + [_F, _F, _I, _P], ctypes.c_int),
@@ -43,6 +43,7 @@ SIGNATURES = {
     "layer_attention_s8": ([_P] * 4 + [_I] * 8 + [_F] * 3 + [_I, _P], ctypes.c_int),
     "pool_stats": ([_P] * 3 + [_I] + [_P] * 8 + [_I] * 3 + [_P], ctypes.c_int),
     "pool_bwd": ([_P] * 4 + [_I] + [_P] * 2 + [_I] * 3 + [_P], ctypes.c_int),
+    "knn_neighbors": ([_P] * 2 + [_I] * 3 + [_P], ctypes.c_int),
     "l3d_error_string": ([_I], ctypes.c_char_p),
 }
 

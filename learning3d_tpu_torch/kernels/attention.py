@@ -72,11 +72,14 @@ def attention_pallas(q, k, v):
     M, Dv = v.shape[2], v.shape[3]
     bf16 = torch.bfloat16
     qb, kb, vb = (t.to(bf16).contiguous() for t in (q, k, v))
-    out = torch.empty((B, H, N, Dv), device=q.device, dtype=bf16)
+    # the output in q's dtype, as the TPU kernel's: bf16 stored as such,
+    # any other dtype from the kernel's f32 (so f32 is never rounded to bf16)
+    out_f32 = q.dtype != bf16
+    out = torch.empty((B, H, N, Dv), device=q.device, dtype=torch.float32 if out_f32 else bf16)
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.attention_bf16(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
+        err = lib.attention_bf16(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), int(out_f32),
                                  B * H, N, M, D, Dv, ctypes.c_float(1.0 / D**0.5), stream)
     _build.check(err, "attention_bf16")
     LAUNCHES["attention_pallas"] += 1

@@ -1,13 +1,15 @@
 // Fused softmax attention for Hopper (sm_90a), the DCP pointer's and SVD
 // head's softmax(Q K^T / sqrt(D)) V. q, k (BH, N|M, D) bf16, v (BH, M, Dv)
-// bf16 in, (BH, N, Dv) bf16 out.
+// bf16 in, (BH, N, Dv) out in bf16 or f32 (the caller's q dtype, as the TPU
+// kernel writes q.dtype: f32 DCP keeps its f32 output).
 //
 // Replaces the TPU kernel learning3d_tpu/kernels/attention.py::
 // attention_pallas (body `_attn_kernel`). Same math as the port's plain
 // version `attention_reference`: bf16 operands, f32 scores times the float
 // 1/sqrt(D), the exact row max m, p = expf(s - m) in f32 (expf, not the
 // fast __expf), l = sum(p) in f32, P rounded to bf16 before it is
-// normalized, O = (P_bf16 @ V) / l. The scaling and the subtraction of m
+// normalized, O = (P_bf16 @ V) / l, stored in f32 or rounded once to bf16.
+// The scaling and the subtraction of m
 // are written with __fmul_rn/__fsub_rn so that nvcc does not contract them
 // into one FMA, which would round otherwise than the plain version.
 //
@@ -69,7 +71,8 @@ struct Args {
   const bf16* q;
   const bf16* k;
   const bf16* v;
-  bf16* out;
+  void* out;  // float* if out_f32, else bf16*
+  int out_f32;
   int n, m, d, dv;
   float scale;
 };
@@ -200,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, 2) attention_bf16_kernel(Args args) 
 
   // pass 2, per slab of 8 NTV output columns: p = expf(s - m), l = sum(p),
   // O += bf16(P) @ V
-  bf16* out = args.out + (size_t)bh * args.n * args.dv;
+  const size_t out0 = (size_t)bh * args.n * args.dv;
   for (int v0 = 0; v0 < args.dv; v0 += 8 * NTV) {
     float l[2] = {0.f, 0.f};
     float o[NTV][4];
@@ -270,8 +273,13 @@ __global__ void __launch_bounds__(kThreads, 2) attention_bf16_kernel(Args args) 
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = v0 + 8 * j + 2 * t + e;
-          if (c < args.dv)
-            out[(size_t)row * args.dv + c] = __float2bfloat16_rn(o[j][2 * half + e] / l[half]);
+          if (c >= args.dv) continue;
+          const float val = o[j][2 * half + e] / l[half];
+          const size_t at = out0 + (size_t)row * args.dv + c;
+          if (args.out_f32)
+            static_cast<float*>(args.out)[at] = val;
+          else
+            static_cast<bf16*>(args.out)[at] = __float2bfloat16_rn(val);
         }
       }
     }
@@ -292,16 +300,17 @@ int launch(const Args& args, int bh, cudaStream_t stream) {
 }  // namespace
 
 // C entry, bound with ctypes. All pointers are device pointers to contiguous
-// bf16 tensors: q (BH, N, D), k (BH, M, D), v (BH, M, Dv), out (BH, N, Dv).
+// tensors: q (BH, N, D), k (BH, M, D), v (BH, M, Dv) bf16, out (BH, N, Dv)
+// f32 if out_f32 is nonzero, else bf16.
 // Needs D % 16 == 0, D <= 512 and 1 <= Dv <= 512. `scale` is 1/sqrt(D) as a
 // float. Returns the CUDA error code of the launch (0 on success).
-extern "C" int attention_bf16(const void* q, const void* k, const void* v, void* out, int bh,
-                              int n, int m, int d, int dv, float scale, void* stream) {
+extern "C" int attention_bf16(const void* q, const void* k, const void* v, void* out, int out_f32,
+                              int bh, int n, int m, int d, int dv, float scale, void* stream) {
   if (bh <= 0 || n <= 0 || m <= 0 || d <= 0 || d % 16 != 0 || d > kMaxD || dv <= 0 ||
       dv > kMaxDv)
     return (int)cudaErrorInvalidValue;
   const Args args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<bf16*>(out), n, m, d, dv, scale};
+                  static_cast<const bf16*>(v), out, out_f32, n, m, d, dv, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // two instances: the head's Dv <= 8 and 128-wide slabs (the pointer's);
   // each instance costs build time, and other widths run on the wider one

@@ -5,7 +5,9 @@ the result dict (est_R, est_t, est_R_, est_t_, est_T, r,
 transformed_source). The MLP head is not ported yet.
 
 In bf16 eval on the card a forward runs K5 twice (the template's and the
-source's encoder) and K6 seven times (six in the pointer, one in the head).
+source's encoder) and K6 seven times (six in the pointer, one in the head);
+in train mode or f32, K7 twice (the unfused encoder's edge features) in
+place of K5. ``train.tasks.dcp`` trains it.
 """
 
 from __future__ import annotations

@@ -5,8 +5,10 @@ four 1x1-conv stages, each max-pooled over the neighbors, are concatenated
 (64+64+128+256=512) into the final embedding conv. Convs are bias-free with
 BatchNorm. In eval mode with bf16 convs the whole encoder is one CUDA
 kernel, K5 (``kernels.dgcnn_fused``); once ``int8_scales`` is set
-(``quant.quantize_dcp``) it is the int8 kernel K9 instead. On a CPU tensor
-the kernel's plain version runs.
+(``quant.quantize_dcp``) it is the int8 kernel K9 instead. Everywhere else
+(train mode, f32, shapes past K5's limit) the encoder is the unfused chain,
+whose edge features come from K7 (``kernels.edgeconv``). On a CPU tensor
+each kernel's plain version runs.
 
 ``approx_knn=True`` makes K5 and K9 select neighbors by quantized keys
 (the TPU kernel's ``approx_knn``). The JAX package reads that switch from
@@ -26,9 +28,8 @@ from learning3d_tpu_torch.kernels.dgcnn_fused import (
     dgcnn_encode_fused,
     dgcnn_encode_int8_kernel,
     dgcnn_fused_ok,
-    kernel_limit,
 )
-from learning3d_tpu_torch.ops.geometry import get_graph_feature
+from learning3d_tpu_torch.kernels.edgeconv import get_graph_feature_fused
 from learning3d_tpu_torch.utils.layers import BatchNorm, Linear, to_bnc, validate_input_shape
 
 
@@ -71,16 +72,7 @@ class DGCNN(nn.Module):
             if self.int8_scales is not None:
                 return dgcnn_encode_int8_kernel(x.float(), self.int8_weights, self.k, approx_knn=self.approx_knn)
             return dgcnn_encode_fused(x, list(self.convs), list(self.bns), self.k, approx_knn=self.approx_knn)
-        if x.device.type != "cpu":
-            # on the card the unfused path's edge features come from K7
-            # (learning3d_tpu/kernels/edgeconv.py::knn_neighbors_pallas)
-            limit = kernel_limit(x.shape[1], self.k, self.emb_dims)
-            raise NotImplementedError(
-                "the unfused DGCNN path on a GPU needs K7 (get_graph_feature_fused), "
-                "which is not ported yet; use bf16 eval for the fused kernel K5"
-                + (f" ({limit})" if limit else "")
-            )
-        e = get_graph_feature(x, k=self.k)  # (B, N, k, 6)
+        e = get_graph_feature_fused(x, k=self.k)  # (B, N, k, 6); K7 on the card
         stage_outputs = []
         for conv, bn in zip(self.convs[:4], self.bns[:4]):
             e = torch.relu(bn(conv(e)))  # (B, N, k, C)

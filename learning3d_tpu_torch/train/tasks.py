@@ -1,8 +1,8 @@
 """Per-task loss functions, counterpart of ``learning3d_tpu/train/tasks.py``.
 Every loss_fn has the signature ``loss_fn(model, batch, generator) ->
 (loss, aux_dict)``; ``generator`` is the Trainer's ``torch.Generator`` on
-the training device, for tasks that draw random numbers. Only the
-classification task is ported so far."""
+the training device, for tasks that draw random numbers. Ported so far:
+classification and DCP."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import torch
 from torch.nn import functional as F
 
 from learning3d_tpu_torch.losses import losses
+from learning3d_tpu_torch.train.metrics import registration_errors
 
 
 def classification(model, batch, generator=None, smoothing: float = 0.0):
@@ -32,4 +33,26 @@ def classification(model, batch, generator=None, smoothing: float = 0.0):
     return loss, {"accuracy": acc}
 
 
-TASKS = {"classification": classification}
+def _rt_mse(R_est, t_est, R, t):
+    """MSE(R_est^T R, I) + MSE(t_est, t), the 3x3 products summed
+    elementwise in the type of R (no TF32)."""
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    RtR = (R_est[..., :, :, None] * R[..., :, None, :]).sum(-3)  # sum_j R_est[j, i] R[j, k]
+    return torch.mean((RtR - eye) ** 2) + torch.mean((t_est - t) ** 2)
+
+
+def dcp(model, batch, generator=None):
+    """MSE(est_R^T R_ab, I) + MSE(est_t, t_ab) + 0.1 * the same terms of the
+    reverse direction (est_R_, est_t_ against R_ba, t_ba), the reference's
+    train_dcp loss. igt maps template -> source, so source -> template is
+    its inverse: R_ab = R^T, t_ab = -R^T t."""
+    template, source, igt = batch
+    out = model(template, source)
+    R_ba, t_ba = igt[:, :3, :3], igt[:, :3, 3]
+    R_ab = R_ba.transpose(-1, -2)
+    t_ab = -(R_ab * t_ba[:, None, :]).sum(-1)
+    loss = _rt_mse(out["est_R"], out["est_t"], R_ab, t_ab) + 0.1 * _rt_mse(out["est_R_"], out["est_t_"], R_ba, t_ba)
+    return loss, registration_errors(out["est_T"], igt)
+
+
+TASKS = {"classification": classification, "dcp": dcp}

@@ -97,49 +97,180 @@ def test_k5_matches_plain(cuda, case, batch, n_pts, k, emb):
     assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
 
 
-# the pointer's shape, the SVD head's (D=512, Dv=3), ragged N and M, and
-# small odd shapes
-@pytest.mark.parametrize("batch,heads,n,m,d,dv", [
-    (2, 4, 1024, 1024, 128, 128), (2, 1, 1024, 1024, 512, 3), (2, 4, 1000, 1000, 128, 128),
-    (1, 2, 37, 70, 64, 40),
+# the pointer's shape, the SVD head's (D=512, Dv=3), ragged N and M, small
+# odd shapes, and the pointer's and head's in f32 (f32 DCP's calls)
+@pytest.mark.parametrize("batch,heads,n,m,d,dv,dtype", [
+    (2, 4, 1024, 1024, 128, 128, torch.bfloat16), (2, 1, 1024, 1024, 512, 3, torch.bfloat16),
+    (2, 4, 1000, 1000, 128, 128, torch.bfloat16), (1, 2, 37, 70, 64, 40, torch.bfloat16),
+    (2, 4, 1024, 1024, 128, 128, torch.float32), (2, 1, 1024, 1024, 512, 3, torch.float32),
 ])
-def test_k6_matches_plain(cuda, batch, heads, n, m, d, dv):
+def test_k6_matches_plain(cuda, batch, heads, n, m, d, dv, dtype):
+    """K6 against its plain version. The output is in q's dtype, as the TPU
+    kernel's: on f32 inputs it is f32, not rounded to bf16, and within
+    chip_smoke's K6_F32_TOL (the same rounding of the operands and of P; f32
+    sums in another order)."""
+    import chip_smoke
     from learning3d_tpu_torch.kernels import LAUNCHES
     from learning3d_tpu_torch.kernels.attention import attention_pallas, attention_reference
 
     rng = np.random.default_rng(n + d)
-    q, k = (torch.from_numpy(rng.normal(size=(batch, heads, s, d)).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k = (torch.from_numpy(rng.normal(size=(batch, heads, s, d)).astype(np.float32)).to(cuda, dtype)
             for s in (n, m))
-    v = torch.from_numpy(rng.normal(size=(batch, heads, m, dv)).astype(np.float32)).to(cuda, torch.bfloat16)
+    v = torch.from_numpy(rng.normal(size=(batch, heads, m, dv)).astype(np.float32)).to(cuda, dtype)
     before = LAUNCHES["attention_pallas"]
-    got = attention_pallas(q, k, v).float()
+    got = attention_pallas(q, k, v)
     want = attention_reference(q, k, v).float()
     torch.cuda.synchronize()
     assert LAUNCHES["attention_pallas"] == before + 1
-    assert got.shape == want.shape == (batch, heads, n, dv)
+    assert got.dtype == dtype and got.shape == want.shape == (batch, heads, n, dv)
+    if dtype == torch.float32:
+        assert (got != got.to(torch.bfloat16).float()).any()
     # the same rounding of P on both sides; f32 sums in another order
-    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+    tol = chip_smoke.K6_F32_TOL if dtype == torch.float32 else 2e-2
+    assert (got.float() - want).abs().max().item() <= tol * want.abs().max().item()
 
 
 def test_unfused_dgcnn_raises_on_card(cuda):
-    """The unfused DGCNN path runs through K7 on the card, which is not
-    ported: it raises instead of running plain torch."""
+    """The unfused DGCNN path runs through K7 on the card; past K7's limit
+    (k <= 64) it raises NotImplementedError naming the limit instead of
+    running plain torch."""
     from learning3d_tpu_torch.models import DGCNN
 
-    net = DGCNN(emb_dims=64, k=5, device=cuda).eval()  # f32: the fused gate is off
-    with pytest.raises(NotImplementedError, match="K7"):
-        net(torch.zeros(1, 32, 3, device=cuda))
+    net = DGCNN(emb_dims=64, k=65, device=cuda).eval()  # f32: the fused gate is off
+    with pytest.raises(NotImplementedError, match="k <= 64"):
+        net(torch.zeros(1, 128, 3, device=cuda))
 
 
 def test_k5_gate_refuses_what_the_kernel_refuses(cuda):
-    """k=40 is past K5's k <= 32: the gate turns it away and the bf16 eval
-    DGCNN raises NotImplementedError naming the limit, where before the gate
-    admitted it and the kernel's argument check raised ValueError."""
+    """k=40 is past K5's k <= 32: the gate turns it away, and the bf16 eval
+    DGCNN runs the unfused chain, its edge features from K7 (launched once,
+    K5 never), to a finite result. A k past K7's own limit (k <= 64) raises
+    NotImplementedError naming that limit."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
     from learning3d_tpu_torch.models import DGCNN
 
     net = DGCNN(emb_dims=64, k=40, dtype=torch.bfloat16, device=cuda).eval()
-    with pytest.raises(NotImplementedError, match="k <= 32"):
-        net(torch.zeros(1, 128, 3, device=cuda))
+    x = torch.from_numpy(np.random.default_rng(40).normal(size=(2, 128, 3)).astype(np.float32)).to(cuda)
+    before = dict(LAUNCHES)
+    with torch.no_grad():
+        out = net(x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["knn_neighbors_pallas"] == before["knn_neighbors_pallas"] + 1
+    assert LAUNCHES["dgcnn_encode_fused"] == before["dgcnn_encode_fused"]
+    assert out.shape == (2, 128, 64) and torch.isfinite(out.float()).all()
+    past = DGCNN(emb_dims=64, k=65, dtype=torch.bfloat16, device=cuda).eval()
+    with pytest.raises(NotImplementedError, match="k <= 64"):
+        past(x)
+
+
+# the DCP shape, exact ties (lattice), a ragged N, k past K5's limit, K7's
+# largest k, and a cloud of exactly k points
+@pytest.mark.parametrize("case,batch,n_pts,k", [
+    ("full", 4, 1024, 20), ("ties", 2, 1000, 20), ("ragged", 3, 1000, 20), ("k40", 2, 1024, 40),
+    ("k64", 1, 777, 64), ("n_eq_k", 2, 9, 9),
+])
+def test_k7_matches_plain(cuda, case, batch, n_pts, k):
+    """K7's edge features, and the neighbor xyz sliced from them, against
+    the plain version, bit for bit: the same exact distances and order, the
+    coordinates copied. The cloud's points are distinct, so equal
+    coordinates are equal neighbor indices."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.edgeconv import (
+        edge_features, edge_features_reference, knn_neighbors_pallas, knn_neighbors_reference)
+
+    rng = np.random.default_rng(n_pts + k)
+    x = lattice_cloud(rng, batch, n_pts) if case == "ties" else rng.normal(size=(batch, n_pts, 3))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    assert all(torch.unique(c, dim=0).shape[0] == n_pts for c in x)
+    before = LAUNCHES["knn_neighbors_pallas"]
+    edges = edge_features(x, k)
+    xyz = knn_neighbors_pallas(x, k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["knn_neighbors_pallas"] == before + 2
+    assert edges.shape == (batch, n_pts, k, 6)
+    assert torch.equal(edges, edge_features_reference(x, k))
+    assert torch.equal(xyz, knn_neighbors_reference(x, k))
+
+
+def test_k7_refuses_past_its_limit(cuda):
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.edgeconv import edge_features
+
+    before = LAUNCHES["knn_neighbors_pallas"]
+    for n_pts, k, match in ((128, 65, "k <= 64"), (16385, 20, "N <= 16384"), (8, 9, "k <= N"), (8, 0, "1 <= k")):
+        with pytest.raises(NotImplementedError, match=match):
+            edge_features(torch.zeros(1, n_pts, 3, device=cuda), k)
+    with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
+        edge_features(torch.zeros(1, 8, 2, device=cuda), 2)
+    assert LAUNCHES["knn_neighbors_pallas"] == before
+
+
+def dcp_state(rng, emb):
+    """Numpy-seeded DCP(DGCNN(emb)) weights with non-trivial BN statistics,
+    as a flat nnx state."""
+    import chip_smoke
+
+    return chip_smoke.random_dcp_state(rng, emb)
+
+
+def test_dcp_train_step_kernels_match_plain(cuda, tmp_path):
+    """One f32 DCP(DGCNN(512)) train step through the Trainer on K7 and K6
+    against the same step on their plain versions (chip_smoke's
+    plain_versions): the loss, every gradient and the BN running statistics,
+    at chip_smoke's tolerances (K7 exact; K6's f32 output, P rounded to
+    bf16 in another sum order; the attention's backward through the oracle
+    on both sides). The control, K6's output rounded to bf16, must fail
+    them."""
+    import chip_smoke
+    from learning3d_tpu_torch.data import RegistrationData, SyntheticModelNet40, batch_iterator, to_device
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.models import DCP, DGCNN
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    state = dcp_state(np.random.default_rng(12), 512)
+    cfg = TrainConfig(task="dcp", batch_size=4, ckpt_dir=str(tmp_path))
+    data = RegistrationData("DCP", SyntheticModelNet40(num_points=1024, size=4))
+    batch = to_device(next(batch_iterator(data, 4)), cuda)
+    before = LAUNCHES["knn_neighbors_pallas"], LAUNCHES["attention_pallas"]
+    worst = chip_smoke.step_agreement(lambda: Trainer(cfg, load_nnx_state(DCP(DGCNN(emb_dims=512), device=cuda),
+                                                                          state), device=cuda),
+                                      batch, chip_smoke.DCP_STEP_TOL, chip_smoke.plain_versions,
+                                      chip_smoke.DCP_ZERO_GRADIENT_BIASES, chip_smoke.DCP_NOISE_TOL,
+                                      control=chip_smoke.k6_bf16_output)
+    # the kernels' run and the control's: K7 twice and K6 seven times each
+    assert (LAUNCHES["knn_neighbors_pallas"] - before[0], LAUNCHES["attention_pallas"] - before[1]) == (4, 14)
+    assert worst["grad"] <= chip_smoke.DCP_STEP_TOL < worst["control"]["grad"]
+
+
+def test_dcp_f32_serves_on_card(cuda):
+    """f32 DCP(DGCNN(512)) in eval mode, new on the card: the encoder takes
+    the unfused chain through K7 (twice a chunk), the pointer and head K6
+    (seven times), K5 never; finite outputs, rotations, and r and est_t
+    within chip_smoke's DCP_TOL of the same model on the plain versions."""
+    import chip_smoke
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.models import DCP, DGCNN
+    from learning3d_tpu_torch.serve import InferenceEngine
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    model = load_nnx_state(DCP(DGCNN(emb_dims=512), device=cuda), dcp_state(np.random.default_rng(13), 512)).eval()
+    rng = np.random.default_rng(14)
+    template, source = (rng.normal(size=(6, 1024, 3)).astype(np.float32) for _ in range(2))
+    engine = InferenceEngine(model, batch_size=4, device=cuda)
+    reset_launches()
+    out = engine(template, source)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["knn_neighbors_pallas"], LAUNCHES["attention_pallas"], LAUNCHES["dgcnn_encode_fused"]) == \
+        (4, 14, 0)
+    assert all(np.isfinite(v).all() for v in out.values())
+    R = out["est_R"].astype(np.float64)
+    assert np.abs(R @ np.swapaxes(R, -1, -2) - np.eye(3)).max() <= chip_smoke.ROT_TOL
+    with chip_smoke.plain_versions():
+        plain = engine(template, source)
+    for key in ("r", "est_t"):
+        err = np.abs(out[key] - plain[key]).max()
+        assert err <= chip_smoke.DCP_TOL * np.abs(plain[key]).max(), key
 
 
 def test_k6_wide_values_raise(cuda):

@@ -266,10 +266,15 @@ def test_fused_gate():
     (64, 32, 64, True), (64, 33, 64, False), (40, 40, 64, False), (4096, 20, 64, True),
     (4097, 20, 64, False), (64, 5, 96, False), (8, 9, 64, False),
 ])
-def test_fused_gate_holds_the_kernel_limits(n_pts, k, emb, ok):
+def test_fused_gate_holds_the_kernel_limits(n_pts, k, emb, ok, monkeypatch):
     """The gate admits exactly the shapes the kernel takes (k <= 32,
     k <= N <= 4096, emb % 64 == 0), so no shape it admits reaches the
-    kernel's ValueError; a meta tensor stands in for the cloud."""
+    kernel's ValueError; a meta tensor stands in for the cloud. A shape it
+    turns away takes the unfused chain, whose edge features come from K7's
+    entry (recorded here, handing back CPU zeros: a meta tensor has no
+    kernel)."""
+    from learning3d_tpu_torch.models import dgcnn as tdgcnn
+
     net = DGCNN(emb_dims=emb, k=k, dtype=torch.bfloat16, device="cpu").eval()
     x = torch.empty(1, n_pts, 3, device="meta")
     assert tfused.dgcnn_fused_ok(x, net.convs, net.bns, k) is ok
@@ -279,16 +284,24 @@ def test_fused_gate_holds_the_kernel_limits(n_pts, k, emb, ok):
         tfused._check_kernel_args(torch.zeros(1, n_pts, 3), ws, [torch.empty(w.shape[1]) for w in ws], k,
                                   torch.bfloat16)
     else:
-        with pytest.raises(NotImplementedError, match="K7"):
-            net(x)
+        calls = []
+
+        def edges(x, k):
+            calls.append(k)
+            return torch.zeros(*x.shape[:2], k, 6)
+
+        monkeypatch.setattr(tdgcnn, "get_graph_feature_fused", edges)
+        assert net(x).shape == (1, n_pts, emb)
+        assert calls == [k]
 
 
 def test_unfused_path_off_the_cpu_raises():
-    """Off the CPU the unfused path would need K7, which is not ported: it
-    raises rather than run plain torch. A meta tensor stands in for a CUDA
-    one here; tests/test_torch_cuda.py checks the card itself."""
+    """Off the CPU the unfused path runs K7's wrapper, which launches the
+    kernel on a CUDA tensor and raises on any other device rather than run
+    plain torch. A meta tensor stands in for such a device here;
+    tests/test_torch_cuda.py checks the card itself."""
     net = DGCNN(emb_dims=EMB, k=5, device="cpu").eval()  # f32: the fused gate is off
-    with pytest.raises(NotImplementedError, match="K7"):
+    with pytest.raises(ValueError, match="no kernel"):
         net(torch.empty(1, 32, 3, device="meta"))
     ws, bs = (as_torch(a) for a in folded(jax_dgcnn()))
     with pytest.raises(ValueError, match="no kernel"):

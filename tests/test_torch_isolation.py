@@ -21,7 +21,7 @@ def port_files(*suffixes):
     if ".py" in suffixes:
         files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_serve.py",
                   ROOT / "tools" / "sweep_torch_kernels.py", ROOT / "tools" / "time_kernel_build.py",
-                  ROOT / "tools" / "profile_torch_train.py"]
+                  ROOT / "tools" / "profile_torch_train.py", ROOT / "tools" / "torch_dcp_step_gaps.py"]
     return files
 
 
@@ -86,18 +86,19 @@ def test_entry_points_default_to_cuda():
 
 
 def test_training_subpackages_are_covered():
-    """The training slice's subpackages (train, data, losses) are among the
-    modules the checks above import and read."""
+    """The training slices' subpackages (train, data, losses) and kernel
+    modules are among the modules the checks above import and read."""
     import pkgutil
 
     import learning3d_tpu_torch
 
     names = {m.name for m in pkgutil.walk_packages(learning3d_tpu_torch.__path__, "learning3d_tpu_torch.")}
-    for sub in ("train", "train.trainer", "train.tasks", "train.config", "data", "data.dataloaders",
-                "data.device_pipeline", "losses", "losses.losses", "kernels.poolgrad"):
+    for sub in ("train", "train.trainer", "train.tasks", "train.config", "train.metrics", "data", "data.dataloaders",
+                "data.device_pipeline", "losses", "losses.losses", "kernels.poolgrad", "kernels.edgeconv"):
         assert f"learning3d_tpu_torch.{sub}" in names
     files = {p.relative_to(PORT).as_posix() for p in port_files(".py", ".cu") if PORT in p.parents}
-    for f in ("train/trainer.py", "data/dataloaders.py", "losses/losses.py", "kernels/csrc/poolgrad.cu"):
+    for f in ("train/trainer.py", "train/metrics.py", "data/dataloaders.py", "losses/losses.py",
+              "kernels/csrc/poolgrad.cu", "kernels/edgeconv.py", "kernels/csrc/edgeconv.cu"):
         assert f in files
 
 
