@@ -5,9 +5,10 @@
 
 Drives the port's main paths at full width, bf16 and int8 (post-training
 quantized) eval serving of the PointNet-1024 classifier and of DCP
-registration (DGCNN-512, the co-attention pointer and the SVD head), and
-training of the PointNet-1024 classifier and of DCP through the Trainer,
-and holds every CUDA kernel of those paths against its plain PyTorch
+registration (DGCNN-512, the co-attention pointer and the SVD head), bf16
+serving of iPCRNet with multi-start registration, and training of the
+PointNet-1024 classifier, DCP, iPCRNet and PCN through the Trainer, and
+holds every CUDA kernel of those paths against its plain PyTorch
 version. Phases, one JSON line each with the seconds since start:
 
 1. device: the card, and its name and power limit from nvidia-smi;
@@ -120,6 +121,39 @@ version. Phases, one JSON line each with the seconds since start:
    step on their plain versions (loss, every gradient, the running
    statistics); a save -> load round trip; the step's parts (CUDA events)
    and pairs/s;
+
+19. kernel_k12 (_nn_oneway_pallas): K12 against its plain version, distances
+   bit-equal and indices equal, at multistart's shape (B=256, N=M=1024),
+   at detailed PCN's fine Chamfer (32 x 1024 points against 16,384, both
+   directions), on a ragged pair and on lattice clouds with tied nearest
+   points; times of the kernel, the plain version, torch.cdist + min
+   (``library_ms``) and the bound;
+20. kernel_k13 (_emd_fwd_pallas): K13 against its plain version at PCN's
+   coarse EMD (B=32, N=M=1024) and at N > M and N < M: the cost to
+   EMD_COST_TOL, g1 and g2 to a mean relative error below EMD_GRAD_TOL;
+   times and the bound (no PyTorch call computes approxmatch:
+   ``library_ms`` null);
+21. serve_ipcrnet: iPCRNet(PointNet(1024, use_bn=False)) in bf16 eval (8
+   steps) with numpy-seeded weights through InferenceEngine(batch_size=32)
+   on 32, 10 and 70 pairs: K1 nine times a chunk, every output finite,
+   est_R a rotation to the bf16 rounding of its steps; then
+   multistart_register with rotation_starts(8) at B=32: one forward at
+   batch 256 (K1 nine times) and K12 twice; its result its best start's,
+   the candidates rescored on K12's plain version bit for bit, and the
+   one-step model against the plain versions (ipcrnet_agreement); pairs/s;
+22. train_ipcrnet: examples/train.py's iPCRNet configuration in f32, B=20,
+   N=1024, Adam 1e-3 through Trainer.fit on RegistrationData("iPCRNet",
+   SyntheticModelNet40) for IPC_TRAIN_STEPS steps: K12 twice a step, K1
+   never; loss finite, no step skipped, every weight changed, f32 est_R a
+   rotation; one step against the plain versions (CHAMFER_STEP_TOL); the
+   step's parts and pairs/s;
+23. train_pcn: PCN(1024, num_coarse=1024) in f32, B=32, N=1024, coarse only,
+   through Trainer.fit on ClassificationData(SyntheticModelNet40) for
+   PCN_TRAIN_STEPS steps (K12 twice a step), then one step with
+   detailed_output=True (K12 four times, the fine Chamfer against 16,384
+   points), each against the plain versions; emd_loss_mean(points,
+   coarse_output) forward and backward on K13 (one launch) against its
+   plain version; the steps' parts and the EMD loss's time;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``. Any
 failed check raises, so the script exits non-zero and prints no result. It
@@ -622,10 +656,11 @@ def phase_kernel_k6(rng) -> dict:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the DCP modules' kernel entries to the kernels' plain versions
-    (on the same card) for the reference run; restored on exit."""
+    """Route the kernel entries of the DCP, iPCRNet and PCN paths (K5, K6,
+    K7, K9, K10, K11a/b; K1, K12, K13) to the kernels' plain versions (on
+    the same card) for the reference run; restored on exit."""
     from learning3d_tpu_torch import quant
-    from learning3d_tpu_torch.kernels import attention, dgcnn_fused, edgeconv
+    from learning3d_tpu_torch.kernels import attention, chamfer, dgcnn_fused, edgeconv, emd, pointnet_fused
     from learning3d_tpu_torch.kernels import transformer_int8
     from learning3d_tpu_torch.models import dgcnn
 
@@ -648,7 +683,9 @@ def plain_versions():
                (dgcnn, "dgcnn_encode_int8_kernel", dgcnn_fused.dgcnn_int8_reference),
                (quant, "attention_int8", attention.attention_int8_reference),
                (quant.QuantEncoderLayerFused, "forward", fused_layer),
-               (quant.QuantDecoderLayerFused, "forward", fused_layer)]
+               (quant.QuantDecoderLayerFused, "forward", fused_layer),
+               (pointnet_fused, "pointnet_pooled_kernel", pointnet_fused.oracle_chain),
+               (chamfer, "nn_oneway", chamfer._nn_oneway_reference), (emd, "emd_kernel", emd._emd_fwd_reference)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
@@ -1610,6 +1647,443 @@ def phase_train_dcp(rng) -> dict:
     return result
 
 
+IPC_B, IPC_N, IPC_EMB, IPC_STARTS = 32, 1024, 1024, 8
+IPC_REQUESTS = (32, 10, 70)
+IPC_TRAIN_B, IPC_TRAIN_STEPS = 20, 4  # examples/train_pcrnet.py's batch
+PCN_B, PCN_N, PCN_EMB, PCN_COARSE, PCN_TRAIN_STEPS = 32, 1024, 1024, 1024, 4
+SFU_BOUND_EXPS_PER_PAIR_LEVEL = 2  # the TPU kernel's two passes a level, one exponential a pair each
+EMD_F32_OPS_PER_PAIR_LEVEL = 43  # 11 in phase A, 32 in phase B/C (csrc/emd.cu's note)
+EMD_LEVELS = 10
+# bf16 iPCRNet on the kernels against the same model on the plain versions
+# (K1's oracle, K12's plain version) at one refinement step, where K1 runs
+# for the template and the source: max |k - p| <= IPCRNET_TOL * max |p| for
+# est_T and per item |k - p| <= IPCRNET_TOL * p for the Chamfer score of
+# every start. K1 and its plain version sum in another order, so a pooled
+# feature can round to the neighbouring bf16 value (2^-8 of it), which the
+# MLP carries into the pose. Past one step the random-weight model is
+# chaotic (each step's pose is a random rotation, and K1 rounds the moved
+# source to bf16 again: one f32 ulp of the source moved est_R by up to 11%
+# after 8 steps on the CPU, tests/test_torch_pcrnet.py), so there the gate
+# is K12 inside the selection: the 8-step candidates scored again on K12's
+# plain version give the same scores bit for bit, so the same starts
+IPCRNET_TOL = 5e-2
+# bf16 iPCRNet builds each step's rotation in bf16 (qnormalize, quat2mat, as
+# the JAX package does), so a step is a rotation only to bf16 rounding: an
+# entry near 1 rounds by up to 2^-8, a row's norm by a few of those; allowing
+# 2^-6 a step, the composed est_R of n steps has |R R^T - I| <=
+# (1 + 2^-6)^(2n) - 1 (0.28 at n = 8). f32 est_R is held to ROT_TOL
+IPC_BF16_STEP_ROT = 2.0**-6
+
+
+def bf16_rotation_tol(steps: int) -> float:
+    return (1.0 + IPC_BF16_STEP_ROT) ** (2 * steps) - 1.0
+
+
+def rotation_error(R) -> float:
+    """max |R R^T - I| and |det R - 1| over a batch of 3x3 matrices."""
+    R = np.asarray(R, np.float64)
+    return max(float(np.abs(R @ np.swapaxes(R, -1, -2) - np.eye(3)).max()),
+               float(np.abs(np.linalg.det(R) - 1.0).max()))
+# one f32 train step of iPCRNet or PCN on K12 against the same step on its
+# plain version, per-tensor relative error: K12 is bit-equal, so the
+# forward is the same; the Chamfer backward's scatter-adds add with atomics
+# in another order on each run (f32 rounding, ~1e-7 of a value)
+CHAMFER_STEP_TOL = 1e-4
+# K13 against its plain version: the cost per item to rtol EMD_COST_TOL, g1
+# and g2 to a mean relative error below EMD_GRAD_TOL (the JAX package's own
+# bound for its kernel against _emd_fwd_impl): ratioL divides by sums that
+# vanish at the sharpest levels, so a sum in another order can move one
+# point's gradient a lot while the cost barely moves
+EMD_COST_TOL, EMD_GRAD_TOL = 1e-4, 5e-2
+
+
+def random_linear(flat, rng, prefix, i, o):
+    flat[f"{prefix}.kernel"] = rng.normal(0.0, i**-0.5, (i, o)).astype(np.float32)
+    flat[f"{prefix}.bias"] = rng.normal(0.0, 0.1, (o,)).astype(np.float32)
+
+
+def random_ipcrnet_state(rng, emb: int = IPC_EMB) -> dict:
+    """A flat nnx state of iPCRNet(PointNet(emb, use_bn=False)) with
+    numpy-seeded weights."""
+    flat = {}
+    dims = [3, 64, 64, 64, 128, emb]
+    for k, (i, o) in enumerate(zip(dims[:-1], dims[1:])):
+        random_linear(flat, rng, f"feature_model.convs.{k}", i, o)
+    dims = [2 * emb, 1024, 1024, 512, 512, 256]
+    for k, (i, o) in enumerate(zip(dims[:-1], dims[1:])):
+        random_linear(flat, rng, f"linears.{k}", i, o)
+    random_linear(flat, rng, "head", 256, 7)
+    return flat
+
+
+def random_pcn_state(rng, emb: int = PCN_EMB, num_coarse: int = PCN_COARSE, detailed: bool = False) -> dict:
+    """A flat nnx state of PCN(emb, num_coarse) with numpy-seeded weights,
+    the folding decoder's too if ``detailed``."""
+    flat = {}
+    for name, i, o in (("conv1", 3, 128), ("conv2", 128, 256), ("conv3", 512, 512), ("conv4", 512, emb),
+                       ("linear1", emb, 1024), ("linear2", 1024, 1024), ("linear3", 1024, 3 * num_coarse)):
+        random_linear(flat, rng, name, i, o)
+    if detailed:
+        for name, i, o in (("conv5", emb + 5, 512), ("conv6", 512, 512), ("conv7", 512, 3)):
+            random_linear(flat, rng, name, i, o)
+    return flat
+
+
+def library_nn(x, y):
+    """Yardstick only, never used by the port: torch.cdist, then the
+    minimum over the other cloud with its index."""
+    return torch.min(torch.cdist(x, y), dim=-1)
+
+
+def k12_bound(b, n, m) -> tuple[float, str]:
+    """K12's bound: B N M distances of 8 f32 operations each and one
+    comparison a distance (on the CUDA cores); x and y read once, the
+    (B, N) distances and indices written once."""
+    return bound(0.0, 4 * b * (n + m) * 3 + 8 * b * n, f32_flops=9.0 * b * n * m)
+
+
+def phase_kernel_k12(rng) -> dict:
+    from learning3d_tpu_torch.kernels.chamfer import _nn_oneway_reference, nn_oneway
+
+    def normal(b, n):
+        return rng.normal(size=(b, n, 3)).astype(np.float32)
+
+    cases = {
+        "multistart": (normal(IPC_STARTS * IPC_B, IPC_N), normal(IPC_STARTS * IPC_B, IPC_N)),
+        "fine_points_to_fine": (normal(PCN_B, PCN_N), normal(PCN_B, 16 * PCN_COARSE)),
+        "ragged": (normal(3, 1000), normal(3, 136)),
+        "ties": (lattice_cloud(rng, 2, 1000), lattice_cloud(rng, 2, 700)),
+    }
+    cases["fine_to_points"] = cases["fine_points_to_fine"][::-1]
+    checked = {}
+    with torch.inference_mode():
+        for name, (x_np, y_np) in cases.items():
+            x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+            d, i = nn_oneway(x, y)
+            want_d, want_i = _nn_oneway_reference(x, y)
+            torch.cuda.synchronize()
+            require(torch.equal(d, want_d), f"K12 vs plain ({name}): distances differ")
+            require(torch.equal(i, want_i), f"K12 vs plain ({name}): indices differ")
+            checked[name] = {"B": x.shape[0], "N": x.shape[1], "M": y.shape[1]}
+            del want_d, want_i
+        x, y = (torch.from_numpy(a).cuda() for a in cases["multistart"])
+        k_ms = cuda_ms(lambda: nn_oneway(x, y))
+        p_ms = cuda_ms(lambda: _nn_oneway_reference(x, y), reps=3, warmup=1)
+        l_ms = cuda_ms(lambda: library_nn(x, y), reps=5)
+        xf, yf = (torch.from_numpy(a).cuda() for a in cases["fine_points_to_fine"])
+        fine_ms = {"points_to_fine": cuda_ms(lambda: nn_oneway(xf, yf), reps=5),
+                   "fine_to_points": cuda_ms(lambda: nn_oneway(yf, xf), reps=5)}
+    bound_ms, bound_by = k12_bound(*x.shape[:2], y.shape[1])
+    fine_bound = k12_bound(PCN_B, PCN_N, 16 * PCN_COARSE)[0]
+    result = {"max_abs_err": 0.0, "max_rel_err": 0.0, "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by}
+    emit("kernel_k12", name="_nn_oneway_pallas", tolerance="distances bit-equal, indices equal", cases=checked,
+         shape={"B": x.shape[0], "N": x.shape[1], "M": y.shape[1], "note": "multistart: 8 starts x 32 pairs"},
+         fine_kernel_ms=fine_ms, fine_bound_ms=fine_bound,
+         library="torch.cdist + torch.min over the other cloud, yardstick only", **result)
+    return result
+
+
+def k13_bound(b, n, m) -> tuple[float, str]:
+    """K13's bound: 2 * 10 * B N M exponentials on the SFU (the TPU
+    kernel's two passes a level) or 43 f32 operations a pair and level on
+    the CUDA cores, whichever takes longer; x and y read once, cost, g1
+    and g2 written once."""
+    pairs = float(b) * n * m * EMD_LEVELS
+    exp_s = SFU_BOUND_EXPS_PER_PAIR_LEVEL * pairs / SFU_EXP_PER_S
+    f32_s = EMD_F32_OPS_PER_PAIR_LEVEL * pairs / PEAK_F32_FLOPS
+    bytes_s = (4 * b * (n + m) * 3 * 2 + 4 * b) / PEAK_BYTES
+    return 1e3 * max(exp_s, f32_s, bytes_s), "operations" if max(exp_s, f32_s) >= bytes_s else "bytes"
+
+
+def emd_errors(got, want, what) -> dict:
+    (c, g1, g2), (wc, wg1, wg2) = got, want
+    require(all(bool(torch.isfinite(t).all()) for t in (c, g1, g2)), f"K13 {what}: outputs finite")
+    cost_rel = ((c - wc).abs() / wc.abs()).max().item()
+    require(cost_rel <= EMD_COST_TOL, f"K13 {what}: cost rel err {cost_rel} > {EMD_COST_TOL}")
+    grads = {}
+    for key, g, w in (("g1", g1, wg1), ("g2", g2, wg2)):
+        require(g.shape == w.shape, f"K13 {what}: {key} shape")
+        grads[key] = ((g - w).abs().mean() / w.abs().mean()).item()
+        require(grads[key] < EMD_GRAD_TOL, f"K13 {what}: {key} mean rel err {grads[key]} >= {EMD_GRAD_TOL}")
+    return {"abs": (c - wc).abs().max().item(), "rel": cost_rel, "g1_mean_rel": grads["g1"],
+            "g2_mean_rel": grads["g2"]}
+
+
+def phase_kernel_k13(rng) -> dict:
+    from learning3d_tpu_torch.kernels.emd import _emd_fwd_reference, emd_kernel
+
+    shapes = {"pcn": (PCN_B, PCN_N, PCN_COARSE), "n_gt_m": (3, 1000, 300), "n_lt_m": (2, 250, 1000)}
+    errs = {}
+    with torch.inference_mode():
+        for name, (b, n, m) in shapes.items():
+            x, y = (torch.from_numpy(rng.normal(size=(b, k, 3)).astype(np.float32)).cuda() for k in (n, m))
+            got = emd_kernel(x, y)
+            want = _emd_fwd_reference(x, y)
+            torch.cuda.synchronize()
+            errs[name] = emd_errors(got, want, name)
+            if name == "pcn":
+                full = (x, y)
+        k_ms = cuda_ms(lambda: emd_kernel(*full), reps=5)
+        p_ms = cuda_ms(lambda: _emd_fwd_reference(*full), reps=2, warmup=1)
+    bound_ms, bound_by = k13_bound(PCN_B, PCN_N, PCN_COARSE)
+    result = {"max_abs_err": max(e["abs"] for e in errs.values()), "max_rel_err": max(e["rel"] for e in errs.values()),
+              "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit("kernel_k13", name="_emd_fwd_pallas",
+         tolerance=f"cost rel <= {EMD_COST_TOL}; g1, g2 mean rel < {EMD_GRAD_TOL}", errors=errs,
+         shape={"B": PCN_B, "N": PCN_N, "M": PCN_COARSE, "note": "PCN's coarse EMD loss"},
+         library="none: no one PyTorch call computes approxmatch", **result)
+    return result
+
+
+def ipcrnet_agreement(model, template, source, rots, what) -> dict:
+    """The gates of bf16 iPCRNet serving against the plain versions (see
+    IPCRNET_TOL): the multistart candidates at the model's own step count
+    rescored on K12's plain version (bit-equal scores), then the forward and
+    every start's est_T and score at one step, kernels against plain; the
+    picked start must agree wherever the plain run's two best scores lie
+    more than twice the tolerance apart."""
+    from learning3d_tpu_torch.serve import chamfer_scores, multistart_scores
+
+    total, scores = multistart_scores(model, template, source, rots)
+    with plain_versions():
+        rescored = chamfer_scores(total, template, source)
+    require(torch.equal(rescored, scores), f"{what}: K12's scores differ from its plain version's")
+    iters = model.default_iterations
+    model.default_iterations = 1
+    try:
+        first, (k_total, k_scores) = model(template, source), multistart_scores(model, template, source, rots)
+        with plain_versions():
+            plain, (p_total, p_scores) = model(template, source), multistart_scores(model, template, source, rots)
+    finally:
+        model.default_iterations = iters
+    est_err = max((k - p).abs().max().item() / p.abs().max().item()
+                  for k, p in ((first["est_T"], plain["est_T"]), (k_total, p_total)))
+    require(est_err <= IPCRNET_TOL, f"{what}: one-step est_T rel err {est_err} > {IPCRNET_TOL}")
+    score_err = ((k_scores - p_scores).abs() / p_scores).max().item()
+    require(score_err <= IPCRNET_TOL, f"{what}: one-step chamfer score rel err {score_err} > {IPCRNET_TOL}")
+    best2 = torch.topk(p_scores, 2, dim=0, largest=False).values
+    apart = (best2[1] - best2[0]) > 2 * IPCRNET_TOL * best2[0]
+    pick, plain_pick = k_scores.argmin(0), p_scores.argmin(0)
+    require(bool((pick == plain_pick)[apart].all()), f"{what}: start_idx differs where the scores lie apart")
+    return {"rescored_bit_equal": True, "one_step_est_T_rel": est_err, "one_step_chamfer_rel": score_err,
+            "starts_apart": int(apart.sum()), "starts_differing": int((pick != plain_pick).sum()),
+            "of": int(pick.numel())}
+
+
+def phase_serve_ipcrnet(rng) -> dict:
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.models import PointNet, iPCRNet
+    from learning3d_tpu_torch.serve import InferenceEngine, multistart_register, multistart_scores, rotation_starts
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    bf16 = torch.bfloat16
+    model = load_nnx_state(iPCRNet(PointNet(emb_dims=IPC_EMB, dtype=bf16), dtype=bf16),
+                           random_ipcrnet_state(rng)).eval()
+    engine = InferenceEngine(model, batch_size=IPC_B)
+    requests = [(rng.normal(size=(n, IPC_N, 3)).astype(np.float32), rng.normal(size=(n, IPC_N, 3)).astype(np.float32))
+                for n in IPC_REQUESTS]
+    chunks = sum(-(-n // IPC_B) for n in IPC_REQUESTS)
+    iters = model.default_iterations
+    reset_launches()
+    outs = [engine(t, s) for t, s in requests]
+    torch.cuda.synchronize()
+    launches = LAUNCHES["pointnet_pooled_kernel"]
+    require(launches == (1 + iters) * chunks, f"K1 launched {launches} times for {chunks} chunks (want 9 a chunk)")
+    rot_err, rot_tol = 0.0, bf16_rotation_tol(iters)
+    for (t, _), out in zip(requests, outs):
+        require(out["est_T"].shape == (t.shape[0], 4, 4) and out["r"].shape == (t.shape[0], IPC_EMB), "result shapes")
+        for key, val in out.items():
+            require(bool(np.isfinite(val).all()), f"every {key} finite")
+        rot_err = max(rot_err, rotation_error(out["est_R"]))
+    require(rot_err <= rot_tol, f"est_R not a rotation to bf16 rounding: {rot_err} > {rot_tol}")
+
+    rots = rotation_starts(IPC_STARTS)
+    t_dev, s_dev = (torch.from_numpy(a[:IPC_B]).cuda() for a in requests[0])
+    with torch.inference_mode():
+        reset_launches()
+        ms = multistart_register(model, t_dev, s_dev, rots)
+        torch.cuda.synchronize()
+        ms_launches = {k: LAUNCHES[k] for k in ("pointnet_pooled_kernel", "_nn_oneway_pallas")}
+        require(ms_launches == {"pointnet_pooled_kernel": 1 + iters, "_nn_oneway_pallas": 2},
+                f"multistart launches {ms_launches} (want K1 9, K12 2)")
+        require(all(bool(torch.isfinite(v.float()).all()) for v in ms.values()), "multistart outputs finite")
+        total, scores = multistart_scores(model, t_dev, s_dev, rots)
+        require(torch.equal(scores.min(0).values, ms["chamfer"]) and torch.equal(scores.argmin(0), ms["start_idx"])
+                and torch.equal(total[ms["start_idx"], torch.arange(IPC_B, device="cuda")], ms["est_T"]),
+                "multistart's result is its best start's")
+        require(rotation_error(ms["est_T"][:, :3, :3].cpu()) <= rot_tol, "multistart est_T's rotation")
+        agree = ipcrnet_agreement(model, t_dev, s_dev, rots, "serve_ipcrnet")
+        model_ms = cuda_ms(lambda: model(t_dev, s_dev), reps=5)
+        ms_ms = cuda_ms(lambda: multistart_register(model, t_dev, s_dev, rots), reps=3, warmup=1)
+        with plain_versions():
+            plain_model_ms = cuda_ms(lambda: model(t_dev, s_dev), reps=3, warmup=1)
+    engine(*requests[0])
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine(*requests[0])
+    host_s = (time.perf_counter() - t0) / reps
+    result = {"launches": launches, "multistart_launches": ms_launches}
+    emit("serve_ipcrnet", config={"model": "iPCRNet(PointNet(1024, use_bn=False)) bf16 eval, 8 iterations",
+                                  "B": IPC_B, "N": IPC_N, "starts": IPC_STARTS},
+         requests=list(IPC_REQUESTS), chunks=chunks, launches=launches, multistart_launches=ms_launches,
+         tolerance=f"one step: est_T, chamfer scores <= {IPCRNET_TOL} (relative); 8 steps: K12 rescoring bit-equal",
+         agree=agree,
+         rotation={"max_RRt_minus_I_or_det": rot_err, "tolerance": rot_tol}, pairs_per_s=IPC_B / host_s,
+         engine_ms=1e3 * host_s,
+         model_ms=model_ms, plain_model_ms=plain_model_ms, multistart_ms=ms_ms,
+         multistart_pairs_per_s=IPC_B / (ms_ms * 1e-3),
+         start_idx_counts=np.bincount(ms["start_idx"].cpu().numpy(), minlength=IPC_STARTS).tolist())
+    return result
+
+
+def phase_train_ipcrnet(rng) -> dict:
+    import tempfile
+
+    from learning3d_tpu_torch.data import RegistrationData, SyntheticModelNet40, batch_iterator, to_device
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.models import PointNet, iPCRNet
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    state = random_ipcrnet_state(rng)
+
+    def build():
+        return load_nnx_state(iPCRNet(PointNet(emb_dims=IPC_EMB)), state)
+
+    data = RegistrationData("iPCRNet", SyntheticModelNet40(num_points=IPC_N, size=IPC_TRAIN_STEPS * IPC_TRAIN_B))
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = TrainConfig(exp_name="chip_smoke_train_ipcrnet", task="ipcrnet", batch_size=IPC_TRAIN_B,
+                          num_points=IPC_N, optimizer="adam", lr=TRAIN_LR, epochs=1, ckpt_dir=ckpt)
+        trainer = Trainer(cfg, build())
+        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        reset_launches()
+        with contextlib.redirect_stdout(sys.stderr):  # the Trainer's epoch line
+            trainer.fit(data)
+        torch.cuda.synchronize()
+        launches = LAUNCHES["_nn_oneway_pallas"]
+        require(launches == 2 * IPC_TRAIN_STEPS, f"K12 launched {launches} times in {IPC_TRAIN_STEPS} steps")
+        require(LAUNCHES["pointnet_pooled_kernel"] == 0, "K1 launched on the f32 train path")
+        epoch = trainer.history[-1]
+        skipped, changed = check_trained(trainer, before)
+        require(all(np.isfinite(epoch[k]) for k in ("train_rot_deg", "train_trans")), f"train metrics: {epoch}")
+        batch = to_device(next(batch_iterator(data, IPC_TRAIN_B, seed=SEED)), "cuda")
+        with torch.no_grad():
+            f32_rot_err = rotation_error(trainer.model.eval()(*batch[:2])["est_R"].cpu())
+        trainer.model.train()
+        require(f32_rot_err <= ROT_TOL, f"f32 est_R not a rotation: {f32_rot_err}")
+        agreement = step_agreement(lambda: Trainer(cfg, build()), batch, CHAMFER_STEP_TOL, plain_versions, (), 0.0,
+                                   what="iPCRNet train step")
+        timing = time_train_step(trainer, batch, unit="pairs")
+        trainer.close()
+    result = {"launches": launches, "train_loss": epoch["train_loss"], "train_rot_deg": epoch["train_rot_deg"],
+              "epoch_s": epoch["seconds"], "f32_rotation_error": f32_rot_err, **timing}
+    emit("train_ipcrnet", config={"model": "iPCRNet(PointNet(1024, use_bn=False)) f32, 8 iterations",
+                                  "B": IPC_TRAIN_B, "N": IPC_N, "optimizer": "adam", "lr": TRAIN_LR,
+                                  "steps": IPC_TRAIN_STEPS},
+         dataset=f"RegistrationData(iPCRNet) over {data.data_class.version_tag()}", skipped_steps=skipped,
+         tensors_changed=sum(changed.values()), tensors=len(changed),
+         step_vs_plain={"tolerance": CHAMFER_STEP_TOL, **agreement}, **result)
+    return result
+
+
+def phase_train_pcn(rng) -> dict:
+    import tempfile
+
+    from learning3d_tpu_torch.data import ClassificationData, SyntheticModelNet40, batch_iterator, to_device
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.kernels.emd import _emd_fwd_reference
+    from learning3d_tpu_torch.losses import emd_loss_mean
+    from learning3d_tpu_torch.models import PCN
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    state = random_pcn_state(rng, detailed=True)
+    coarse_state = {k: v for k, v in state.items() if not k.startswith(("conv5", "conv6", "conv7"))}
+
+    def build(detailed=False):
+        return load_nnx_state(PCN(emb_dims=PCN_EMB, num_coarse=PCN_COARSE, detailed_output=detailed),
+                              state if detailed else coarse_state)
+
+    data = ClassificationData(SyntheticModelNet40(num_points=PCN_N, size=PCN_TRAIN_STEPS * PCN_B))
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = TrainConfig(exp_name="chip_smoke_train_pcn", task="pcn", batch_size=PCN_B, num_points=PCN_N,
+                          optimizer="adam", lr=TRAIN_LR, epochs=1, ckpt_dir=ckpt)
+        trainer = Trainer(cfg, build())
+        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        reset_launches()
+        with contextlib.redirect_stdout(sys.stderr):  # the Trainer's epoch line
+            trainer.fit(data)
+        torch.cuda.synchronize()
+        launches = {"coarse_fit": LAUNCHES["_nn_oneway_pallas"]}
+        require(launches["coarse_fit"] == 2 * PCN_TRAIN_STEPS,
+                f"K12 launched {launches['coarse_fit']} times in {PCN_TRAIN_STEPS} steps")
+        epoch = trainer.history[-1]
+        skipped, changed = check_trained(trainer, before)
+        batch = to_device(next(batch_iterator(data, PCN_B, seed=SEED)), "cuda")
+        agreement = {"coarse": step_agreement(lambda: Trainer(cfg, build()), batch, CHAMFER_STEP_TOL, plain_versions,
+                                              (), 0.0, what="PCN train step")}
+        timing = {"coarse": time_train_step(trainer, batch)}
+        trainer.close()
+
+        # one step of the detailed model: the fine Chamfer against 16384 points
+        detailed = Trainer(cfg, build(detailed=True))
+        detailed._ensure_optimizer(1)
+        reset_launches()
+        loss, aux = detailed.train_step(batch)
+        torch.cuda.synchronize()
+        launches["detailed_step"] = LAUNCHES["_nn_oneway_pallas"]
+        require(launches["detailed_step"] == 4, f"K12 launched {launches['detailed_step']} times in a detailed step")
+        require(np.isfinite(loss.item()) and all(np.isfinite(v.item()) for v in aux.values()),
+                f"detailed step: {loss}, {aux}")
+        require(int(detailed.skipped_steps) == 0, "detailed step skipped")
+        agreement["detailed"] = step_agreement(lambda: Trainer(cfg, build(detailed=True)), batch, CHAMFER_STEP_TOL,
+                                               plain_versions, (), 0.0, what="detailed PCN train step")
+        torch.cuda.reset_peak_memory_stats()
+        timing["detailed"] = time_train_step(detailed, batch, reps=3)
+        timing["detailed"]["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        detailed.close()
+
+    # the EMD loss on the coarse completion, forward and backward
+    model = build()
+    points = batch[0]
+    emd = {}
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        coarse = model(points)["coarse_output"]
+        coarse.retain_grad()
+        with plain_versions() if plain else contextlib.nullcontext():
+            loss = emd_loss_mean(points, coarse)
+            loss.backward()
+        torch.cuda.synchronize()
+        emd["plain" if plain else "kernel"] = (loss.item(), coarse.grad.clone(), LAUNCHES["_emd_fwd_pallas"])
+    (lk, gk, nk), (lp, gp, np_) = emd["kernel"], emd["plain"]
+    require((nk, np_) == (1, 0), f"K13 launches {nk} (kernels), {np_} (plain) for one EMD loss")
+    emd_rel = abs(lk - lp) / abs(lp)
+    require(np.isfinite(lk) and emd_rel <= EMD_COST_TOL, f"EMD loss {lk} vs plain {lp}")
+    grad_rel = ((gk - gp).abs().mean() / gp.abs().mean()).item()
+    require(grad_rel < EMD_GRAD_TOL, f"EMD loss gradient mean rel err {grad_rel} >= {EMD_GRAD_TOL}")
+    with torch.no_grad():
+        coarse = model(points)["coarse_output"]
+    emd_ms = cuda_ms(lambda: emd_loss_mean(points, coarse.detach().requires_grad_()).backward(), reps=5)
+    launches["emd"] = nk
+    result = {"launches": launches, "train_loss": epoch["train_loss"], "epoch_s": epoch["seconds"],
+              "timing": timing, "emd_loss_ms": emd_ms}
+    emit("train_pcn", config={"model": "PCN(emb 1024, num_coarse 1024) f32; detailed_output=True for one step",
+                              "B": PCN_B, "N": PCN_N, "optimizer": "adam", "lr": TRAIN_LR,
+                              "steps": PCN_TRAIN_STEPS},
+         dataset=f"ClassificationData over {data.data_class.version_tag()}", skipped_steps=skipped,
+         tensors_changed=sum(changed.values()), tensors=len(changed),
+         step_vs_plain={"tolerance": CHAMFER_STEP_TOL, **agreement},
+         emd={"loss": lk, "loss_rel_vs_plain": emd_rel, "grad_mean_rel_vs_plain": grad_rel,
+              "tolerance": f"loss rel <= {EMD_COST_TOL}, gradient mean rel < {EMD_GRAD_TOL}"},
+         **result)
+    return result
+
+
 def kernel_entry(name, source, replaces, launches, res) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -1692,6 +2166,13 @@ def main() -> None:
     train = phase_train(rng)
     k7 = phase_kernel_k7(rng)
     train_dcp = phase_train_dcp(rng)
+    k12 = phase_kernel_k12(rng)
+    k13 = phase_kernel_k13(rng)
+    serve_ipc = phase_serve_ipcrnet(rng)
+    train_ipc = phase_train_ipcrnet(rng)
+    train_pcn = phase_train_pcn(rng)
+    k12_launches = serve_ipc["multistart_launches"]["_nn_oneway_pallas"] + train_ipc["launches"] + \
+        train_pcn["launches"]["coarse_fit"] + train_pcn["launches"]["detailed_step"]
 
     csrc = "learning3d_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
@@ -1719,6 +2200,10 @@ def main() -> None:
                      train["launches"]["pool_bwd_pallas"], k4),
         kernel_entry("knn_neighbors_pallas", csrc + "edgeconv.cu", "learning3d_tpu/kernels/edgeconv.py:73",
                      train_dcp["launches"]["knn_neighbors_pallas"], k7),
+        kernel_entry("_nn_oneway_pallas", csrc + "chamfer.cu", "learning3d_tpu/kernels/chamfer.py:65", k12_launches,
+                     k12),
+        kernel_entry("_emd_fwd_pallas", csrc + "emd.cu", "learning3d_tpu/kernels/emd.py:264",
+                     train_pcn["launches"]["emd"], k13),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

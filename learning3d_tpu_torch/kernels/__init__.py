@@ -18,9 +18,15 @@ LAUNCHES: dict[str, int] = {
     "pool_stats_pallas": 0,
     "pool_bwd_pallas": 0,
     "knn_neighbors_pallas": 0,
+    "_nn_oneway_pallas": 0,
+    "_emd_fwd_pallas": 0,
 }
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+from learning3d_tpu_torch.kernels.chamfer import chamfer_distance, nn_distance  # noqa: E402,F401
+from learning3d_tpu_torch.kernels.emd import approx_match, emd_loss  # noqa: E402,F401

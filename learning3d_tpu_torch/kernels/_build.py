@@ -44,6 +44,8 @@ SIGNATURES = {
     "pool_stats": ([_P] * 3 + [_I] + [_P] * 8 + [_I] * 3 + [_P], ctypes.c_int),
     "pool_bwd": ([_P] * 4 + [_I] + [_P] * 2 + [_I] * 3 + [_P], ctypes.c_int),
     "knn_neighbors": ([_P] * 2 + [_I] * 3 + [_P], ctypes.c_int),
+    "nn_oneway": ([_P] * 4 + [_I] * 3 + [_P], ctypes.c_int),
+    "emd_fwd": ([_P] * 6 + [_I] * 3 + [_F] * 2 + [_P], ctypes.c_int),
     "l3d_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -19,15 +19,25 @@ key.
     result = reg(sources)       # numpy (n, N, 3), any n -> dict
 
 registers many sources against one fixed template, whose encoder pass runs
-once. Mesh serving and per-shape CUDA graphs are not ported yet.
+once.
+
+    out = multistart_register(model, template, source, rotation_starts(8))
+
+registers each pair from K initial rotations folded into the batch (one
+forward at K * B) and keeps, per pair, the start whose composed transform
+gives the lowest symmetric Chamfer distance (K12 on the card). Mesh serving
+and per-shape CUDA graphs are not ported yet.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
 
 from learning3d_tpu_torch import DEFAULT_DEVICE, resolve_device
+from learning3d_tpu_torch.kernels.chamfer import chamfer_distance
 
 
 def _to_numpy(t: torch.Tensor, rows: int) -> np.ndarray:
@@ -113,3 +123,103 @@ class TemplateRegistrar:
                                                   src)
                 pieces.append({key: _to_numpy(val, got) for key, val in out.items()})
         return {key: np.concatenate([p[key] for p in pieces], axis=0) for key in pieces[0]}
+
+
+def rotation_starts(n_starts: int = 8) -> torch.Tensor:
+    """The first ``n_starts`` elements of the 24-rotation octahedral group
+    (the signed 3x3 permutation matrices with det +1), identity first, then
+    greedily ordered for spread, as a (n_starts, 3, 3) f32 CPU tensor: a
+    deterministic coarse cover of SO(3) for ``multistart_register``. The
+    order is the JAX package's, kept for parity: each next start is the one
+    whose largest trace against the chosen ones is smallest (the "min" in
+    the loop, not a max)."""
+    if not 1 <= n_starts <= 24:
+        raise ValueError("n_starts must be in [1, 24] (octahedral rotation group)")
+    rots = []
+    for perm in itertools.permutations(range(3)):
+        for signs in itertools.product((1.0, -1.0), repeat=3):
+            R = np.zeros((3, 3), np.float32)
+            for i, (j, sgn) in enumerate(zip(perm, signs)):
+                R[i, j] = sgn
+            if np.linalg.det(R) > 0:
+                rots.append(R)
+    rots = np.stack(rots)  # (24, 3, 3)
+    order = [int(np.argmax([np.trace(R) for R in rots]))]
+    rest = [i for i in range(len(rots)) if i != order[0]]
+    while rest and len(order) < n_starts:
+        # geodesic distance ~ arccos((tr(Ra^T Rb) - 1) / 2); trace is monotone
+        dmin = [min(np.trace(rots[a].T @ rots[b]) for b in order) for a in rest]
+        nxt = rest[int(np.argmin(dmin))]
+        order.append(nxt)
+        rest.remove(nxt)
+    return torch.from_numpy(rots[order[:n_starts]])
+
+
+def _apply(R, pts):
+    """R (..., 3, 3) applied to points (..., M, 3), products summed
+    elementwise (no TF32)."""
+    return (R[..., None, :, :] * pts[..., :, None, :]).sum(-1)
+
+
+def multistart_scores(model, template, source, rotations):
+    """The candidates of ``multistart_register``: (total (K, B, 4, 4), the
+    composed transform of each start, mapping the original source onto the
+    template; score (K, B), its symmetric Chamfer distance, K12 on the
+    card)."""
+    Rs = torch.as_tensor(rotations).to(device=template.device, dtype=template.dtype)
+    K, B = Rs.shape[0], template.shape[0]
+    xyz = source[..., :3]
+    c = xyz.mean(dim=1)  # (B, 3): rotate about the source centroid, so the
+    # pre-rotated cloud stays inside the translation range the model saw
+    rot = _apply(Rs[:, None], (xyz - c[:, None, :])[None]) + c[None, :, None, :]  # (K, B, M, 3)
+    if source.shape[-1] > 3:  # carry normals through the pre-rotation
+        rot = torch.cat([rot, _apply(Rs[:, None], source[None, ..., 3:6])], dim=-1)
+    src_k = rot.reshape((K * B,) + tuple(rot.shape[2:]))
+    tmpl_k = template[None].expand((K,) + tuple(template.shape)).reshape((K * B,) + tuple(template.shape[1:]))
+    order = getattr(model, "forward_arg_order", "template_source")
+    out = model(src_k, tmpl_k) if order == "source_template" else model(tmpl_k, src_k)
+    est = out["est_T"].reshape(K, B, 4, 4)
+    # the pre-rotation as a 4x4: G_k x = R_k (x - c) + c
+    Rg, cg = Rs.to(est.dtype), c.to(est.dtype)
+    G = torch.zeros((K, B, 4, 4), dtype=est.dtype, device=est.device)
+    G[..., :3, :3] = Rg[:, None]
+    G[..., :3, 3] = cg[None] - (Rg[:, None] * cg[None, :, None, :]).sum(-1)
+    G[..., 3, 3] = 1.0
+    total = (est[..., :, :, None] * G[..., None, :, :]).sum(-2)  # est @ G
+    return total, chamfer_scores(total, template, source)
+
+
+def chamfer_scores(total, template, source):
+    """The symmetric Chamfer distance (chamfer_distance_loss's reduction,
+    per item) between each template and its source moved by each candidate
+    transform: total (K, B, 4, 4) -> (K, B)."""
+    K, B = total.shape[:2]
+    xyz = source[..., :3]
+    moved = _apply(total[..., :3, :3], xyz[None].to(total.dtype)) + total[..., None, :3, 3]  # (K, B, M, 3)
+    t_flat = template[None, ..., :3].expand((K,) + tuple(template.shape[:-1]) + (3,)).reshape(K * B, -1, 3)
+    d1, d2 = chamfer_distance(t_flat, moved.reshape(K * B, -1, 3))
+    return 0.5 * (torch.mean(torch.sqrt(torch.clamp(d1, min=1e-12)), dim=-1)
+                  + torch.mean(torch.sqrt(torch.clamp(d2, min=1e-12)), dim=-1)).reshape(K, B)
+
+
+def multistart_register(model, template, source, rotations):
+    """Multi-start registration: fold K initial rotations into the batch
+    (one forward at batch K * B), then pick per item the start whose
+    composed transform gives the lowest symmetric Chamfer distance.
+
+    model:     a registration model returning {"est_T": (B, 4, 4)} (est_T
+               maps source -> template); ``forward_arg_order`` is honored
+               ("source_template" for PRNet).
+    template:  (B, N, 3) or (B, N, 6) with normals
+    source:    (B, M, 3) or (B, M, 6)
+    rotations: (K, 3, 3) initial rotations (``rotation_starts``), applied
+               about each source's centroid before the forward; normals are
+               rotated with them.
+
+    Returns {"est_T": (B, 4, 4) the composed best transform, "start_idx":
+    (B,) the winning start, "chamfer": (B,) its score}, the score being
+    chamfer_distance_loss's per item. No data-dependent control flow."""
+    total, score = multistart_scores(model, template, source, rotations)
+    k_star = torch.argmin(score, dim=0)  # (B,), the first of equal scores
+    pick = total[k_star, torch.arange(template.shape[0], device=total.device)]
+    return {"est_T": pick, "start_idx": k_star, "chamfer": score.min(dim=0).values}

@@ -2,7 +2,7 @@
 Every loss_fn has the signature ``loss_fn(model, batch, generator) ->
 (loss, aux_dict)``; ``generator`` is the Trainer's ``torch.Generator`` on
 the training device, for tasks that draw random numbers. Ported so far:
-classification and DCP."""
+classification, DCP, iPCRNet and PCN."""
 
 from __future__ import annotations
 
@@ -41,6 +41,15 @@ def _rt_mse(R_est, t_est, R, t):
     return torch.mean((RtR - eye) ** 2) + torch.mean((t_est - t) ** 2)
 
 
+def ipcrnet(model, batch, generator=None):
+    """Chamfer(template, transformed_source), the reference's train_pcrnet
+    loss (K12 on the card), with the registration metrics."""
+    template, source, igt = batch
+    out = model(template, source)
+    loss = losses.chamfer_distance_loss(template[..., :3], out["transformed_source"])
+    return loss, registration_errors(out["est_T"], igt)
+
+
 def dcp(model, batch, generator=None):
     """MSE(est_R^T R_ab, I) + MSE(est_t, t_ab) + 0.1 * the same terms of the
     reverse direction (est_R_, est_t_ against R_ba, t_ba), the reference's
@@ -55,4 +64,21 @@ def dcp(model, batch, generator=None):
     return loss, registration_errors(out["est_T"], igt)
 
 
-TASKS = {"classification": classification, "dcp": dcp}
+def pcn(model, batch, generator=None):
+    """Chamfer(points, coarse_output), the reference's train_pcn loss; with
+    the folding decoder (PCN(detailed_output=True)) the fine stage's Chamfer
+    joins the loss. Aux: the per-stage Chamfer, coarse always and fine when
+    the decoder is on. The batch is (points,) or (points, labels, ...)."""
+    points = batch[0]
+    out = model(points)
+    coarse = losses.chamfer_distance_loss(points, out["coarse_output"])
+    loss = coarse
+    aux = {"chamfer_coarse": coarse}
+    if "fine_output" in out:
+        fine = losses.chamfer_distance_loss(points, out["fine_output"])
+        aux["chamfer_fine"] = fine
+        loss = coarse + fine
+    return loss, aux
+
+
+TASKS = {"classification": classification, "ipcrnet": ipcrnet, "dcp": dcp, "pcn": pcn}

@@ -11,7 +11,11 @@ Mapping (the port keeps torch's orientation for Linear):
               bias              -> bias
     BatchNorm scale / bias      -> weight / bias
               mean / var        -> running_mean / running_var
-Entries under ``rngs`` (dropout keys and counters) are skipped.
+Entries under ``rngs`` (dropout keys and counters) are skipped. Every
+ported model crosses this way (PointNet, the classifier, DGCNN, DCP,
+iPCRNet, PCN); PCN's conv5 keeps one (emb + 5, 512) kernel, which the
+folding decoder splits by linearity in its forward, as the JAX package
+does.
 
 Quantized state crosses as well, as numpy: ``load_quant_pointnet`` takes the
 arrays of a JAX ``QuantPointNetClassifier`` pytree, ``load_quant_dcp`` the

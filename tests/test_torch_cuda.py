@@ -570,11 +570,42 @@ def test_k3_k4_refuse_what_they_do_not_take(cuda):
         pool_stats(x, w.float(), torch.zeros(4224, device=cuda))
 
 
+def k3_misplaced(x, W, c):
+    """The control of the classifier step's check: K3 with the argmax and
+    argmin of every 64th channel moved to the next point (1.6% of the
+    picks), as a kernel that broke its selection on some channels would."""
+    from learning3d_tpu_torch.kernels.poolgrad import pool_stats
+
+    mx, mn, amax, amin, G, colsum = pool_stats(x, W, c)
+    bad = torch.zeros_like(amax, dtype=torch.bool)
+    bad[:, ::64] = True
+    n_pts = x.shape[1]
+    return mx, mn, torch.where(bad, (amax + 1) % n_pts, amax), torch.where(bad, (amin + 1) % n_pts, amin), G, colsum
+
+
+# One step on K3/K4 against the same step on their plain versions,
+# per-tensor relative error. bf16: K3 picks the same points as its plain
+# version (no argmax or argmin differed in 12 weight draws of this case,
+# tools/torch_cls_step_gaps.py on the H100), but sums z, G and the column
+# sum in another f32 order; the Gram-matrix variance (E[z^2] - mean^2)
+# cancels, the BN output is rounded to bf16 (2^-8) and the head's BN, the
+# log-softmax and the backward carry it on. The plain version with exact
+# (f64) sums lies as far from the f32 plain version (0.01% to 5.2% over the
+# draws, median 1.5%) as the kernels do (0.1% to 6.5%, median 1.9%): the
+# tolerance sits above that spread, and the control (k3_misplaced) must
+# fail it. f32: K3's bf16 hi/lo split (2^-16 of a product) against the
+# plain version's f32 products can pick another point for a channel whose
+# two largest values lie that close, moving that channel's gradient (some
+# 0.5% of an encoder gradient's norm at this size)
+CLS_STEP_TOL = {torch.bfloat16: 8e-2, torch.float32: 2e-2}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_train_step_kernels_match_plain(cuda, dtype, monkeypatch):
     """One forward and backward of the PointNet-1024 classifier in train mode
     on K3/K4 against the same step on their plain versions: loss, every
-    gradient and the BN running statistics."""
+    gradient and the BN running statistics; a control with misplaced K3
+    picks must fail the same check."""
     from learning3d_tpu_torch.kernels import LAUNCHES, poolgrad
     from learning3d_tpu_torch.models import Classifier, PointNet
     from learning3d_tpu_torch.train import tasks
@@ -584,48 +615,232 @@ def test_train_step_kernels_match_plain(cuda, dtype, monkeypatch):
     x = torch.from_numpy(rng.normal(size=(32, 512, 3)).astype(np.float32)).to(cuda)
     y = torch.from_numpy(rng.integers(0, 40, 32)).to(cuda)
     dt = None if dtype == torch.float32 else dtype
-    base = Classifier(PointNet(emb_dims=1024, use_bn=True, dtype=dt, device=cuda), 40, dtype=dt, device=cuda)
-    runs = []
-    for plain in (False, True):
+    # seeded weights, so that every run tests the same step
+    # (tools/torch_cls_step_gaps.py runs this case over many seeds)
+    gen = torch.Generator().manual_seed(0)
+    base = Classifier(PointNet(emb_dims=1024, use_bn=True, dtype=dt, generator=gen, device=cuda), 40, dtype=dt,
+                      generator=gen, device=cuda)
+    variants = {"kernels": (poolgrad.pool_stats, poolgrad.pool_bwd, (1, 1)),
+                "plain": (poolgrad.pool_stats_reference, poolgrad.pool_bwd_reference, (0, 0)),
+                "control": (k3_misplaced, poolgrad.pool_bwd, (1, 1))}
+    runs = {}
+    for name, (stats, bwd, want_launches) in variants.items():
         model = Classifier(PointNet(emb_dims=1024, use_bn=True, dtype=dt, device=cuda), 40, dtype=dt, device=cuda,
                            dropout_generator=torch.Generator(device=cuda).manual_seed(3))
         model.load_state_dict(base.state_dict())
-        if plain:
-            monkeypatch.setattr(layers, "pool_stats", poolgrad.pool_stats_reference)
-            monkeypatch.setattr(layers, "pool_bwd", poolgrad.pool_bwd_reference)
+        monkeypatch.setattr(layers, "pool_stats", stats)
+        monkeypatch.setattr(layers, "pool_bwd", bwd)
         before = (LAUNCHES["pool_stats_pallas"], LAUNCHES["pool_bwd_pallas"])
         loss, _ = tasks.classification(model.train(), (x, y))
         loss.backward()
         torch.cuda.synchronize()
         launched = (LAUNCHES["pool_stats_pallas"] - before[0], LAUNCHES["pool_bwd_pallas"] - before[1])
-        assert launched == ((0, 0) if plain else (1, 1))
-        runs.append((loss.float().item(), {n: p.grad for n, p in model.named_parameters()},
-                     {n: b for n, b in model.named_buffers()}))
-    (lk, gk, bk), (lp, gp, bp) = runs
-    # bf16: an f32 sum in another order can move a bf16 activation one step
-    # (2^-8), and the head's BN, the log-softmax and the backward carry it.
-    # f32: K3's bf16 hi/lo split (2^-16 of a product) against the plain
-    # version's f32 products can pick another point for a channel whose two
-    # largest values lie that close, moving that channel's gradient (some
-    # 0.5% of an encoder gradient's norm at this size)
-    tol = 3e-2 if dtype == torch.bfloat16 else 2e-2
+        assert launched == want_launches
+        runs[name] = (loss.float().item(), {n: p.grad for n, p in model.named_parameters()},
+                      {n: b.clone() for n, b in model.named_buffers()})
+    tol = CLS_STEP_TOL[dtype]
     # biases with no gradient in exact arithmetic: those feeding a train-mode
     # BatchNorm (the batch mean takes them out) and the last encoder BN's
     # (the head's bn1 takes a shift common to every cloud out again): their
     # rounding noise is held to 5% of the layer's weight gradient
     zero_grad = {f"feature_model.convs.{i}.bias" for i in range(5)} | {
         "feature_model.bns.4.bias", "linear1.bias", "linear2.bias"}
-    assert abs(lk - lp) <= tol * abs(lp)
-    failed = {}
-    for name, g in gk.items():
-        err = (g - gp[name]).norm().item()
-        if name in zero_grad:
-            rel, limit = err / gp[name.rsplit(".", 1)[0] + ".weight"].norm().item(), 5e-2
-        else:
-            rel, limit = err / gp[name].norm().item(), tol
-        if not rel <= limit:
-            failed[name] = rel
-    for name, b in bk.items():
-        if not (b - bp[name]).abs().max().item() <= tol * bp[name].abs().max().item() + 1e-6:
-            failed[name] = (b - bp[name]).abs().max().item()
+
+    def failures(run, ref):
+        (lk, gk, bk), (lp, gp, bp) = run, ref
+        failed = {} if abs(lk - lp) <= tol * abs(lp) else {"loss": abs(lk - lp) / abs(lp)}
+        for name, g in gk.items():
+            err = (g - gp[name]).norm().item()
+            if name in zero_grad:
+                rel, limit = err / gp[name.rsplit(".", 1)[0] + ".weight"].norm().item(), 5e-2
+            else:
+                rel, limit = err / gp[name].norm().item(), tol
+            if not rel <= limit:
+                failed[name] = rel
+        for name, b in bk.items():
+            if not (b - bp[name]).abs().max().item() <= tol * bp[name].abs().max().item() + 1e-6:
+                failed[name] = (b - bp[name]).abs().max().item()
+        return failed
+
+    failed = failures(runs["kernels"], runs["plain"])
     assert not failed, failed
+    assert failures(runs["control"], runs["plain"]), "the control passed"
+
+
+# -- K12 (chamfer nearest neighbour) and K13 (approxmatch EMD) ---------------
+
+# random clouds; a ragged pair (N, M not multiples of any tile); a lattice
+# with exact distance ties (to the smaller index); one point against many
+# and many against one; multistart's shape (K=8 starts x B=32 pairs)
+@pytest.mark.parametrize("case,batch,n,m", [
+    ("random", 4, 1024, 1024), ("ragged", 3, 1000, 136), ("ties", 2, 1000, 700), ("one_x", 2, 1, 517),
+    ("one_y", 2, 300, 1), ("multistart", 256, 1024, 1024), ("fine", 2, 1024, 16384)])
+def test_k12_matches_plain(cuda, case, batch, n, m):
+    """Bit-equal distances and equal indices: both sides sum the exact
+    per-coordinate differences' squares in one order with no FMA, and keep
+    the first of equal minima."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.chamfer import _nn_oneway_reference, nn_oneway
+
+    rng = np.random.default_rng(n + m)
+    if case == "ties":
+        x, y = lattice_cloud(rng, batch, n), lattice_cloud(rng, batch, m)
+    else:
+        x, y = (rng.normal(size=(batch, k, 3)).astype(np.float32) for k in (n, m))
+    x, y = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    before = LAUNCHES["_nn_oneway_pallas"]
+    d, i = nn_oneway(x, y)
+    want_d, want_i = _nn_oneway_reference(x, y)
+    torch.cuda.synchronize()
+    assert LAUNCHES["_nn_oneway_pallas"] == before + 1
+    assert d.dtype == torch.float32 and i.dtype == torch.int32 and d.shape == (batch, n)
+    assert torch.equal(d, want_d)
+    assert torch.equal(i, want_i)
+    if case == "ties":  # the lattice really has tied nearest neighbours
+        dd = ((x[:, :, None, :] - y[:, None, :, :]) ** 2).sum(-1)
+        assert int((dd == d[..., None]).sum(-1).max()) > 1
+
+
+def test_k12_refuses_bad_arguments(cuda):
+    from learning3d_tpu_torch.kernels.chamfer import nn_oneway
+
+    with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
+        nn_oneway(torch.zeros(1, 8, 2, device=cuda), torch.zeros(1, 8, 2, device=cuda))
+    with pytest.raises(ValueError, match="at least one point"):
+        nn_oneway(torch.zeros(1, 0, 3, device=cuda), torch.zeros(1, 8, 3, device=cuda))
+    with pytest.raises(ValueError, match="on"):
+        nn_oneway(torch.zeros(1, 8, 3, device=cuda), torch.zeros(1, 8, 3))
+
+
+def test_chamfer_loss_gradient_kernels_match_plain(cuda, monkeypatch):
+    """chamfer_distance_loss forward and backward on K12 against the same
+    on its plain version: the same argmins, so the same loss; the backward
+    is the same torch code on both sides, with scatter-adds whose atomics
+    add in another order (1e-6 of each gradient's max)."""
+    from learning3d_tpu_torch.kernels import LAUNCHES, chamfer
+    from learning3d_tpu_torch.losses import chamfer_distance_loss
+
+    rng = np.random.default_rng(5)
+    x_np, y_np = rng.normal(size=(4, 1024, 3)).astype(np.float32), rng.normal(size=(4, 2048, 3)).astype(np.float32)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(chamfer, "nn_oneway", chamfer._nn_oneway_reference)
+        x, y = (torch.from_numpy(a).to(cuda).requires_grad_(True) for a in (x_np, y_np))
+        before = LAUNCHES["_nn_oneway_pallas"]
+        loss = chamfer_distance_loss(x, y)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert LAUNCHES["_nn_oneway_pallas"] - before == (0 if plain else 2)
+        runs.append((loss.item(), x.grad, y.grad))
+    (lk, gxk, gyk), (lp, gxp, gyp) = runs
+    assert lk == lp
+    for g, r in ((gxk, gxp), (gyk, gyp)):
+        assert (g - r).abs().max().item() <= 1e-6 * r.abs().max().item()
+
+
+def emd_close(got, want):
+    """K13 against its plain version: the cost to rtol 1e-4, g1 and g2 to a
+    mean relative error below 5% (the JAX package's own bound for its kernel
+    against _emd_fwd_impl): ratioL = remainL / (K remainR + 1e-9) divides by
+    sums that vanish at the sharpest levels, so a sum in another order can
+    move one point's gradient a lot while the cost barely moves."""
+    (c, g1, g2), (wc, wg1, wg2) = got, want
+    assert bool(torch.isfinite(c).all() and torch.isfinite(g1).all() and torch.isfinite(g2).all())
+    assert ((c - wc).abs() <= 1e-4 * wc.abs()).all(), ((c - wc).abs() / wc.abs()).max().item()
+    for g, w in ((g1, wg1), (g2, wg2)):
+        assert g.shape == w.shape
+        assert ((g - w).abs().mean() / w.abs().mean()).item() < 0.05
+
+
+# PCN's coarse EMD (B=32, N=M=1024); N > M and N < M (the multipliers);
+# the gate's limit, 4096 points
+@pytest.mark.parametrize("case,batch,n,m", [
+    ("pcn", 32, 1024, 1024), ("n_gt_m", 3, 1000, 300), ("n_lt_m", 2, 250, 1000), ("max", 1, 4096, 4096)])
+def test_k13_matches_plain(cuda, case, batch, n, m):
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.emd import _emd_fwd_reference, emd_fwd
+
+    rng = np.random.default_rng(n * 7 + m)
+    x, y = (torch.from_numpy(rng.normal(size=(batch, k, 3)).astype(np.float32)).to(cuda) for k in (n, m))
+    before = LAUNCHES["_emd_fwd_pallas"]
+    got = emd_fwd(x, y)
+    want = _emd_fwd_reference(x, y)
+    torch.cuda.synchronize()
+    assert LAUNCHES["_emd_fwd_pallas"] == before + 1
+    emd_close(got, want)
+
+
+def test_k13_gate(cuda):
+    """Past the JAX package's gate (N or M > 4096) the plain version runs on
+    the card, as the JAX package runs _emd_fwd_impl on its accelerator; the
+    kernel's own entry raises there."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.emd import emd_fwd, emd_kernel
+
+    x = torch.zeros(1, 4097, 3, device=cuda)
+    y = torch.ones(1, 8, 3, device=cuda)
+    before = LAUNCHES["_emd_fwd_pallas"]
+    cost, g1, g2 = emd_fwd(x, y)
+    assert LAUNCHES["_emd_fwd_pallas"] == before and bool(torch.isfinite(cost).all())
+    with pytest.raises(NotImplementedError, match="4096"):
+        emd_kernel(x, y)
+
+
+def test_emd_loss_gradient_on_card(cuda):
+    """emd_loss_mean's backward is the saved g1, g2 scaled by the cost's
+    cotangent (mean / N): against the plain version's."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.emd import _emd_fwd_reference
+    from learning3d_tpu_torch.losses import emd_loss_mean
+
+    rng = np.random.default_rng(13)
+    x, y = (torch.from_numpy(rng.normal(size=(4, 512, 3)).astype(np.float32)).to(cuda).requires_grad_(True)
+            for _ in range(2))
+    before = LAUNCHES["_emd_fwd_pallas"]
+    loss = emd_loss_mean(x, y)
+    loss.backward()
+    assert LAUNCHES["_emd_fwd_pallas"] == before + 1
+    cost, g1, g2 = _emd_fwd_reference(x.detach(), y.detach())
+    assert abs(loss.item() - (cost.mean() / 512).item()) <= 1e-4 * abs(loss.item())
+    emd_close((cost, x.grad * 4 * 512, y.grad * 4 * 512), (cost, g1, g2))
+
+
+def ipcrnet_bf16(cuda, seed=0):
+    from learning3d_tpu_torch.models import PointNet, iPCRNet
+
+    g = torch.Generator().manual_seed(seed)
+    bf16 = torch.bfloat16
+    return iPCRNet(PointNet(emb_dims=1024, dtype=bf16, generator=g, device=cuda), dtype=bf16, generator=g,
+                   device=cuda).eval()
+
+
+def test_ipcrnet_bf16_and_multistart_on_card(cuda):
+    """bf16 iPCRNet(PointNet(1024)) in eval: one forward runs K1 nine times
+    (the template, then the source in each of 8 iterations); multistart with
+    8 starts one forward at batch 8 B (K1 nine times) and K12 twice. Finite
+    outputs, est_R rotations to the bf16 rounding of its 8 steps
+    (chip_smoke's bf16_rotation_tol), and chip_smoke's gates against the
+    plain versions (ipcrnet_agreement: K12's rescoring bit-equal; one step
+    within IPCRNET_TOL, with its reason)."""
+    import chip_smoke
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.serve import multistart_register, multistart_scores, rotation_starts
+
+    model = ipcrnet_bf16(cuda)
+    rng = np.random.default_rng(21)
+    template, source = (torch.from_numpy(rng.normal(size=(4, 1024, 3)).astype(np.float32)).to(cuda) for _ in range(2))
+    with torch.inference_mode():
+        before = dict(LAUNCHES)
+        out = model(template, source)
+        assert LAUNCHES["pointnet_pooled_kernel"] - before["pointnet_pooled_kernel"] == 9
+        ms = multistart_register(model, template, source, rotation_starts(8))
+        torch.cuda.synchronize()
+        assert LAUNCHES["pointnet_pooled_kernel"] - before["pointnet_pooled_kernel"] == 18
+        assert LAUNCHES["_nn_oneway_pallas"] - before["_nn_oneway_pallas"] == 2
+        scores = multistart_scores(model, template, source, rotation_starts(8))[1]
+        assert torch.equal(scores.min(0).values, ms["chamfer"]) and torch.equal(scores.argmin(0), ms["start_idx"])
+        agree = chip_smoke.ipcrnet_agreement(model, template, source, rotation_starts(8), "card test")
+    assert agree["rescored_bit_equal"]
+    assert all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+    assert chip_smoke.rotation_error(out["est_R"].cpu()) <= chip_smoke.bf16_rotation_tol(8)

@@ -21,7 +21,8 @@ def port_files(*suffixes):
     if ".py" in suffixes:
         files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_serve.py",
                   ROOT / "tools" / "sweep_torch_kernels.py", ROOT / "tools" / "time_kernel_build.py",
-                  ROOT / "tools" / "profile_torch_train.py", ROOT / "tools" / "torch_dcp_step_gaps.py"]
+                  ROOT / "tools" / "profile_torch_train.py", ROOT / "tools" / "torch_dcp_step_gaps.py",
+                  ROOT / "tools" / "torch_cls_step_gaps.py"]
     return files
 
 
@@ -69,7 +70,7 @@ def test_no_torch_extension_build_and_no_releases():
 
 def test_entry_points_default_to_cuda():
     from learning3d_tpu_torch import DEFAULT_DEVICE, resolve_device
-    from learning3d_tpu_torch.models import DCP, DGCNN, Classifier, PointNet
+    from learning3d_tpu_torch.models import DCP, DGCNN, PCN, Classifier, PointNet, iPCRNet
     from learning3d_tpu_torch.serve import InferenceEngine
     from learning3d_tpu_torch.utils.jax_import import load_quant_pointnet
     from learning3d_tpu_torch.train import Trainer
@@ -81,7 +82,7 @@ def test_entry_points_default_to_cuda():
     assert DEFAULT_DEVICE == "cuda"
     for entry in (PointNet, Classifier, DGCNN, DCP, Transformer, MultiHeadedAttention, FeedForward,
                   AnnotatedLayerNorm, InferenceEngine, MLP1d, BatchNorm, Linear, resolve_device,
-                  load_quant_pointnet, Trainer, Dropout):
+                  load_quant_pointnet, Trainer, Dropout, iPCRNet, PCN):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 
@@ -94,11 +95,13 @@ def test_training_subpackages_are_covered():
 
     names = {m.name for m in pkgutil.walk_packages(learning3d_tpu_torch.__path__, "learning3d_tpu_torch.")}
     for sub in ("train", "train.trainer", "train.tasks", "train.config", "train.metrics", "data", "data.dataloaders",
-                "data.device_pipeline", "losses", "losses.losses", "kernels.poolgrad", "kernels.edgeconv"):
+                "data.device_pipeline", "losses", "losses.losses", "kernels.poolgrad", "kernels.edgeconv",
+                "kernels.chamfer", "kernels.emd", "models.pcrnet", "models.pcn", "ops.quaternion"):
         assert f"learning3d_tpu_torch.{sub}" in names
     files = {p.relative_to(PORT).as_posix() for p in port_files(".py", ".cu") if PORT in p.parents}
     for f in ("train/trainer.py", "train/metrics.py", "data/dataloaders.py", "losses/losses.py",
-              "kernels/csrc/poolgrad.cu", "kernels/edgeconv.py", "kernels/csrc/edgeconv.cu"):
+              "kernels/csrc/poolgrad.cu", "kernels/edgeconv.py", "kernels/csrc/edgeconv.cu",
+              "kernels/chamfer.py", "kernels/csrc/chamfer.cu", "kernels/emd.py", "kernels/csrc/emd.cu"):
         assert f in files
 
 

@@ -98,3 +98,34 @@ def assert_tie_flip_profile(got, want, steps=3e-2):
     diff = np.abs(got - want)
     assert (diff > 1e-5 * scale).mean() < 0.01, (diff > 1e-5 * scale).mean()
     assert diff.max() <= steps * scale, diff.max() / scale
+
+
+def keep_grads():
+    """An optax transformation that passes the updates on and keeps them in
+    its state: chained before Adam, the JAX Trainer's step hands over its
+    gradients (after the guard) beside the updated parameters."""
+    import jax
+    import optax
+
+    return optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p), lambda u, s, p=None: (u, u))
+
+
+def check_adam_first_step(model, before, grads, jax_grads, jax_after, lr):
+    """The parameters after one Adam step from zero moments, whose update is
+    -lr g / (|g| + eps): each held to ``before`` + that update of the port's
+    own gradient (to f32 rounding), and to the JAX step's parameters where
+    both updates are -lr sign(g) to 1e-2 of lr (the gradients share a sign
+    and lie well above eps) or 0 (both gradients 0: a weight behind a ReLU
+    that no point passes, or off every max), which must be at least 90% of
+    each tensor."""
+    for name, p in model.named_parameters():
+        g = torch.from_numpy(grads[name])
+        scale = before[name].abs().max().item()
+        torch.testing.assert_close(p.detach(), before[name] - lr * g / (g.abs() + 1e-8), rtol=0,
+                                   atol=1e-6 * lr + 2e-7 * scale)
+        g_j = jax_grads[name]
+        firm = ((np.sign(grads[name]) == np.sign(g_j)) & (np.minimum(np.abs(grads[name]), np.abs(g_j)) >= 1e-6)) | (
+            (grads[name] == 0) & (g_j == 0))
+        assert firm.mean() >= 0.9, name
+        np.testing.assert_allclose(p.detach().numpy()[firm], jax_after[name][firm], rtol=0,
+                                   atol=1e-2 * lr + 2e-7 * scale, err_msg=name)

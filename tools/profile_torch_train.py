@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's training step goes, on one card.
 
-    python3 tools/profile_torch_train.py [--model pointnet|dcp] [--dtype bf16|f32] [--steps 10]
+    python3 tools/profile_torch_train.py [--model pointnet|dcp|ipcrnet|pcn] [--detailed] [--dtype bf16|f32]
+                                         [--steps 10]
 
 ``--model pointnet`` (the default) is bench.py's training configuration:
 Classifier(PointNet(emb_dims=1024, use_bn=True)), 40 classes, B=256 clouds
@@ -9,9 +10,17 @@ of N=1024 points, Adam at 1e-3 with on-device augmentation, in bf16 unless
 ``--dtype f32``. ``--model dcp`` is examples/train.py's DCP configuration:
 DCP(DGCNN(emb_dims=512, k=20)) with the transformer pointer and the SVD
 head, B=32 pairs of N=1024 points from RegistrationData("DCP",
-SyntheticModelNet40), Adam at 1e-3, in f32 unless ``--dtype bf16``. Both
-run through learning3d_tpu_torch's Trainer (its train_step on one device
-batch), with the numpy-seeded weights of chip_smoke.py. After a few warm-up
+SyntheticModelNet40), Adam at 1e-3, in f32 unless ``--dtype bf16``.
+``--model ipcrnet`` is examples/train.py's iPCRNet configuration:
+iPCRNet(PointNet(emb_dims=1024, use_bn=False)), 8 refinement steps, B=20
+pairs (examples/train_pcrnet.py) of N=1024 points from
+RegistrationData("iPCRNet", SyntheticModelNet40), the Chamfer loss (K12),
+in f32. ``--model pcn`` is PCN(emb_dims=1024, num_coarse=1024) on B=32
+clouds of N=1024 points, the Chamfer loss on the coarse output, in f32;
+``--detailed`` adds the folding decoder (16,384 fine points) and its
+Chamfer term. All run through learning3d_tpu_torch's Trainer (its
+train_step on one device batch), with the numpy-seeded weights of
+chip_smoke.py. After a few warm-up
 steps, ``--steps`` steps run under torch.profiler. Prints one JSON line:
 host wall time per step, device time per step by kernel (largest first),
 the device's idle share (1 - device busy time / wall time) and the launches
@@ -36,17 +45,19 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", choices=("pointnet", "dcp"), default="pointnet")
+    parser.add_argument("--model", choices=("pointnet", "dcp", "ipcrnet", "pcn"), default="pointnet")
+    parser.add_argument("--detailed", action="store_true", help="pcn: with the folding decoder")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default=None,
-                        help="bf16 for pointnet and f32 for dcp unless given")
+                        help="bf16 for pointnet and f32 for the others unless given")
     parser.add_argument("--steps", type=int, default=10)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA card")
     sys.path.insert(0, str(ROOT))
     import chip_smoke
-    from learning3d_tpu_torch.data import RegistrationData, SyntheticModelNet40, batch_iterator, to_device
-    from learning3d_tpu_torch.models import DCP, DGCNN, Classifier, PointNet
+    from learning3d_tpu_torch.data import (ClassificationData, RegistrationData, SyntheticModelNet40, batch_iterator,
+                                           to_device)
+    from learning3d_tpu_torch.models import DCP, DGCNN, PCN, Classifier, PointNet, iPCRNet
     from learning3d_tpu_torch.train import TrainConfig, Trainer
     from learning3d_tpu_torch.utils.jax_import import load_nnx_state
 
@@ -63,6 +74,21 @@ def main() -> None:
         batch = (torch.from_numpy(rng.normal(size=(B, N, 3)).astype(np.float32)).cuda(),
                  torch.from_numpy(rng.integers(0, chip_smoke.CLASSES, B)).cuda())
         cfg = dict(task="classification", augment=True)
+    elif args.model == "ipcrnet":
+        B, N, unit = chip_smoke.IPC_TRAIN_B, chip_smoke.IPC_N, "pairs"
+        model = iPCRNet(PointNet(emb_dims=chip_smoke.IPC_EMB, dtype=dtype), dtype=dtype)
+        load_nnx_state(model, chip_smoke.random_ipcrnet_state(rng))
+        data = RegistrationData("iPCRNet", SyntheticModelNet40(num_points=N, size=B))
+        batch = to_device(next(batch_iterator(data, B, shuffle=False)), "cuda")
+        cfg = dict(task="ipcrnet")
+    elif args.model == "pcn":
+        B, N, unit = chip_smoke.PCN_B, chip_smoke.PCN_N, "clouds"
+        model = PCN(emb_dims=chip_smoke.PCN_EMB, num_coarse=chip_smoke.PCN_COARSE, detailed_output=args.detailed,
+                    dtype=dtype)
+        load_nnx_state(model, chip_smoke.random_pcn_state(rng, detailed=args.detailed))
+        data = ClassificationData(SyntheticModelNet40(num_points=N, size=B))
+        batch = to_device(next(batch_iterator(data, B, shuffle=False)), "cuda")
+        cfg = dict(task="pcn")
     else:
         B, N, unit = chip_smoke.DCP_B, chip_smoke.DCP_N, "pairs"
         model = DCP(DGCNN(emb_dims=chip_smoke.DCP_EMB, k=chip_smoke.DCP_K, dtype=dtype), dtype=dtype)
@@ -100,7 +126,8 @@ def main() -> None:
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "model": args.model, "dtype": dtype_name, "steps": args.steps, "batch": B, "points": N,
+        "model": args.model + ("-detailed" if args.detailed else ""), "dtype": dtype_name, "steps": args.steps,
+        "batch": B, "points": N,
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
