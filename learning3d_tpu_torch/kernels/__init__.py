@@ -20,6 +20,7 @@ LAUNCHES: dict[str, int] = {
     "knn_neighbors_pallas": 0,
     "_nn_oneway_pallas": 0,
     "_emd_fwd_pallas": 0,
+    "knn_pallas": 0,
 }
 
 

@@ -2,7 +2,8 @@
 ``learning3d_tpu/models/dcp.py``: a shared encoder on both clouds, the
 co-attention Transformer pointer (or identity) and the SVD head, returning
 the result dict (est_R, est_t, est_R_, est_t_, est_T, r,
-transformed_source). The MLP head is not ported yet.
+transformed_source). ``head="mlp"`` is the pooled-embedding pose regressor
+``MLPHead`` in place of the SVD head.
 
 In bf16 eval on the card a forward runs K5 twice (the template's and the
 source's encoder) and K6 seven times (six in the pointer, one in the head);
@@ -16,10 +17,35 @@ import torch
 from torch import nn
 
 from learning3d_tpu_torch import DEFAULT_DEVICE
+from learning3d_tpu_torch.ops import quaternion as quat
 from learning3d_tpu_torch.ops import se3, transforms
-from learning3d_tpu_torch.utils.layers import to_bnc, validate_input_shape
+from learning3d_tpu_torch.utils.layers import BatchNorm, Linear, to_bnc, validate_input_shape
 from learning3d_tpu_torch.utils.svd import SVDHead
 from learning3d_tpu_torch.utils.transformer import Identity, Transformer
+
+
+class MLPHead(nn.Module):
+    """Pose regression from the pooled embeddings: max over the points of
+    concat(src_emb, tgt_emb) (B, 2E), three Linear + BatchNorm + ReLU layers
+    (E / 2, E / 4, E / 8), then a unit quaternion (-> R) and a translation.
+    Returns (R, t, None), the SVD head's contract without correspondences."""
+
+    def __init__(self, emb_dims: int, *, dtype=None, generator=None, device=DEFAULT_DEVICE):
+        super().__init__()
+        self.emb_dims = emb_dims
+        dims = [emb_dims * 2, emb_dims // 2, emb_dims // 4, emb_dims // 8]
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        self.layers = nn.ModuleList(Linear(i, o, **kw) for i, o in zip(dims[:-1], dims[1:]))
+        self.bns = nn.ModuleList(BatchNorm(o, dtype=dtype, device=device) for o in dims[1:])
+        self.proj_rot = Linear(emb_dims // 8, 4, **kw)
+        self.proj_trans = Linear(emb_dims // 8, 3, **kw)
+
+    def forward(self, src_emb, tgt_emb, src, tgt):
+        x = torch.amax(torch.cat([src_emb, tgt_emb], dim=-1), dim=1)  # (B, 2E)
+        for lin, bn in zip(self.layers, self.bns):
+            x = torch.relu(bn(lin(x)))
+        q = quat.qnormalize(self.proj_rot(x))
+        return quat.quat2mat(q), self.proj_trans(x), None
 
 
 class DCP(nn.Module):
@@ -38,10 +64,11 @@ class DCP(nn.Module):
         else:
             raise ValueError(pointer_)
         if head == "mlp":
-            raise NotImplementedError("DCP's MLP head (and ops/quaternion) is not ported yet")
-        if head != "svd":
+            self.head = MLPHead(feature_model.emb_dims, dtype=dtype, generator=generator, device=device)
+        elif head == "svd":
+            self.head = SVDHead(feature_model.emb_dims)
+        else:
             raise ValueError(head)
-        self.head = SVDHead(feature_model.emb_dims)
 
     def forward(self, template, source):
         """template/source (B, N, 3) -> result dict; est_* maps source -> template."""

@@ -10,10 +10,12 @@ Inputs of any leading size are split into full ``batch_size`` chunks; the
 tail chunk is zero-padded to ``batch_size``, so the model always sees the
 same shape, and the padding is stripped from the output. Each chunk makes
 one host-to-device copy per input and one device-to-host copy per output
-(per key of a dict result), under ``torch.inference_mode()``. A bf16
-output comes back as float32 numpy (numpy has no bf16). A dict result
-stays a dict, each key concatenated across chunks; ``output_key`` picks one
-key.
+(per tensor of the result), under ``torch.inference_mode()``. A bf16
+output comes back as float32 numpy (numpy has no bf16). The result may be
+a tensor or tuples, lists and dicts of them, nested as a JAX pytree: the
+slicing, the copy and the concatenation across chunks map over its
+tensors, and every container keeps its type (a tuple stays a tuple, a dict
+a dict; a None stays None); ``output_key`` picks one key of a dict.
 
     reg = TemplateRegistrar(dcp, template, batch_size=32)
     result = reg(sources)       # numpy (n, N, 3), any n -> dict
@@ -47,6 +49,33 @@ def _to_numpy(t: torch.Tensor, rows: int) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``, trees of the same structure): tuples, lists and dicts are
+    walked and rebuilt with their own type, None is kept, anything else is a
+    leaf. The JAX engine's ``jax.tree.map`` on a model's output."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return type(tree)((key, _tree_map(fn, val, *(r[key] for r in rest))) for key, val in tree.items())
+    if isinstance(tree, (tuple, list)):
+        items = [_tree_map(fn, val, *(r[i] for r in rest)) for i, val in enumerate(tree)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    return fn(tree, *rest)
+
+
+def _host_rows(out, rows: int):
+    """The first ``rows`` rows of every tensor of a model's output, as numpy."""
+    return _tree_map(lambda t: _to_numpy(t, rows), out)
+
+
+def _concat(pieces):
+    """The per-chunk results joined along the batch axis, leaf by leaf."""
+    if len(pieces) == 1:
+        return pieces[0]
+    return _tree_map(lambda *xs: np.concatenate(xs, axis=0), *pieces)
+
+
 class InferenceEngine:
     def __init__(self, model: torch.nn.Module, batch_size: int = 256, *, output_key: str | None = None,
                  device=DEFAULT_DEVICE):
@@ -56,9 +85,10 @@ class InferenceEngine:
         self.output_key = output_key
 
     def __call__(self, *inputs):
-        """inputs: numpy arrays with a shared leading dimension n. Returns a
-        numpy array with leading dimension n, or a dict of them for a model
-        that returns a dict (one array if ``output_key`` is set)."""
+        """inputs: numpy arrays with a shared leading dimension n. Returns
+        the model's output with every tensor a numpy array of leading
+        dimension n, in the output's own containers (one array of a dict if
+        ``output_key`` is set)."""
         inputs = [np.ascontiguousarray(a) for a in inputs]
         n = inputs[0].shape[0]
         if any(a.shape[0] != n for a in inputs):
@@ -72,15 +102,11 @@ class InferenceEngine:
                 if got < bs:  # pad the tail to keep the batch shape
                     chunk = [np.concatenate([c, np.zeros((bs - got,) + c.shape[1:], c.dtype)]) for c in chunk]
                 args = [torch.from_numpy(c).to(self.device) for c in chunk]
-                out = self.model(*args)
-                if isinstance(out, dict):
-                    pieces.append({key: _to_numpy(val, got) for key, val in out.items()})
-                else:
-                    pieces.append(_to_numpy(out, got))
-        if isinstance(pieces[0], dict):
-            out = {key: np.concatenate([p[key] for p in pieces], axis=0) for key in pieces[0]}
-            return out if self.output_key is None else out[self.output_key]
-        return pieces[0] if len(pieces) == 1 else np.concatenate(pieces, axis=0)
+                pieces.append(_host_rows(self.model(*args), got))
+        out = _concat(pieces)
+        if self.output_key is not None and isinstance(out, dict):
+            return out[self.output_key]
+        return out
 
 
 class TemplateRegistrar:
@@ -121,8 +147,8 @@ class TemplateRegistrar:
                 src = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
                 out = self.model.register_encoded(self._template.expand(bs, -1, -1), self._temb.expand(bs, -1, -1),
                                                   src)
-                pieces.append({key: _to_numpy(val, got) for key, val in out.items()})
-        return {key: np.concatenate([p[key] for p in pieces], axis=0) for key in pieces[0]}
+                pieces.append(_host_rows(out, got))
+        return _concat(pieces)
 
 
 def rotation_starts(n_starts: int = 8) -> torch.Tensor:

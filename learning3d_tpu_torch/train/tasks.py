@@ -2,7 +2,7 @@
 Every loss_fn has the signature ``loss_fn(model, batch, generator) ->
 (loss, aux_dict)``; ``generator`` is the Trainer's ``torch.Generator`` on
 the training device, for tasks that draw random numbers. Ported so far:
-classification, DCP, iPCRNet and PCN."""
+classification, DCP, PRNet, iPCRNet and PCN."""
 
 from __future__ import annotations
 
@@ -64,6 +64,15 @@ def dcp(model, batch, generator=None):
     return loss, registration_errors(out["est_T"], igt)
 
 
+def prnet(model, batch, generator=None):
+    """PRNet's own discounted loss from its forward (given the ground truth,
+    igt^-1: igt maps template -> source, PRNet estimates source ->
+    template), with the registration metrics."""
+    template, source, igt = batch
+    out = model(source, template, igt=torch.linalg.inv(igt))
+    return out["loss"], registration_errors(out["est_T"], igt)
+
+
 def pcn(model, batch, generator=None):
     """Chamfer(points, coarse_output), the reference's train_pcn loss; with
     the folding decoder (PCN(detailed_output=True)) the fine stage's Chamfer
@@ -81,4 +90,4 @@ def pcn(model, batch, generator=None):
     return loss, aux
 
 
-TASKS = {"classification": classification, "ipcrnet": ipcrnet, "dcp": dcp, "pcn": pcn}
+TASKS = {"classification": classification, "ipcrnet": ipcrnet, "dcp": dcp, "prnet": prnet, "pcn": pcn}

@@ -11,11 +11,15 @@ Mapping (the port keeps torch's orientation for Linear):
               bias              -> bias
     BatchNorm scale / bias      -> weight / bias
               mean / var        -> running_mean / running_var
-Entries under ``rngs`` (dropout keys and counters) are skipped. Every
-ported model crosses this way (PointNet, the classifier, DGCNN, DCP,
-iPCRNet, PCN); PCN's conv5 keeps one (emb + 5, 512) kernel, which the
-folding decoder splits by linearity in its forward, as the JAX package
-does.
+    Param     any other leaf    -> the parameter of the same path
+Entries under ``rngs`` (dropout keys and counters, PRNet's head's Gumbel
+stream) are skipped. Every ported model crosses this way (PointNet, the
+classifier, DGCNN, DCP with either head, PRNet, iPCRNet, PCN): the port's
+modules carry the JAX modules' attribute names. PCN's conv5 keeps one
+(emb + 5, 512) kernel, which the folding decoder splits by linearity in its
+forward, and PRDGCNN's edge convs one (2C, Co) kernel, which its forward
+splits into the neighbor and the center term, as the JAX package does;
+PRNet's head carries its unused ``temperature`` (1,).
 
 Quantized state crosses as well, as numpy: ``load_quant_pointnet`` takes the
 arrays of a JAX ``QuantPointNetClassifier`` pytree, ``load_quant_dcp`` the

@@ -844,3 +844,123 @@ def test_ipcrnet_bf16_and_multistart_on_card(cuda):
     assert agree["rescored_bit_equal"]
     assert all(bool(torch.isfinite(v.float()).all()) for v in out.values())
     assert chip_smoke.rotation_error(out["est_R"].cpu()) <= chip_smoke.bf16_rotation_tol(8)
+
+
+def k8_case(name, rng):
+    """(queries, points, k) of a K8 card case, as numpy."""
+    def normal(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    if name == "xyz":
+        x = normal(2, 1024, 3)
+        return x, x, 20
+    if name == "features":
+        x = normal(2, 768, 128)
+        return x, x, 20
+    if name == "cross_cloud":
+        return normal(2, 300, 3), normal(2, 2048, 3), 16
+    if name == "ragged":
+        return normal(2, 777, 67), normal(2, 1000, 67), 20
+    if name == "wide":
+        return normal(1, 100, 256), normal(1, 600, 256), 64
+    if name == "ties":
+        side = 10
+        grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        x = np.stack([0.25 * grid[rng.permutation(len(grid))] for _ in range(2)]).astype(np.float32)
+        return x, x, 27
+    # near-duplicate features of large norm: some distances below 0
+    base = 100.0 + normal(2, 300, 24)
+    x = np.concatenate([base, base + 1e-4 * normal(2, 300, 24)], axis=1)
+    return x, x, 8
+
+
+@pytest.mark.parametrize("name", ["xyz", "features", "cross_cloud", "ragged", "wide", "ties", "negative"])
+def test_k8_matches_plain(cuda, name):
+    """K8 against its plain version on the card: indices equal and distances
+    bit-equal (the same f32 operations, each rounded on its own), one
+    launch; the negative case holds distances below 0, sorted first."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.knn import knn_pallas, knn_reference
+
+    q, p, k = (torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+               for a in k8_case(name, np.random.default_rng(len(name))))
+    before = LAUNCHES["knn_pallas"]
+    d, i = knn_pallas(q, p, k)
+    want_d, want_i = knn_reference(q, p, k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["knn_pallas"] == before + 1
+    assert d.dtype == torch.float32 and i.dtype == torch.int32 and d.shape == (q.shape[0], q.shape[1], k)
+    assert torch.equal(i, want_i)
+    assert torch.equal(d, want_d)
+    if name == "negative":
+        assert bool((d < 0).any())
+
+
+def test_k8_refuses_what_it_does_not_take(cuda):
+    from learning3d_tpu_torch.kernels.knn import knn_pallas
+
+    x = torch.zeros((1, 600, 3), device=cuda)
+    with pytest.raises(NotImplementedError, match="k <= 64"):
+        knn_pallas(x, x, 65)
+    w = torch.zeros((1, 600, 257), device=cuda)
+    with pytest.raises(NotImplementedError, match="C <= 256"):
+        knn_pallas(w, w, 4)
+    with pytest.raises(ValueError, match="k must be"):
+        knn_pallas(x[:, :8], x[:, :8], 9)
+
+
+def test_geometry_knn_launches_k8_inside_the_gate(cuda):
+    """ops.geometry.knn and knn_point launch K8 where the JAX package's gate
+    sends an exact call to its kernel (N >= 512, C <= 256, k <= 64), with
+    the kernel's selection, and for approx=True as well (the port selects
+    exactly); below N = 512 they take the plain path."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.knn import knn_reference
+    from learning3d_tpu_torch.ops.geometry import knn, knn_point
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, 512, 64)).astype(np.float32)).to(cuda).requires_grad_(True)
+    y = torch.from_numpy(rng.normal(size=(2, 100, 64)).astype(np.float32)).to(cuda)
+    before = LAUNCHES["knn_pallas"]
+    idx = knn(x, 20, include_self=False)
+    d, i = knn_point(8, x, y)
+    assert LAUNCHES["knn_pallas"] == before + 2
+    assert idx.dtype == i.dtype == torch.int64
+    assert torch.equal(idx, knn_reference(x, x, 21)[1][..., 1:].long())
+    want_d, want_i = knn_reference(y, x, 8)
+    assert torch.equal(i, want_i.long()) and torch.equal(d, torch.sqrt(torch.clamp(want_d, min=0.0)))
+    knn(x[:, :511], 20)
+    assert LAUNCHES["knn_pallas"] == before + 2
+    assert torch.equal(knn(x, 20, include_self=False, approx=True), idx)
+    assert torch.equal(knn_point(8, x, y, approx=True)[1], i)
+    assert LAUNCHES["knn_pallas"] == before + 4
+
+
+def test_prnet_runs_k8_on_card(cuda, monkeypatch):
+    """PRNet (emb 64, so the pointer stays off K6's gate) at N >= 512 in
+    train and eval mode: 16 K8 launches a forward (4 stages x (the template
+    + 3 source passes)); with K8's plain version in its place every output
+    is bit-equal (the same neighbors, then the same torch ops)."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels import knn as knn_mod
+    from learning3d_tpu_torch.models import PRNet
+
+    rng = np.random.default_rng(6)
+    torch.manual_seed(0)
+    model = PRNet(emb_dims=64, num_keypoints=256, num_subsampled_points=600, generator=torch.Generator().manual_seed(1))
+    source = torch.from_numpy(rng.normal(size=(2, 600, 3)).astype(np.float32)).to(cuda)
+    template = torch.from_numpy(rng.normal(size=(2, 700, 3)).astype(np.float32)).to(cuda)
+    igt = torch.eye(4, device=cuda).expand(2, 4, 4)
+    for mode in ("train", "eval"):
+        getattr(model, mode)()
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        before = LAUNCHES["knn_pallas"]
+        got = model(source, template, igt=igt)
+        torch.cuda.synchronize()
+        assert LAUNCHES["knn_pallas"] == before + 16
+        model.load_state_dict(state)  # the same BN statistics for the plain run
+        with monkeypatch.context() as m:
+            m.setattr(knn_mod, "knn_pallas", knn_mod.knn_reference)
+            want = model(source, template, igt=igt)
+        for key in want:
+            assert torch.equal(got[key], want[key]), key

@@ -19,6 +19,7 @@ from learning3d_tpu.utils import svd as jsvd
 from learning3d_tpu.utils import svd3 as jsvd3
 from learning3d_tpu_torch.kernels import attention as tattn
 from learning3d_tpu_torch.models import DCP, DGCNN
+from learning3d_tpu_torch.models.dcp import MLPHead
 from learning3d_tpu_torch.ops import se3 as tse3
 from learning3d_tpu_torch.ops import transforms as ttransforms
 from learning3d_tpu_torch.serve import InferenceEngine
@@ -163,8 +164,9 @@ def test_dcp_at_the_kernel_gate_matches_jax(monkeypatch):
 
 
 def test_dcp_options():
-    with pytest.raises(NotImplementedError):
-        DCP(DGCNN(emb_dims=EMB, k=K, device="cpu"), head="mlp", device="cpu")
+    assert isinstance(DCP(DGCNN(emb_dims=EMB, k=K, device="cpu"), head="mlp", device="cpu").head, MLPHead)
+    with pytest.raises(ValueError):
+        DCP(DGCNN(emb_dims=EMB, k=K, device="cpu"), head="linear", device="cpu")
     with pytest.raises(ValueError):
         DCP(DGCNN(emb_dims=EMB, k=K, device="cpu"), pointer_="lstm", device="cpu")
     tm = DCP(DGCNN(emb_dims=EMB, k=K, device="cpu"), pointer_="identity", device="cpu").eval()
@@ -222,3 +224,29 @@ def test_inference_engine_dict_results(n):
         np.testing.assert_array_equal(out[key], want[key].float().numpy())
     est_r = InferenceEngine(tm, batch_size=2, output_key="est_R", device="cpu")(template, source)
     np.testing.assert_array_equal(est_r, out["est_R"])
+
+
+@pytest.mark.parametrize("mode", ["eval", "train"])
+def test_dcp_mlp_head_matches_jax(mode):
+    """DCP(head="mlp") in f32 against the JAX model with its weights and BN
+    statistics carried across (some BN scales negative): every output to
+    1e-4 of its largest value (f32 sums in other orders; in train mode the
+    head's BatchNorm takes its statistics over the 4 pooled rows), and in
+    train mode the head's running statistics after the forward."""
+    jm = JDCP(JDGCNN(emb_dims=EMB, k=K, rngs=nnx.Rngs(3)), head="mlp", rngs=nnx.Rngs(4))
+    randomize_bn(jm, np.random.default_rng(3))
+    tm = load_nnx_state(DCP(DGCNN(emb_dims=EMB, k=K, device="cpu"), head="mlp", device="cpu"), nnx_flat(jm))
+    getattr(jm, mode)()
+    getattr(tm, mode)()
+    template, source = cloud(4, 48, seed=30), cloud(4, 48, seed=31)
+    want = jm(jnp.asarray(template), jnp.asarray(source))
+    got = tm(torch.from_numpy(template), torch.from_numpy(source))
+    for key in KEYS:
+        assert rel_err(got[key], want[key]) <= 1e-4, key
+    R = got["est_R"].detach().numpy()
+    np.testing.assert_allclose(R @ np.swapaxes(R, -1, -2), np.broadcast_to(np.eye(3), R.shape), atol=1e-5)
+    if mode == "train":
+        after = nnx_to_torch(nnx_flat(jm))
+        for name, buf in tm.named_buffers():
+            if name.startswith("head."):
+                np.testing.assert_allclose(buf.numpy(), after[name], rtol=1e-5, atol=1e-6, err_msg=name)

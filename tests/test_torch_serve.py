@@ -7,6 +7,7 @@ head summing in other orders: 1e-4 of each key's largest value (2e-3 for the
 rotation-derived keys, whose 3x3 SVD amplifies the features' rounding).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ from flax import nnx
 
 from learning3d_tpu.models import DCP as JDCP
 from learning3d_tpu.models import DGCNN as JDGCNN
+from learning3d_tpu.serve import InferenceEngine as JInferenceEngine
 from learning3d_tpu.serve import TemplateRegistrar as JTemplateRegistrar
 from learning3d_tpu_torch import quant as tquant
 from learning3d_tpu_torch.models import DCP, DGCNN
@@ -84,3 +86,84 @@ def test_template_must_be_one_cloud(models):
     _, tm = models
     with pytest.raises(ValueError, match="one"):
         TemplateRegistrar(tm, cloud(2, NPTS), device="cpu")
+
+
+# -- outputs of any nesting (tuples, lists, dicts), against the JAX engine --
+
+class JTupleOut(nnx.Module):
+    """The reproduction of the engine fault: a tuple of two arrays."""
+
+    def __call__(self, t, s):
+        return t[..., 0] * 2, s.sum(-1)
+
+
+class TTupleOut(torch.nn.Module):
+    def forward(self, t, s):
+        return t[..., 0] * 2, s.sum(-1)
+
+
+class JNestedOut(nnx.Module):
+    def __call__(self, t, s):
+        return {"pair": (t.mean(1), [s[:, :2], None]), "sum": t.sum((1, 2))}
+
+    def encode(self, t):
+        return t * 3
+
+    def register_encoded(self, template, temb, source):
+        return ((source - template).sum(-1), {"emb": temb[:, :2], "src": [source.max(1)]})
+
+
+class TNestedOut(torch.nn.Module):
+    def forward(self, t, s):
+        return {"pair": (t.mean(1), [s[:, :2], None]), "sum": t.sum((1, 2))}
+
+    def encode(self, t):
+        return t * 3
+
+    def register_encoded(self, template, temb, source):
+        return ((source - template).sum(-1), {"emb": temb[:, :2], "src": [source.amax(1)]})
+
+
+def assert_same_tree(got, want):
+    """The same containers (type for type) and leaves equal to f32 rounding
+    (both sides sum a few f32 values, in another order)."""
+    assert type(got) is type(want), (type(got), type(want))
+    if want is None:
+        return
+    if isinstance(want, dict):
+        assert list(got) == list(want)
+        for key in want:
+            assert_same_tree(got[key], want[key])
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert_same_tree(g, w)
+    else:
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["tuple", "nested"])
+def test_engine_maps_over_nested_outputs(case):
+    """n=6 at batch_size=4 (a full chunk and a padded tail): the port's
+    engine returns the JAX engine's containers with the same arrays; the
+    tuple case raised AttributeError before the repair."""
+    jm, tm = (JTupleOut(), TTupleOut()) if case == "tuple" else (JNestedOut(), TNestedOut())
+    t, s = cloud(6, 8, seed=110), cloud(6, 8, seed=111)
+    want = JInferenceEngine(jm, batch_size=4)(t, s)
+    got = InferenceEngine(tm, batch_size=4, device="cpu")(t, s)
+    assert_same_tree(got, jax.tree.map(np.asarray, want))
+    one = InferenceEngine(tm, batch_size=8, device="cpu")(t, s)  # one padded chunk
+    assert_same_tree(one, got)
+    if case == "nested":
+        np.testing.assert_allclose(InferenceEngine(tm, batch_size=4, output_key="sum", device="cpu")(t, s),
+                                   np.asarray(want["sum"]), rtol=1e-6, atol=1e-6)
+
+
+def test_template_registrar_maps_over_nested_outputs():
+    """TemplateRegistrar on a model whose register_encoded returns a tuple
+    holding a dict and a list: 6 sources at batch_size=4, against the JAX
+    TemplateRegistrar."""
+    template, sources = cloud(1, 8, seed=112)[0], cloud(6, 8, seed=113)
+    want = JTemplateRegistrar(JNestedOut(), template, batch_size=4)(sources)
+    got = TemplateRegistrar(TNestedOut(), template, batch_size=4, device="cpu")(sources)
+    assert_same_tree(got, jax.tree.map(np.asarray, want))

@@ -2,7 +2,7 @@
 """Where the time of the port's serving goes, on one card.
 
     python3 tools/profile_torch_serve.py [--model pointnet|dcp|pointnet-int8|dcp-int8|dcp-int8-fused|
-                                          dcp-int8-hybrid-fused] [--requests 20]
+                                          dcp-int8-hybrid-fused|prnet] [--requests 20]
 
 ``pointnet``: Classifier(PointNet(emb_dims=1024, use_bn=True)), requests of
 B=256 clouds of N=1024 points. ``dcp``: DCP(DGCNN(emb_dims=512, k=20)) with
@@ -12,7 +12,10 @@ models quantized as bench.py quantizes them (the classifier on 64 clouds,
 served through K2; DCP on 8 + 8 clouds with int8 P.V and fused_layers=False,
 served through K9, K10 and K6). ``dcp-int8-fused`` and
 ``dcp-int8-hybrid-fused``: DCP quantized with fused_layers=True (int8 and
-hybrid P.V), the pointer's layers served through K11a/K11b. All in bf16 eval with the numpy-seeded
+hybrid P.V), the pointer's layers served through K11a/K11b. All in bf16
+eval. ``prnet``: PRNet() (PRDGCNN(512, k=20), the transformer pointer, 512
+keypoints, 3 iterations) in f32 eval, requests of B=32 (source, template)
+pairs of 768 and 1024 points (K8 and K6). All with the numpy-seeded
 weights of chip_smoke.py, served through learning3d_tpu_torch's
 InferenceEngine under torch.profiler. Prints one JSON line: host wall time
 per request, device time per request by kernel (largest first), the
@@ -59,6 +62,13 @@ def build(name: str, rng):
                            dtype=bf16)
         load_nnx_state(model, chip_smoke.random_nnx_state(rng, chip_smoke.EMB, chip_smoke.CLASSES))
         return model, B, [rng.normal(size=(B, N, 3)).astype(np.float32)]
+    if name == "prnet":
+        from learning3d_tpu_torch.models import PRNet
+
+        model = load_nnx_state(PRNet(), chip_smoke.random_prnet_state(rng))
+        B = chip_smoke.PRNET_B
+        return model, B, [rng.normal(size=(B, n, 3)).astype(np.float32) for n in (chip_smoke.PRNET_NS,
+                                                                                   chip_smoke.PRNET_NT)]
     B, N = chip_smoke.DCP_B, chip_smoke.DCP_N
     model = DCP(DGCNN(emb_dims=chip_smoke.DCP_EMB, k=chip_smoke.DCP_K, dtype=bf16), dtype=bf16)
     load_nnx_state(model, chip_smoke.random_dcp_state(rng, chip_smoke.DCP_EMB))
@@ -68,7 +78,7 @@ def build(name: str, rng):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=("pointnet", "dcp", "pointnet-int8", "dcp-int8", "dcp-int8-fused",
-                                            "dcp-int8-hybrid-fused"), default="pointnet")
+                                            "dcp-int8-hybrid-fused", "prnet"), default="pointnet")
     parser.add_argument("--requests", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():

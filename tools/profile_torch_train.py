@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's training step goes, on one card.
 
-    python3 tools/profile_torch_train.py [--model pointnet|dcp|ipcrnet|pcn] [--detailed] [--dtype bf16|f32]
+    python3 tools/profile_torch_train.py [--model pointnet|dcp|ipcrnet|pcn|prnet] [--detailed] [--dtype bf16|f32]
                                          [--steps 10]
 
 ``--model pointnet`` (the default) is bench.py's training configuration:
@@ -18,7 +18,11 @@ RegistrationData("iPCRNet", SyntheticModelNet40), the Chamfer loss (K12),
 in f32. ``--model pcn`` is PCN(emb_dims=1024, num_coarse=1024) on B=32
 clouds of N=1024 points, the Chamfer loss on the coarse output, in f32;
 ``--detailed`` adds the folding decoder (16,384 fine points) and its
-Chamfer term. All run through learning3d_tpu_torch's Trainer (its
+Chamfer term. ``--model prnet`` is PRNet() (PRDGCNN(512, k=20), the
+transformer pointer, 512 keypoints, 3 iterations) on B=16 pairs
+(examples/train_prnet.py) of a 768-point partial source and a 1024-point
+template from RegistrationData("PRNet", partial_source=True), its own
+discounted loss, in f32. All run through learning3d_tpu_torch's Trainer (its
 train_step on one device batch), with the numpy-seeded weights of
 chip_smoke.py. After a few warm-up
 steps, ``--steps`` steps run under torch.profiler. Prints one JSON line:
@@ -45,7 +49,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", choices=("pointnet", "dcp", "ipcrnet", "pcn"), default="pointnet")
+    parser.add_argument("--model", choices=("pointnet", "dcp", "ipcrnet", "pcn", "prnet"), default="pointnet")
     parser.add_argument("--detailed", action="store_true", help="pcn: with the folding decoder")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default=None,
                         help="bf16 for pointnet and f32 for the others unless given")
@@ -89,6 +93,14 @@ def main() -> None:
         data = ClassificationData(SyntheticModelNet40(num_points=N, size=B))
         batch = to_device(next(batch_iterator(data, B, shuffle=False)), "cuda")
         cfg = dict(task="pcn")
+    elif args.model == "prnet":
+        from learning3d_tpu_torch.models import PRNet
+
+        B, N, unit = chip_smoke.PRNET_TRAIN_B, chip_smoke.PRNET_NT, "pairs"
+        model = load_nnx_state(PRNet(dtype=dtype), chip_smoke.random_prnet_state(rng))
+        data = RegistrationData("PRNet", SyntheticModelNet40(num_points=N, size=B), partial_source=True)
+        batch = to_device(next(batch_iterator(data, B, shuffle=False)), "cuda")
+        cfg = dict(task="prnet")
     else:
         B, N, unit = chip_smoke.DCP_B, chip_smoke.DCP_N, "pairs"
         model = DCP(DGCNN(emb_dims=chip_smoke.DCP_EMB, k=chip_smoke.DCP_K, dtype=dtype), dtype=dtype)
