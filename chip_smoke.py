@@ -7,9 +7,10 @@ Drives the port's main paths at full width, bf16 and int8 (post-training
 quantized) eval serving of the PointNet-1024 classifier and of DCP
 registration (DGCNN-512, the co-attention pointer and the SVD head), bf16
 serving of iPCRNet with multi-start registration, f32 serving of PRNet
-(with multi-start registration), and training of the PointNet-1024
-classifier, DCP, iPCRNet, PCN and PRNet through the Trainer, and holds
-every CUDA kernel of those paths against its plain PyTorch version.
+(with multi-start registration) and of FlowNet3D, and training of the
+PointNet-1024 classifier, DCP, iPCRNet, PCN, PRNet and FlowNet3D through
+the Trainer, and holds every CUDA kernel of those paths against its plain
+PyTorch version.
 Phases, one JSON line each with the seconds since start:
 
 1. device: the card, and its name and power limit from nvidia-smi;
@@ -182,6 +183,33 @@ Phases, one JSON line each with the seconds since start:
    iteration against the plain versions (PRNET_STEP_TOL, with a control that
    must fail), the three-iteration step's gaps reported beside those of a
    one-ulp move of the source; a save -> load round trip; the step's parts,
+   pairs/s and peak memory;
+27. kernel_k14 (fps_pallas): against its plain version, indices equal, at
+   FlowNet3D's six calls (sa1 and sa2 on each cloud of 16 SyntheticSceneflow
+   pairs of N=2048, sa3 and sa4 on the first: 2048 -> 1024 -> 256 -> 64 ->
+   16), a ragged cloud (1000 -> 777), every point picked (1024 -> 1024), a
+   lattice with exact ties and random starts; times of the kernel, the
+   plain version and the bound at the four shapes and over a forward's six
+   launches (no PyTorch call computes FPS: ``library_ms`` null). Its data,
+   and that of the phases below, come from a generator of their own;
+28. kernel_k15 (ball_query_pallas): against its plain version, indices
+   equal, at FlowNet3D's six calls (the clouds and FPS samples of phase
+   27), a ragged one, nsample = 128, a lattice whose neighbors lie on the
+   radius and rows whose ball is empty (N everywhere); times, with
+   torch.cdist + torch.where + torch.topk as ``library_ms``, and the bound
+   from the points this run's queries read;
+29. serve_flownet: FlowNet3D() in f32 eval with numpy-seeded weights through
+   InferenceEngine(batch_size=16) on 16, 5 and 40 SyntheticSceneflow pairs
+   of N=2048: K14 6, K15 6 and K8 once a chunk, nothing else; the flow
+   finite; K8 at three_nn's shape against its plain version and timed; the
+   flow on the kernels against the plain versions within FLOW_TOL, and the
+   control k15_nearest_first outside it; pairs/s and model_ms;
+30. train_flownet: FlowNet3D() in f32, B=16, SGD (lr 1e-3, momentum 0.9) as
+   examples/train_flownet.py, through Trainer.fit on
+   FlowData(SyntheticSceneflow) for FLOW_TRAIN_STEPS steps: K14 6, K15 6 and
+   K8 once a step; the loss finite, no step skipped, weights and statistics
+   changed; one step against the plain versions (FLOW_STEP_TOL, the
+   control must fail); a save -> load round trip; the step's parts,
    pairs/s and peak memory;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``. Any
@@ -692,12 +720,13 @@ def phase_kernel_k6(rng) -> dict:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the kernel entries of the DCP, iPCRNet, PCN and PRNet paths (K5,
-    K6, K7, K9, K10, K11a/b; K1, K12, K13; K8) to the kernels' plain
-    versions (on the same card) for the reference run; restored on exit."""
+    """Route the kernel entries of the DCP, iPCRNet, PCN, PRNet and FlowNet3D
+    paths (K5, K6, K7, K9, K10, K11a/b; K1, K12, K13; K8; K14, K15) to the
+    kernels' plain versions (on the same card) for the reference run;
+    restored on exit."""
     from learning3d_tpu_torch import quant
     from learning3d_tpu_torch.kernels import attention, chamfer, dgcnn_fused, edgeconv, emd, knn, pointnet_fused
-    from learning3d_tpu_torch.kernels import transformer_int8
+    from learning3d_tpu_torch.kernels import sampling, transformer_int8
     from learning3d_tpu_torch.models import dgcnn
 
     def encoder(x, convs, bns, k, approx_knn=False):
@@ -722,7 +751,8 @@ def plain_versions():
                (quant.QuantDecoderLayerFused, "forward", fused_layer),
                (pointnet_fused, "pointnet_pooled_kernel", pointnet_fused.oracle_chain),
                (chamfer, "nn_oneway", chamfer._nn_oneway_reference), (emd, "emd_kernel", emd._emd_fwd_reference),
-               (knn, "knn_pallas", knn.knn_reference)]
+               (knn, "knn_pallas", knn.knn_reference), (sampling, "fps_pallas", sampling.fps_reference),
+               (sampling, "ball_query_pallas", sampling.ball_query_reference)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
@@ -2492,6 +2522,387 @@ def phase_train_prnet(rng) -> dict:
     return result
 
 
+# FlowNet3D() as examples/train_flownet.py trains it: B=16 pairs of N=2048
+# points, f32, SGD (lr 1e-3, momentum 0.9, examples/train.py's defaults);
+# served at B=16
+FLOW_B, FLOW_N = 16, 2048
+FLOW_REQUESTS = (16, 5, 40)
+FLOW_TRAIN_STEPS, FLOW_LR, FLOW_MOMENTUM = 3, 1e-3, 0.9
+# a FlowNet3D forward: sa1 and sa2 on each cloud, sa3 and sa4 on the first
+# (K14 and K15 once each a layer), three_nn once (K8)
+FLOW_PER_FORWARD = {"fps_pallas": 6, "ball_query_pallas": 6, "knn_pallas": 1}
+# (npoint, radius, nsample) of sa1..sa4
+FLOW_SA = ((1024, 0.5, 16), (256, 1.0, 16), (64, 2.0, 8), (16, 4.0, 8))
+# the served flow on the kernels against the plain versions, max |k - p| <=
+# FLOW_TOL * max |p|. K14, K15 and K8 give the plain versions' indices, and
+# the rest is the same torch ops: tools/torch_flownet_step_gaps.py (3
+# weight draws, B=16, the H100) measured 0 for the kernels and for the plain
+# path run again, 0.043 to 0.127 for the control k15_nearest_first (each
+# ball's nsample nearest points instead of the first nsample by index),
+# which must fail the limit
+FLOW_TOL = 1e-6
+# one FlowNet3D train step on the kernels against the same step on the plain
+# versions, per-tensor relative error. The loss and the running statistics
+# come out bit-equal; the gradients differ by the order of the atomic sums
+# in the gathers' backward: the tool measured 4.6e-6 to 6.6e-6 for the
+# kernels and 4.3e-6 to 5.7e-6 for the plain step run again, 1.4e-2 to
+# 2.3e-2 for the plain step on pc1 moved by one ulp, 1.40 to 1.55 for the
+# control, which must fail. The limit lies 15x above the run-to-run spread.
+# The last BatchNorm biases of sa2, sa3 and sa4 have no gradient in exact
+# arithmetic (the max pool passes a shift of their channels to every row,
+# and the next train-mode BatchNorm takes it out): held to FLOW_NOISE_TOL of
+# their layer's weight gradient (measured 9.0e-7 to 1.1e-6)
+FLOW_STEP_TOL = 1e-4
+FLOW_NOISE_TOL = 1e-3
+FLOW_ZERO_GRADIENT_BIASES = tuple(f"{sa}.blocks.2.bn.bias" for sa in ("sa2", "sa3", "sa4"))
+
+
+def random_flownet_state(rng) -> dict:
+    """A flat nnx state of FlowNet3D() with numpy-seeded weights and
+    non-trivial BatchNorm statistics, keyed by the port's module paths
+    (which are the JAX package's)."""
+    from learning3d_tpu_torch.models import FlowNet3D
+    from learning3d_tpu_torch.utils.layers import BatchNorm, Linear
+
+    flat = {}
+    for name, mod in FlowNet3D(device="cpu").named_modules():
+        if isinstance(mod, Linear):
+            i, o = mod.in_features, mod.out_features
+            flat[f"{name}.kernel"] = rng.normal(0.0, i**-0.5, (i, o)).astype(np.float32)
+            if mod.bias is not None:
+                flat[f"{name}.bias"] = rng.normal(0.0, 0.1, (o,)).astype(np.float32)
+        elif isinstance(mod, BatchNorm):
+            random_bn(flat, rng, name, mod.num_features)
+    return flat
+
+
+def flow_requests(n_pairs, offset=0):
+    """(pc1, pc2, color1, color2) numpy arrays of ``n_pairs`` SyntheticSceneflow
+    items of N=2048 points, from item ``offset`` on."""
+    from learning3d_tpu_torch.data import SyntheticSceneflow
+
+    ds = SyntheticSceneflow(npoints=FLOW_N, size=offset + n_pairs)
+    items = [ds[i] for i in range(offset, offset + n_pairs)]
+    return tuple(np.stack([it[j] for it in items]) for j in range(4))
+
+
+def flow_levels(xyz):
+    """The clouds FlowNet3D's four set-abstraction layers sample from and
+    query with: [(xyz, new_xyz, npoint, radius, nsample)] for sa1..sa4 on one
+    cloud (B, N, 3), FPS by the plain version."""
+    from learning3d_tpu_torch.kernels.sampling import fps_reference
+    from learning3d_tpu_torch.ops.geometry import index_points
+
+    out = []
+    for npoint, radius, nsample in FLOW_SA:
+        new = index_points(xyz, fps_reference(xyz, npoint).long())
+        out.append((xyz, new, npoint, radius, nsample))
+        xyz = new
+    return out
+
+
+def k14_bound(b, n, npoint) -> tuple[float, str]:
+    """K14's bound: npoint - 1 steps over every point, 10 f32 operations a
+    point and step (3 differences, 3 products, 2 sums, the min, the
+    comparison), on the CUDA cores; the points read once and the indices
+    written once."""
+    return bound(0.0, 12 * b * n + 4 * b + 4 * b * npoint, f32_flops=10.0 * b * n * max(npoint - 1, 0))
+
+
+def phase_kernel_k14(rng, levels) -> dict:
+    """K14 against its plain version, indices equal, at FlowNet3D's six
+    calls (the SyntheticSceneflow clouds' own levels), a ragged cloud, every
+    point picked, a lattice with exact ties, random starts; times at the
+    four shapes and over a forward's six launches; npoint 1500, past the TPU
+    kernel's 1024 (a limit of its VMEM the CUDA kernel does not have)."""
+    from learning3d_tpu_torch.kernels.sampling import fps_pallas, fps_reference
+
+    cases = {}
+    for cloud, lv in levels.items():
+        for k, (xyz, _, npoint, _, _) in enumerate(lv):
+            if cloud == "pc1" or k < 2:
+                cases[f"sa{k + 1}_{cloud}"] = (xyz, npoint, None)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    cases["ragged"] = (dev(rng.normal(size=(3, 1000, 3))), 777, None)
+    cases["every_point"] = (dev(rng.normal(size=(2, 1024, 3))), 1024, None)
+    cases["ties"] = (dev(lattice_cloud(rng, 2, 1000)), 300, None)
+    cases["random_starts"] = (dev(rng.normal(size=(4, 2048, 3))), 1024,
+                              torch.from_numpy(rng.integers(0, 2048, 4).astype(np.int32)).cuda())
+    wide_rng = np.random.default_rng([SEED + 12, 14])  # apart from the phases' shared stream
+    cases["npoint_1500"] = (dev(wide_rng.normal(size=(2, 3000, 3))), 1500, None)  # past the TPU kernel's 1024
+    checked = {}
+    with torch.inference_mode():
+        for name, (xyz, npoint, start) in cases.items():
+            got, want = fps_pallas(xyz, npoint, start), fps_reference(xyz, npoint, start)
+            torch.cuda.synchronize()
+            picks = int((got != want).sum())
+            require(picks == 0, f"K14 vs plain ({name}): {picks} picks differ")
+            checked[name] = {"B": xyz.shape[0], "N": xyz.shape[1], "npoint": npoint, "picks_differing": picks}
+        times = {}
+        for k in range(4):
+            xyz, npoint, _ = cases[f"sa{k + 1}_pc1"]
+            b_ms, b_by = k14_bound(*xyz.shape[:2], npoint)
+            times[f"sa{k + 1}"] = {"kernel_ms": cuda_ms(lambda: fps_pallas(xyz, npoint)),
+                                   "plain_ms": cuda_ms(lambda: fps_reference(xyz, npoint), reps=2, warmup=1),
+                                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    forward = {key: sum(times[f"sa{k + 1}"][key] * (2 if k < 2 else 1) for k in range(4))
+               for key in ("kernel_ms", "plain_ms", "bound_ms")}
+    result = {"max_abs_err": 0.0, "max_rel_err": 0.0, **times["sa1"]}
+    emit("kernel_k14", name="fps_pallas", tolerance="indices equal", cases=checked, times=times,
+         flownet_forward_6_launches=forward, main_shape="sa1 (16, 2048 -> 1024)",
+         library="none: no PyTorch call computes FPS", **result)
+    return result
+
+
+def in_ball_scan(radius, nsample, xyz, new_xyz) -> int:
+    """The points K15's queries read: each query up to its nsample-th
+    in-ball point (all N where fewer are in the ball), the work this run's
+    data needs."""
+    from learning3d_tpu_torch.kernels.knn import _sq_dist
+    from learning3d_tpu_torch.kernels.sampling import squared_radius
+
+    total = 0
+    for b in range(xyz.shape[0]):
+        inside = _sq_dist(new_xyz[b : b + 1], xyz[b : b + 1]) <= torch.tensor(squared_radius(radius)).cuda()
+        count = inside.int().cumsum(-1)
+        reached = count >= nsample
+        total += int(torch.where(reached.any(-1), reached.int().argmax(-1) + 1, xyz.shape[1]).sum())
+    return total
+
+
+def k15_bound(radius, nsample, xyz, new_xyz) -> tuple[float, str]:
+    """K15's bound: 9 f32 operations for each point a query reads (three
+    differences, three products, two sums, the comparison), on the CUDA
+    cores; the clouds read once and the (B, S, nsample) indices written
+    once."""
+    b, n, _ = xyz.shape
+    s = new_xyz.shape[1]
+    scanned = in_ball_scan(radius, nsample, xyz, new_xyz)
+    return bound(0.0, 12 * b * (n + s) + 4 * b * s * nsample, f32_flops=9.0 * scanned)
+
+
+def library_ball_query(radius, nsample, xyz, new_xyz):
+    """Yardstick only, never used by the port: torch.cdist, torch.where of
+    the in-ball indices and torch.topk of the nsample smallest."""
+    n = xyz.shape[1]
+    d = torch.cdist(new_xyz, xyz)
+    key = torch.where(d <= radius, torch.arange(n, device=xyz.device), n)
+    return torch.topk(key, nsample, dim=-1, largest=False).values
+
+
+def phase_kernel_k15(rng, levels) -> dict:
+    """K15 against its plain version, indices equal, at FlowNet3D's six
+    calls, a ragged one, nsample = 128 and 300 (past the TPU kernel's 128),
+    the on-the-radius lattice and a row whose ball is empty; times at the
+    four shapes and over a forward."""
+    from learning3d_tpu_torch.kernels.sampling import ball_query_pallas, ball_query_reference
+
+    cases = {}
+    for cloud, lv in levels.items():
+        for k, (xyz, new, _, radius, nsample) in enumerate(lv):
+            if cloud == "pc1" or k < 2:
+                cases[f"sa{k + 1}_{cloud}"] = (radius, nsample, xyz, new)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    x = dev(rng.normal(size=(3, 1000, 3)))
+    cases["ragged"] = (0.7, 16, x, x[:, :333].contiguous())
+    x = levels["pc1"][0][0]
+    cases["nsample_128"] = (0.5, 128, x, x[:, :256].contiguous())
+    cases["nsample_300"] = (1.0, 300, x, x[:, :256].contiguous())  # past the TPU kernel's 128
+    g = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    lat = dev((0.1 * g + 0.37).astype(np.float32)[rng.permutation(len(g))][None])
+    cases["on_the_radius"] = (0.1, 16, lat, lat[:, :64].contiguous())
+    x = dev(rng.normal(size=(2, 500, 3)))
+    cases["empty_ball"] = (0.3, 8, x, torch.cat([x[:, :10], torch.full((2, 3, 3), 40.0, device="cuda")], 1))
+    checked = {}
+    with torch.inference_mode():
+        for name, (radius, nsample, xyz, new) in cases.items():
+            got, want = ball_query_pallas(radius, nsample, xyz, new), ball_query_reference(radius, nsample, xyz, new)
+            torch.cuda.synchronize()
+            picks = int((got != want).sum())
+            require(picks == 0, f"K15 vs plain ({name}): {picks} indices differ")
+            checked[name] = {"B": xyz.shape[0], "N": xyz.shape[1], "S": new.shape[1], "radius": radius,
+                             "nsample": nsample, "indices_differing": picks,
+                             "rows_with_empty_ball": int((got[..., 0] == xyz.shape[1]).sum())}
+        require(checked["empty_ball"]["rows_with_empty_ball"] == 6, f"K15 empty balls: {checked['empty_ball']}")
+        times = {}
+        for k in range(4):
+            radius, nsample, xyz, new = cases[f"sa{k + 1}_pc1"]
+            b_ms, b_by = k15_bound(radius, nsample, xyz, new)
+            times[f"sa{k + 1}"] = {
+                "kernel_ms": cuda_ms(lambda: ball_query_pallas(radius, nsample, xyz, new)),
+                "plain_ms": cuda_ms(lambda: ball_query_reference(radius, nsample, xyz, new), reps=5, warmup=1),
+                "library_ms": cuda_ms(lambda: library_ball_query(radius, nsample, xyz, new)),
+                "bound_ms": b_ms, "bound_by": b_by}
+    forward = {key: sum(times[f"sa{k + 1}"][key] * (2 if k < 2 else 1) for k in range(4))
+               for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    result = {"max_abs_err": 0.0, "max_rel_err": 0.0, **times["sa1"]}
+    emit("kernel_k15", name="ball_query_pallas", tolerance="indices equal", cases=checked, times=times,
+         flownet_forward_6_launches=forward, main_shape="sa1 (16, 1024 queries among 2048, r=0.5, nsample=16)",
+         library="torch.cdist + torch.where + torch.topk, yardstick only", **result)
+    return result
+
+
+@contextlib.contextmanager
+def k15_nearest_first():
+    """The control of the FlowNet3D checks: a ball query that keeps each
+    ball's nsample *nearest* points (the plain version's in-ball test, then
+    a sort by distance) where K15 keeps the first nsample by index, as a
+    kernel that selected by distance would."""
+    from learning3d_tpu_torch.kernels import sampling
+    from learning3d_tpu_torch.kernels.knn import _sq_dist
+
+    def nearest(radius, nsample, xyz, new_xyz):
+        n = xyz.shape[1]
+        d = _sq_dist(new_xyz.float(), xyz.float())
+        inside = d <= torch.tensor(sampling.squared_radius(radius), device=d.device)
+        order = torch.sort(torch.where(inside, d, float("inf")), dim=-1, stable=True).indices[..., :nsample]
+        key = torch.where(torch.gather(inside, -1, order), order, n)
+        return torch.where(key == n, key[..., :1], key).to(torch.int32)
+
+    kernel = sampling.ball_query_pallas
+    sampling.ball_query_pallas = nearest
+    try:
+        yield
+    finally:
+        sampling.ball_query_pallas = kernel
+
+
+def k8_three_nn(model, pc1) -> dict:
+    """K8 at FlowNet3D's three_nn: pc1's points among sa1's 1024 samples of
+    it (k=3, C=3), bit-equal to its plain version; its time beside the plain
+    version's, torch.cdist + torch.topk's and the bound."""
+    from learning3d_tpu_torch.kernels.knn import knn_pallas, knn_reference
+    from learning3d_tpu_torch.ops.geometry import farthest_point_sample, index_points
+
+    known = index_points(pc1, farthest_point_sample(pc1, model.sa1.npoint))
+    d, i = knn_pallas(pc1, known, 3)
+    want_d, want_i = knn_reference(pc1, known, 3)
+    torch.cuda.synchronize()
+    require(torch.equal(i, want_i) and torch.equal(d, want_d), "K8 at three_nn's shape vs plain")
+    b_ms, b_by = k8_bound(pc1, known, 3, False)
+    return {"shape": [*pc1.shape[:2], known.shape[1]], "k": 3, "kernel_ms": cuda_ms(lambda: knn_pallas(pc1, known, 3)),
+            "plain_ms": cuda_ms(lambda: knn_reference(pc1, known, 3), reps=3, warmup=1),
+            "library_ms": cuda_ms(lambda: library_knn(pc1, known, 3)), "bound_ms": b_ms, "bound_by": b_by}
+
+
+def flow_gaps(model, inputs, control=None) -> dict:
+    """The model on the kernels against the same model on the plain
+    versions: max |k - p| / max |p| of the flow; and of the ``control``, if
+    given."""
+    got = model(*inputs)
+    with plain_versions():
+        want = model(*inputs)
+    scale = want.abs().max().item()
+    out = {"rel_gap": (got - want).abs().max().item() / scale}
+    if control:
+        with control():
+            out["control_rel_gap"] = (model(*inputs) - want).abs().max().item() / scale
+    return out
+
+
+def phase_serve_flownet(rng) -> dict:
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.models import FlowNet3D
+    from learning3d_tpu_torch.serve import InferenceEngine
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    model = load_nnx_state(FlowNet3D(), random_flownet_state(rng)).eval()
+    engine = InferenceEngine(model, batch_size=FLOW_B)
+    requests, offset = [], 0
+    for n in FLOW_REQUESTS:
+        requests.append(flow_requests(n, offset))
+        offset += n
+    chunks = sum(-(-n // FLOW_B) for n in FLOW_REQUESTS)
+    reset_launches()
+    outs = [engine(*r) for r in requests]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    for name, count in launches.items():
+        require(count == FLOW_PER_FORWARD.get(name, 0) * chunks,
+                f"serve_flownet: {name} launched {count} times for {chunks} chunks")
+    for r, out in zip(requests, outs):
+        require(out.shape == r[0].shape and bool(np.isfinite(out).all()), "flow shape and finite")
+    inputs = [torch.from_numpy(a[:FLOW_B]).cuda() for a in requests[0]]
+    with torch.inference_mode():
+        k8 = k8_three_nn(model, inputs[0])
+        agree = flow_gaps(model, inputs, control=k15_nearest_first)
+        require(agree["rel_gap"] <= FLOW_TOL, f"serve_flownet: kernels vs plain {agree} > {FLOW_TOL}")
+        require(agree["control_rel_gap"] > FLOW_TOL, f"serve_flownet: the control passed {FLOW_TOL}: {agree}")
+        model_ms = cuda_ms(lambda: model(*inputs), reps=5, warmup=2)
+        with plain_versions():
+            plain_model_ms = cuda_ms(lambda: model(*inputs), reps=2, warmup=1)
+    engine(*requests[0])
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine(*requests[0])
+    host_s = (time.perf_counter() - t0) / reps
+    result = {"launches": launches}
+    emit("serve_flownet", config={"model": "FlowNet3D() f32 eval", "B": FLOW_B, "N": FLOW_N}, k8_three_nn=k8,
+         dataset="SyntheticSceneflow", requests=list(FLOW_REQUESTS), chunks=chunks,
+         launches={k: v for k, v in launches.items() if v},
+         tolerance=f"flow <= {FLOW_TOL} of max against the plain versions, the k15_nearest_first control above it",
+         agree=agree, pairs_per_s=FLOW_B / host_s, engine_ms=1e3 * host_s, model_ms=model_ms,
+         plain_model_ms=plain_model_ms, model_pairs_per_s=FLOW_B / (model_ms * 1e-3))
+    return result
+
+
+def phase_train_flownet(rng) -> dict:
+    import dataclasses
+    import tempfile
+
+    from learning3d_tpu_torch.data import FlowData, SyntheticSceneflow, batch_iterator, to_device
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.models import FlowNet3D
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    state = random_flownet_state(rng)
+
+    def build():
+        return load_nnx_state(FlowNet3D(), state)
+
+    data = FlowData(SyntheticSceneflow(npoints=FLOW_N, size=FLOW_TRAIN_STEPS * FLOW_B))
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = TrainConfig(exp_name="chip_smoke_train_flownet", task="flow", batch_size=FLOW_B, num_points=FLOW_N,
+                          optimizer="sgd", lr=FLOW_LR, momentum=FLOW_MOMENTUM, epochs=1, ckpt_dir=ckpt)
+        trainer = Trainer(cfg, build())
+        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        reset_launches()
+        with contextlib.redirect_stdout(sys.stderr):  # the Trainer's epoch line
+            trainer.fit(data)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        want = {k: v * FLOW_TRAIN_STEPS for k, v in FLOW_PER_FORWARD.items()}
+        require(launches == want, f"train_flownet launches {launches} in {FLOW_TRAIN_STEPS} steps (want {want})")
+        epoch = trainer.history[-1]
+        skipped, changed = check_trained(trainer, before)
+        require(all(np.isfinite(epoch[k]) for k in ("train_epe", "train_acc3d_strict")), f"train metrics: {epoch}")
+        batch = to_device(next(batch_iterator(data, FLOW_B, seed=SEED)), "cuda")
+        require(len(batch) == 6 and batch[0].shape == (FLOW_B, FLOW_N, 3), "the 6-tuple flow batch")
+        agreement = step_agreement(lambda: Trainer(cfg, build()), batch, FLOW_STEP_TOL, plain_versions,
+                                   FLOW_ZERO_GRADIENT_BIASES, FLOW_NOISE_TOL, what="FlowNet3D train step",
+                                   control=k15_nearest_first)
+        check_round_trip(trainer, lambda: Trainer(dataclasses.replace(cfg, resume="latest"), build()), data)
+        trainer.model.train()
+        torch.cuda.reset_peak_memory_stats()
+        timing = time_train_step(trainer, batch, reps=5, unit="pairs")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        trainer.close()
+    result = {"launches": launches, "train_loss": epoch["train_loss"], "train_epe": epoch["train_epe"],
+              "epoch_s": epoch["seconds"], "peak_memory_gib": peak_gib, **timing}
+    emit("train_flownet", config={"model": "FlowNet3D() f32 train", "B": FLOW_B, "N": FLOW_N, "optimizer": "sgd",
+                                  "lr": FLOW_LR, "momentum": FLOW_MOMENTUM, "steps": FLOW_TRAIN_STEPS},
+         dataset="FlowData(SyntheticSceneflow)", skipped_steps=skipped, tensors_changed=sum(changed.values()),
+         tensors=len(changed),
+         step_vs_plain={"tolerance": f"loss, gradients, running statistics {FLOW_STEP_TOL}; the control "
+                                     "k15_nearest_first must fail", "zero_gradient_bias_tolerance": FLOW_NOISE_TOL,
+                        **agreement},
+         roundtrip="exact", **result)
+    return result
+
+
 def kernel_entry(name, source, replaces, launches, res) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -2584,8 +2995,18 @@ def main() -> None:
     k8 = phase_kernel_k8(rng)
     serve_prnet = phase_serve_prnet(rng)
     train_prnet = phase_train_prnet(rng)
+    flow_rng = np.random.default_rng(SEED + 12)
+    with torch.inference_mode():
+        levels = {name: flow_levels(torch.from_numpy(a).cuda()) for name, a in
+                  zip(("pc1", "pc2"), flow_requests(FLOW_B)[:2])}
+    k14 = phase_kernel_k14(flow_rng, levels)
+    k15 = phase_kernel_k15(flow_rng, levels)
+    del levels
+    serve_flownet = phase_serve_flownet(flow_rng)
+    train_flownet = phase_train_flownet(flow_rng)
     k8_launches = serve_prnet["launches"]["knn_pallas"] + serve_prnet["multistart_launches"]["knn_pallas"] + \
-        train_prnet["launches"]["knn_pallas"]
+        train_prnet["launches"]["knn_pallas"] + serve_flownet["launches"]["knn_pallas"] + \
+        train_flownet["launches"]["knn_pallas"]
 
     csrc = "learning3d_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
@@ -2618,6 +3039,11 @@ def main() -> None:
         kernel_entry("_emd_fwd_pallas", csrc + "emd.cu", "learning3d_tpu/kernels/emd.py:264",
                      train_pcn["launches"]["emd"], k13),
         kernel_entry("knn_pallas", csrc + "knn.cu", "learning3d_tpu/kernels/knn.py:192", k8_launches, k8),
+        kernel_entry("fps_pallas", csrc + "fps.cu", "learning3d_tpu/kernels/sampling.py:68",
+                     serve_flownet["launches"]["fps_pallas"] + train_flownet["launches"]["fps_pallas"], k14),
+        kernel_entry("ball_query_pallas", csrc + "ball_query.cu", "learning3d_tpu/kernels/sampling.py:264",
+                     serve_flownet["launches"]["ball_query_pallas"] + train_flownet["launches"]["ball_query_pallas"],
+                     k15),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

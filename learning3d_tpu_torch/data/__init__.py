@@ -1,12 +1,15 @@
 """Data pipeline of the port: the synthetic ModelNet40 stand-in, the
-classification wrapper and the registration pairs (host numpy, as the JAX
-package's), host batching, prefetch to the card and on-device
+classification wrapper, the registration pairs and the scene-flow pairs
+(host numpy, as the JAX package's), host batching, prefetch to the card and on-device
 augmentation."""
 
 from learning3d_tpu_torch.data.dataloaders import (  # noqa: F401
     ClassificationData,
+    FlowData,
     RegistrationData,
+    SceneflowDataset,
     SyntheticModelNet40,
+    SyntheticSceneflow,
 )
 from learning3d_tpu_torch.data.device_pipeline import (  # noqa: F401
     augment_classification_batch,

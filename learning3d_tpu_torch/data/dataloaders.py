@@ -2,16 +2,25 @@
 ``learning3d_tpu/data/dataloaders.py``: ``SHAPE_NAMES``, the procedural
 ``SyntheticModelNet40`` (the stand-in for ModelNet40 where the archive
 cannot be downloaded), ``ClassificationData``, and ``RegistrationData`` with
-its pair synthesis (per-algorithm transforms, partial crops, jitter). Items
-are numpy arrays, identical to the JAX package's bit for bit; batching for
-the device loop lives in ``device_pipeline``. The HDF5-backed ModelNet40,
-DeepGMR's RRI features and the segmentation and flow datasets are not
-ported yet.
+its pair synthesis (per-algorithm transforms, partial crops, jitter), and
+the scene-flow sets ``SyntheticSceneflow``, ``SceneflowDataset`` (the
+FlyingThings3D npz archive, read from ``root`` or ``$LEARNING3D_DATA``,
+else ``~/.learning3d_tpu/data``, as the JAX package reads it) and
+``FlowData``. Items are numpy arrays, identical to the JAX package's bit for
+bit; batching for the device loop lives in ``device_pipeline``. The
+HDF5-backed ModelNet40, DeepGMR's RRI features and the segmentation
+datasets are not ported yet.
 """
 
 from __future__ import annotations
 
+import glob
+import os
+from pathlib import Path
+
 import numpy as np
+
+_DATA_DIR = Path(os.environ.get("LEARNING3D_DATA", Path.home() / ".learning3d_tpu" / "data"))
 
 SHAPE_NAMES = [
     "airplane", "bathtub", "bed", "bench", "bookshelf", "bottle", "bowl",
@@ -393,3 +402,100 @@ class RegistrationData:
             extras = [m for m in (template_mask, source_mask) if m is not None]
             return (template, source, igt, *extras)
         return template, source, igt
+
+
+class FlowData:
+    """Scene-flow dataset wrapper over any data_class yielding (pos1, pos2,
+    color1, color2, flow, mask1) items, SceneflowDataset by default and
+    SyntheticSceneflow where the npz archive is absent."""
+
+    def __init__(self, data_class=None, npoints=1024, partition="train"):
+        if data_class is None:
+            data_class = SceneflowDataset(npoints=npoints, partition=partition)
+            if len(data_class) == 0:
+                data_class = SyntheticSceneflow(npoints=npoints)
+        self.data_class = data_class
+
+    def __len__(self):
+        return len(self.data_class)
+
+    def __getitem__(self, idx):
+        return self.data_class[idx]
+
+
+class SyntheticSceneflow:
+    """Procedural scene-flow pairs: frame 1 is a SyntheticModelNet40 cloud,
+    frame 2 a small rigid motion of it plus a smooth non-rigid warp, the
+    flow the exact displacement; colors are zeros and the mask ones. Items
+    (pos1, pos2, color1, color2, flow, mask1), deterministic per index."""
+
+    def __init__(self, npoints=1024, size=256, seed=0):
+        self.npoints = npoints
+        self.size = size
+        self.seed = seed
+        self.base = SyntheticModelNet40(num_points=npoints, size=size, seed=seed)
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, idx):
+        from scipy.spatial.transform import Rotation
+
+        rng = np.random.default_rng(self.seed * 7_654_321 + idx)
+        pos1, _ = self.base[idx]
+        w = 0.1 * rng.standard_normal(3)
+        t = 0.1 * rng.standard_normal(3)
+        R = Rotation.from_rotvec(w).as_matrix().astype(np.float32)
+        warp = 0.05 * np.sin(pos1 @ rng.standard_normal((3, 3)).astype(np.float32))
+        pos2 = pos1 @ R.T + t.astype(np.float32) + warp
+        flow = (pos2 - pos1).astype(np.float32)
+        color1 = np.zeros_like(pos1)
+        color2 = np.zeros_like(pos2)
+        mask1 = np.ones(self.npoints, np.float32)
+        return pos1, pos2.astype(np.float32), color1, color2, flow, mask1
+
+
+class SceneflowDataset:
+    """The FlyingThings3D-processed npz archive (``TRAIN*.npz`` /
+    ``TEST*.npz`` under ``root``, the one sample the reference excludes left
+    out). A train item draws npoints of each frame without replacement from
+    the dataset's own ``np.random.default_rng(seed)``, a test item takes the
+    first npoints; both frames are centered on frame 1's mean. Empty where
+    the archive is absent."""
+
+    def __init__(self, npoints=1024, root=None, partition="train", seed=0):
+        self.npoints = npoints
+        self.partition = partition
+        root = root or str(_DATA_DIR / "data_processed_maxcut_35_20k_2k_8192")
+        pattern = os.path.join(root, "TRAIN*.npz" if partition == "train" else "TEST*.npz")
+        self.datapath = [d for d in sorted(glob.glob(pattern)) if "TRAIN_C_0140_left_0006-0" not in d]
+        self.cache = {}
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.datapath)
+
+    def __getitem__(self, index):
+        if index in self.cache:
+            pos1, pos2, color1, color2, flow, mask1 = self.cache[index]
+        else:
+            with open(self.datapath[index], "rb") as fp:
+                data = np.load(fp)
+                pos1 = data["points1"].astype(np.float32)
+                pos2 = data["points2"].astype(np.float32)
+                color1 = data["color1"].astype(np.float32)
+                color2 = data["color2"].astype(np.float32)
+                flow = data["flow"].astype(np.float32)
+                mask1 = data["valid_mask1"]
+            if len(self.cache) < 30000:
+                self.cache[index] = (pos1, pos2, color1, color2, flow, mask1)
+
+        if self.partition == "train":
+            s1 = self.rng.choice(pos1.shape[0], self.npoints, replace=False)
+            s2 = self.rng.choice(pos2.shape[0], self.npoints, replace=False)
+        else:
+            s1 = s2 = np.arange(self.npoints)
+        pos1, color1, flow, mask1 = pos1[s1], color1[s1], flow[s1], mask1[s1]
+        pos2, color2 = pos2[s2], color2[s2]
+        center = pos1.mean(0)
+        return pos1 - center, pos2 - center, color1, color2, flow, mask1

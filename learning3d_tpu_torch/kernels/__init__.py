@@ -21,6 +21,8 @@ LAUNCHES: dict[str, int] = {
     "_nn_oneway_pallas": 0,
     "_emd_fwd_pallas": 0,
     "knn_pallas": 0,
+    "fps_pallas": 0,
+    "ball_query_pallas": 0,
 }
 
 

@@ -47,6 +47,9 @@ SIGNATURES = {
     "nn_oneway": ([_P] * 4 + [_I] * 3 + [_P], ctypes.c_int),
     "emd_fwd": ([_P] * 6 + [_I] * 3 + [_F] * 2 + [_P], ctypes.c_int),
     "knn_select": ([_P] * 4 + [_I] * 5 + [_P], ctypes.c_int),
+    "fps_smem_points": ([], ctypes.c_int),
+    "fps_sample": ([_P] * 4 + [_I] * 3 + [_P], ctypes.c_int),
+    "ball_query": ([_P] * 3 + [_I] * 4 + [_F, _P], ctypes.c_int),
     "l3d_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,0 +1,206 @@
+"""Farthest-point sampling (K14) and ball query (K15): two CUDA kernels
+(``csrc/fps.cu``, ``csrc/ball_query.cu``), counterparts of
+``learning3d_tpu/kernels/sampling.py::fps_pallas`` and
+``::ball_query_pallas``.
+
+``fps_pallas(xyz, npoint, start=None)``: xyz (B, N, 3) -> idx (B, npoint)
+int32. The first pick is ``start`` (point 0 for None), each next one the
+argmax of the running min-distance to the picks so far, the first of equal
+maxima; the distance starts at 1e10 and is ``((x-cx)^2 + (y-cy)^2) +
+(z-cz)^2``, every operation rounded in f32. Once every point is picked the
+distances are all 0 and the picks repeat the first such index. Any N and
+npoint: the TPU kernel's npoint <= 1024 is a limit of its VMEM that the
+CUDA kernel does not share. ``start`` must lie in [0, N).
+
+``ball_query_pallas(radius, nsample, xyz, new_xyz)``: xyz (B, N, 3),
+new_xyz (B, S, 3) -> idx (B, S, nsample) int32: the first nsample indices
+with ``(d0*d0 + d1*d1) + d2*d2 <= r2`` (exact per-coordinate differences),
+ascending, a short row padded with its first index, a row with no point in
+the ball N everywhere. ``r2`` is the Python float ``radius ** 2`` rounded
+once to f32, as the JAX package hands it to its kernel. Any N, S and
+nsample (the TPU kernel's nsample <= 128 is a limit of its VMEM).
+
+A CUDA tensor launches the kernel, or raises NotImplementedError naming the
+limit it breaks (``fps_kernel_limit``, ``ball_query_kernel_limit``: the
+indices and counts are int32); a CPU
+tensor runs the plain version (``fps_reference``, ``ball_query_reference``),
+the same arithmetic with torch ops, which the kernels match index for
+index. Neither kernel has a backward: the indices carry no gradient, and
+the callers detach the operands.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from learning3d_tpu_torch.kernels import LAUNCHES
+from learning3d_tpu_torch.kernels import _build
+from learning3d_tpu_torch.kernels.knn import _sq_dist
+
+INT32_MAX = 2**31 - 1
+CHUNK_BYTES = 1 << 28  # the ball query's plain version keeps its (b, S, N) intermediates under 256 MiB a chunk
+
+
+def fps_kernel_limit(n, npoint):
+    """The limit of K14 that N or ``npoint`` breaks, as a message, or None:
+    both are int32 in the kernel."""
+    if not (1 <= n <= INT32_MAX and 1 <= npoint <= INT32_MAX):
+        return f"K14 (fps_pallas) takes 1 <= N, npoint <= 2**31 - 1 (int32), got N={n}, npoint={npoint}"
+    return None
+
+
+def ball_query_kernel_limit(n, nsample):
+    """The limit of K15 that N or ``nsample`` breaks, as a message, or None:
+    both are int32 in the kernel (N is also the index of an empty ball)."""
+    if not (1 <= n <= INT32_MAX and 1 <= nsample <= INT32_MAX):
+        return f"K15 (ball_query_pallas) takes 1 <= N, nsample <= 2**31 - 1 (int32), got N={n}, nsample={nsample}"
+    return None
+
+
+def squared_radius(radius) -> np.float32:
+    """The Python float ``radius ** 2`` rounded once to f32 (``f32(r) *
+    f32(r)`` can differ from it by an ulp)."""
+    return np.float32(float(radius) ** 2)
+
+
+def _start(xyz, start):
+    """(B,) int32 starts on xyz's device: zeros for None, else ``start``
+    checked to lie in [0, N) (on the card one min/max, read back)."""
+    B, N = xyz.shape[0], xyz.shape[1]
+    if start is None:
+        return torch.zeros(B, dtype=torch.int32, device=xyz.device)
+    start = torch.as_tensor(start, device=xyz.device).reshape(-1)
+    if start.shape[0] != B:
+        raise ValueError(f"start must hold one index per batch item ({B}), got {tuple(start.shape)}")
+    if B:
+        lo, hi = torch.stack(torch.aminmax(start)).tolist()
+        if lo < 0 or hi >= N:
+            raise ValueError(f"start must lie in [0, {N}), got values in [{lo}, {hi}]")
+    return start.to(torch.int32)
+
+
+def fps_reference(xyz, npoint, start=None):
+    """The kernel's plain version, and the JAX package's scan oracle
+    (``learning3d_tpu/ops/geometry.py:161-171``): (B, npoint) int32. The
+    argmax is the max, then the smallest index holding it."""
+    x = xyz.float()
+    B, N, _ = x.shape
+    cur = _start(x, start).long()
+    rows = torch.arange(B, device=x.device)
+    cols = torch.arange(N, device=x.device)
+    dist = torch.full((B, N), 1e10, dtype=torch.float32, device=x.device)
+    out = torch.empty((B, npoint), dtype=torch.int32, device=x.device)
+    for i in range(npoint):
+        out[:, i] = cur
+        c = x[rows, cur]  # (B, 3)
+        d = None
+        for k in range(3):
+            t = x[..., k] - c[:, k : k + 1]
+            t = t * t
+            d = t if d is None else d + t
+        dist = torch.minimum(dist, d)
+        m = dist.amax(-1, keepdim=True)
+        cur = torch.where(dist == m, cols, N).amin(-1)
+    return out
+
+
+def ball_query_reference(radius, nsample, xyz, new_xyz):
+    """The kernel's plain version: (B, S, nsample) int32 from exact
+    per-coordinate differences, the in-ball indices as keys (N outside the
+    ball), the nsample smallest in ascending order, N replaced by the row's
+    first key. Batches go in chunks whose (b, S, N) intermediates stay under
+    CHUNK_BYTES."""
+    p, q = xyz.float(), new_xyz.float()
+    B, N, _ = p.shape
+    S = q.shape[1]
+    r2 = torch.tensor(squared_radius(radius), device=p.device)
+    cols = torch.arange(N, dtype=torch.int32, device=p.device)
+    k = min(nsample, N)
+    step = max(1, CHUNK_BYTES // (4 * max(S, 1) * N))
+    outs = []
+    for lo in range(0, B, step):
+        d = _sq_dist(q[lo : lo + step], p[lo : lo + step])  # K8's C == 3 arithmetic: exact differences
+        key = torch.where(d <= r2, cols, N)
+        key = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
+        if k < nsample:
+            key = torch.cat([key, torch.full(key.shape[:-1] + (nsample - k,), N, dtype=key.dtype, device=key.device)],
+                            dim=-1)
+        outs.append(torch.where(key == N, key[..., :1], key).to(torch.int32))
+    return torch.cat(outs)
+
+
+def _check_fps(xyz, npoint):
+    if xyz.ndim != 3 or xyz.shape[-1] != 3:
+        raise ValueError(f"xyz must be (B, N, 3), got {tuple(xyz.shape)}")
+    if xyz.shape[1] == 0 or npoint < 1:
+        raise ValueError(f"fps needs N >= 1 and npoint >= 1, got N={xyz.shape[1]}, npoint={npoint}")
+
+
+def fps_pallas(xyz, npoint, start=None):
+    """xyz (B, N, 3) -> FPS indices (B, npoint) int32 from ``start`` ((B,)
+    int in [0, N), point 0 for None; ValueError outside). One kernel launch
+    on a CUDA tensor (past ``fps_kernel_limit`` NotImplementedError), the
+    plain version on a CPU one."""
+    _check_fps(xyz, npoint)
+    if xyz.device.type == "cpu":
+        return fps_reference(xyz, npoint, start)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xyz.device}")
+    limit = fps_kernel_limit(xyz.shape[1], npoint)
+    if limit is not None:
+        raise NotImplementedError(limit)
+    x = xyz.detach().float().contiguous()
+    B, N, _ = x.shape
+    st = _start(x, start).contiguous()
+    idx = torch.empty((B, npoint), device=x.device, dtype=torch.int32)
+    if B == 0:
+        return idx
+    lib = _build.library()
+    scratch = None if N <= lib.fps_smem_points() else torch.empty((B, 4, N), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fps_sample(x.data_ptr(), st.data_ptr(), idx.data_ptr(),
+                             None if scratch is None else scratch.data_ptr(), B, N, npoint, stream)
+    _build.check(err, "fps_sample")
+    LAUNCHES["fps_pallas"] += 1
+    return idx
+
+
+def _check_ball_query(nsample, xyz, new_xyz):
+    if xyz.ndim != 3 or new_xyz.ndim != 3 or xyz.shape[-1] != 3 or new_xyz.shape[-1] != 3 \
+            or xyz.shape[0] != new_xyz.shape[0]:
+        raise ValueError(f"xyz and new_xyz must be (B, N, 3) and (B, S, 3), got {tuple(xyz.shape)} and "
+                         f"{tuple(new_xyz.shape)}")
+    if xyz.device != new_xyz.device:
+        raise ValueError(f"xyz on {xyz.device}, new_xyz on {new_xyz.device}")
+    if xyz.shape[1] == 0 or nsample < 1:
+        raise ValueError(f"ball query needs N >= 1 and nsample >= 1, got N={xyz.shape[1]}, nsample={nsample}")
+
+
+def ball_query_pallas(radius, nsample, xyz, new_xyz):
+    """xyz (B, N, 3), new_xyz (B, S, 3) -> idx (B, S, nsample) int32. One
+    kernel launch on a CUDA tensor (past ``ball_query_kernel_limit``
+    NotImplementedError), the plain version on a CPU one."""
+    _check_ball_query(nsample, xyz, new_xyz)
+    if xyz.device.type == "cpu":
+        return ball_query_reference(radius, nsample, xyz, new_xyz)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xyz.device}")
+    limit = ball_query_kernel_limit(xyz.shape[1], nsample)
+    if limit is not None:
+        raise NotImplementedError(limit)
+    p, q = xyz.detach().float().contiguous(), new_xyz.detach().float().contiguous()
+    B, N, _ = p.shape
+    S = q.shape[1]
+    idx = torch.empty((B, S, nsample), device=p.device, dtype=torch.int32)
+    if B == 0 or S == 0:
+        return idx
+    lib = _build.library()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = lib.ball_query(p.data_ptr(), q.data_ptr(), idx.data_ptr(), B, N, S, nsample,
+                             float(squared_radius(radius)), stream)
+    _build.check(err, "ball_query")
+    LAUNCHES["ball_query_pallas"] += 1
+    return idx

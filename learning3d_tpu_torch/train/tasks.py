@@ -2,7 +2,7 @@
 Every loss_fn has the signature ``loss_fn(model, batch, generator) ->
 (loss, aux_dict)``; ``generator`` is the Trainer's ``torch.Generator`` on
 the training device, for tasks that draw random numbers. Ported so far:
-classification, DCP, PRNet, iPCRNet and PCN."""
+classification, DCP, PRNet, iPCRNet, PCN and scene flow."""
 
 from __future__ import annotations
 
@@ -90,4 +90,19 @@ def pcn(model, batch, generator=None):
     return loss, aux
 
 
-TASKS = {"classification": classification, "ipcrnet": ipcrnet, "dcp": dcp, "prnet": prnet, "pcn": pcn}
+def flownet(model, batch, generator=None):
+    """The reference's train_flownet loss, mean(mask1 * |pred - flow|^2 / 2),
+    with the FlowNet3D benchmark metrics: EPE3D and Acc3D strict (error <
+    0.05 or < 5% of the flow's norm) and relaxed (< 0.10 or < 10%)."""
+    pos1, pos2, color1, color2, flow, mask1 = batch
+    pred = model(pos1, pos2, color1, color2)
+    loss = torch.mean(mask1 * torch.sum((pred - flow) ** 2, -1) / 2.0)
+    err = torch.linalg.vector_norm(pred - flow, dim=-1)
+    rel = err / (torch.linalg.vector_norm(flow, dim=-1) + 1e-12)
+    acc_s = ((err < 0.05) | (rel < 0.05)).float().mean()
+    acc_r = ((err < 0.10) | (rel < 0.10)).float().mean()
+    return loss, {"epe": err.mean(), "acc3d_strict": acc_s, "acc3d_relax": acc_r}
+
+
+TASKS = {"classification": classification, "ipcrnet": ipcrnet, "dcp": dcp, "prnet": prnet, "pcn": pcn,
+         "flow": flownet}

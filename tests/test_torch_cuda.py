@@ -964,3 +964,182 @@ def test_prnet_runs_k8_on_card(cuda, monkeypatch):
             want = model(source, template, igt=igt)
         for key in want:
             assert torch.equal(got[key], want[key]), key
+
+
+# -- K14 (fps_pallas) and K15 (ball_query_pallas): FlowNet3D ---------------------
+
+def radius_lattice(side=5, h=0.1, offset=0.37, seed=0):
+    """A lattice of step h (not exact in f32) shifted by offset, in a random
+    order: with radius h every neighbor lies on the radius."""
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    x = (h * g + offset).astype(np.float32)
+    return x[np.random.default_rng(seed).permutation(len(x))][None]
+
+
+def k14_case(name, rng):
+    """(xyz, npoint, start) of one case: FlowNet3D's shapes at B=4, a ragged
+    cloud, every point picked, exact ties, random starts, and a cloud past
+    the shared-memory size (the global scratch), npoint past the TPU
+    kernel's 1024."""
+    shapes = {"sa1": (4, 2048, 1024), "sa2": (4, 1024, 256), "sa3": (4, 256, 64), "sa4": (4, 64, 16),
+              "ragged": (3, 1000, 777), "every_point": (2, 1024, 1024), "scratch": (1, 20000, 64),
+              "npoint_1500": (2, 3000, 1500)}
+    if name in shapes:
+        b, n, p = shapes[name]
+        return rng.normal(size=(b, n, 3)).astype(np.float32), p, None
+    if name == "ties":
+        return lattice_cloud(rng, 2, 1000), 300, None
+    return rng.normal(size=(3, 700, 3)).astype(np.float32), 200, rng.integers(0, 700, 3).astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["sa1", "sa2", "sa3", "sa4", "ragged", "every_point", "scratch", "ties",
+                                  "random_starts", "npoint_1500"])
+def test_k14_matches_plain(cuda, name):
+    """K14 against its plain version on the card: indices equal, one launch."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.sampling import fps_pallas, fps_reference
+
+    x, npoint, start = k14_case(name, np.random.default_rng(len(name)))
+    x = torch.from_numpy(x).to(cuda)
+    start = None if start is None else torch.from_numpy(start).to(cuda)
+    before = LAUNCHES["fps_pallas"]
+    got = fps_pallas(x, npoint, start)
+    want = fps_reference(x, npoint, start)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fps_pallas"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (x.shape[0], npoint)
+    assert torch.equal(got, want)
+
+
+def k15_case(name, rng):
+    """(radius, nsample, xyz, queries): FlowNet3D's four ball queries at B=4
+    (the queries FPS samples of the cloud), a ragged one, nsample = 128 and
+    300 (past the TPU kernel's 128), the on-the-radius lattice and a row
+    whose ball is empty."""
+    shapes = {"sa1": (0.5, 16, 2048, 1024), "sa2": (1.0, 16, 1024, 256), "sa3": (2.0, 8, 256, 64),
+              "sa4": (4.0, 8, 64, 16), "ragged": (0.7, 16, 1000, 333), "nsample_128": (1.5, 128, 2048, 100),
+              "nsample_300": (2.0, 300, 2048, 100)}
+    if name in shapes:
+        r, ns, n, s = shapes[name]
+        x = rng.normal(size=(4, n, 3)).astype(np.float32)
+        return r, ns, x, x[:, rng.permutation(n)[:s]].copy()
+    if name == "on_the_radius":
+        x = radius_lattice()
+        return 0.1, 16, x, x[:, :64].copy()
+    x = rng.normal(size=(2, 500, 3)).astype(np.float32)
+    return 0.3, 8, x, np.concatenate([x[:, :10], np.full((2, 3, 3), 40.0, np.float32)], axis=1)
+
+
+@pytest.mark.parametrize("name", ["sa1", "sa2", "sa3", "sa4", "ragged", "nsample_128", "nsample_300",
+                                  "on_the_radius", "empty_ball"])
+def test_k15_matches_plain(cuda, name):
+    """K15 against its plain version on the card: indices equal, one
+    launch; an empty ball gives N everywhere."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.sampling import ball_query_pallas, ball_query_reference
+
+    r, ns, x, q = k15_case(name, np.random.default_rng(len(name)))
+    x, q = torch.from_numpy(x).to(cuda), torch.from_numpy(q).to(cuda)
+    before = LAUNCHES["ball_query_pallas"]
+    got = ball_query_pallas(r, ns, x, q)
+    want = ball_query_reference(r, ns, x, q)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ball_query_pallas"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (q.shape[0], q.shape[1], ns)
+    assert torch.equal(got, want)
+    if name == "empty_ball":
+        assert bool((got[:, 10:] == x.shape[1]).all()) and bool((got[:, :10] < x.shape[1]).all())
+
+
+def test_k14_k15_refuse_past_their_limits(cuda):
+    from learning3d_tpu_torch.kernels.sampling import ball_query_pallas, fps_pallas
+
+    """Past their int32 indices the wrappers raise before they allocate or
+    launch; a start outside [0, N) is refused on the card as on the CPU."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+
+    x = torch.zeros((2, 2000, 3), device=cuda)
+    before = dict(LAUNCHES)
+    with pytest.raises(NotImplementedError, match="int32"):
+        fps_pallas(x, 2**31)
+    with pytest.raises(NotImplementedError, match="int32"):
+        ball_query_pallas(0.5, 2**31, x, x[:, :10])
+    with pytest.raises(ValueError):
+        fps_pallas(x[..., :2], 10)
+    for start in ([0, 2000], [-1, 3]):
+        with pytest.raises(ValueError, match=r"start must lie in \[0, 2000\)"):
+            fps_pallas(x, 10, torch.tensor(start, device=cuda))
+    assert LAUNCHES == before
+
+
+def test_geometry_gates_launch_k14_k15_k8(cuda):
+    """ops.geometry launches K14 and K15 for every CUDA tensor, npoint 1025
+    and nsample 129 included (past the JAX package's TPU gates, which are
+    its kernels' VMEM limits), raises for get_cnt on the card, and launches
+    K8 in three_nn where the known cloud has >= 512 points (JAX's gate).
+    three_nn's distances recomputed from K8's picks equal the dense path's
+    bit for bit."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.ops.geometry import farthest_point_sample, query_ball_point, three_nn
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(2, 1500, 3)).astype(np.float32)).to(cuda)
+    before = dict(LAUNCHES)
+    idx = farthest_point_sample(x, 1024)
+    assert idx.dtype == torch.int64 and LAUNCHES["fps_pallas"] == before["fps_pallas"] + 1
+    from learning3d_tpu_torch.kernels.sampling import ball_query_reference, fps_reference
+
+    wide = farthest_point_sample(x, 1025)
+    assert LAUNCHES["fps_pallas"] == before["fps_pallas"] + 2
+    assert torch.equal(wide, fps_reference(x, 1025).long())
+    q = x[:, :100]
+    got = query_ball_point(0.5, 128, x, q)
+    assert got.dtype == torch.int64 and LAUNCHES["ball_query_pallas"] == before["ball_query_pallas"] + 1
+    wide = query_ball_point(2.0, 129, x, q)
+    assert LAUNCHES["ball_query_pallas"] == before["ball_query_pallas"] + 2
+    assert torch.equal(wide, ball_query_reference(2.0, 129, x, q).long())
+    with pytest.raises(NotImplementedError, match="get_cnt"):
+        query_ball_point(0.5, 16, x, q, get_cnt=True)
+    assert LAUNCHES["ball_query_pallas"] == before["ball_query_pallas"] + 2
+    u = torch.from_numpy(rng.normal(size=(2, 700, 3)).astype(np.float32)).to(cuda).requires_grad_(True)
+    d, i = three_nn(u, x[:, :512])
+    assert LAUNCHES["knn_pallas"] == before["knn_pallas"] + 1
+    d_plain, i_plain = three_nn(u, x[:, :511])
+    assert LAUNCHES["knn_pallas"] == before["knn_pallas"] + 1
+    d.sum().backward()
+    assert u.grad is not None and bool(torch.isfinite(u.grad).all())
+    from learning3d_tpu_torch.kernels.knn import knn_reference
+    want_d, want_i = knn_reference(u.detach(), x[:, :512], 3)
+    assert torch.equal(i, want_i.long()) and torch.equal(d.detach(), torch.sqrt(want_d))
+
+
+def test_flownet_runs_k14_k15_k8_on_card(cuda, monkeypatch):
+    """FlowNet3D() at B=2, N=2048 in train and eval mode: K14 6, K15 6 and
+    K8 once a forward; with the three kernels' plain versions in their place
+    every flow is bit-equal (the same indices, then the same torch ops)."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels import knn as knn_mod
+    from learning3d_tpu_torch.kernels import sampling
+    from learning3d_tpu_torch.models import FlowNet3D
+
+    rng = np.random.default_rng(10)
+    model = FlowNet3D(generator=torch.Generator().manual_seed(2))
+    pc1 = rng.normal(size=(2, 2048, 3)).astype(np.float32)
+    pc2 = pc1 + 0.05 * rng.normal(size=pc1.shape).astype(np.float32)
+    inputs = [torch.from_numpy(a).to(cuda) for a in (pc1, pc2, np.zeros_like(pc1), np.zeros_like(pc1))]
+    for mode in ("train", "eval"):
+        getattr(model, mode)()
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        before = dict(LAUNCHES)
+        got = model(*inputs)
+        torch.cuda.synchronize()
+        assert {k: LAUNCHES[k] - before[k] for k in ("fps_pallas", "ball_query_pallas", "knn_pallas")} == {
+            "fps_pallas": 6, "ball_query_pallas": 6, "knn_pallas": 1}
+        assert got.shape == (2, 2048, 3) and bool(torch.isfinite(got).all())
+        model.load_state_dict(state)  # the same BN statistics for the plain run
+        with monkeypatch.context() as m:
+            m.setattr(knn_mod, "knn_pallas", knn_mod.knn_reference)
+            m.setattr(sampling, "fps_pallas", sampling.fps_reference)
+            m.setattr(sampling, "ball_query_pallas", sampling.ball_query_reference)
+            want = model(*inputs)
+        assert torch.equal(got, want)

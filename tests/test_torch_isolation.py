@@ -22,7 +22,8 @@ def port_files(*suffixes):
         files += [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_serve.py",
                   ROOT / "tools" / "sweep_torch_kernels.py", ROOT / "tools" / "time_kernel_build.py",
                   ROOT / "tools" / "profile_torch_train.py", ROOT / "tools" / "torch_dcp_step_gaps.py",
-                  ROOT / "tools" / "torch_cls_step_gaps.py", ROOT / "tools" / "torch_prnet_step_gaps.py"]
+                  ROOT / "tools" / "torch_cls_step_gaps.py", ROOT / "tools" / "torch_prnet_step_gaps.py",
+                  ROOT / "tools" / "torch_flownet_step_gaps.py", ROOT / "tools" / "torch_square_distance_ab.py"]
     return files
 
 

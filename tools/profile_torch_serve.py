@@ -2,7 +2,7 @@
 """Where the time of the port's serving goes, on one card.
 
     python3 tools/profile_torch_serve.py [--model pointnet|dcp|pointnet-int8|dcp-int8|dcp-int8-fused|
-                                          dcp-int8-hybrid-fused|prnet] [--requests 20]
+                                          dcp-int8-hybrid-fused|prnet|flownet] [--requests 20]
 
 ``pointnet``: Classifier(PointNet(emb_dims=1024, use_bn=True)), requests of
 B=256 clouds of N=1024 points. ``dcp``: DCP(DGCNN(emb_dims=512, k=20)) with
@@ -15,7 +15,9 @@ served through K9, K10 and K6). ``dcp-int8-fused`` and
 hybrid P.V), the pointer's layers served through K11a/K11b. All in bf16
 eval. ``prnet``: PRNet() (PRDGCNN(512, k=20), the transformer pointer, 512
 keypoints, 3 iterations) in f32 eval, requests of B=32 (source, template)
-pairs of 768 and 1024 points (K8 and K6). All with the numpy-seeded
+pairs of 768 and 1024 points (K8 and K6). ``flownet``: FlowNet3D() in f32
+eval, requests of B=16 SyntheticSceneflow pairs of N=2048 points (K14, K15
+and K8). All with the numpy-seeded
 weights of chip_smoke.py, served through learning3d_tpu_torch's
 InferenceEngine under torch.profiler. Prints one JSON line: host wall time
 per request, device time per request by kernel (largest first), the
@@ -62,6 +64,11 @@ def build(name: str, rng):
                            dtype=bf16)
         load_nnx_state(model, chip_smoke.random_nnx_state(rng, chip_smoke.EMB, chip_smoke.CLASSES))
         return model, B, [rng.normal(size=(B, N, 3)).astype(np.float32)]
+    if name == "flownet":
+        from learning3d_tpu_torch.models import FlowNet3D
+
+        model = load_nnx_state(FlowNet3D(), chip_smoke.random_flownet_state(rng))
+        return model, chip_smoke.FLOW_B, list(chip_smoke.flow_requests(chip_smoke.FLOW_B))
     if name == "prnet":
         from learning3d_tpu_torch.models import PRNet
 
@@ -78,7 +85,7 @@ def build(name: str, rng):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=("pointnet", "dcp", "pointnet-int8", "dcp-int8", "dcp-int8-fused",
-                                            "dcp-int8-hybrid-fused", "prnet"), default="pointnet")
+                                            "dcp-int8-hybrid-fused", "prnet", "flownet"), default="pointnet")
     parser.add_argument("--requests", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():

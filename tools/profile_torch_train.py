@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's training step goes, on one card.
 
-    python3 tools/profile_torch_train.py [--model pointnet|dcp|ipcrnet|pcn|prnet] [--detailed] [--dtype bf16|f32]
-                                         [--steps 10]
+    python3 tools/profile_torch_train.py [--model pointnet|dcp|ipcrnet|pcn|prnet|flownet] [--detailed]
+                                         [--dtype bf16|f32] [--steps 10]
 
 ``--model pointnet`` (the default) is bench.py's training configuration:
 Classifier(PointNet(emb_dims=1024, use_bn=True)), 40 classes, B=256 clouds
@@ -22,13 +22,19 @@ Chamfer term. ``--model prnet`` is PRNet() (PRDGCNN(512, k=20), the
 transformer pointer, 512 keypoints, 3 iterations) on B=16 pairs
 (examples/train_prnet.py) of a 768-point partial source and a 1024-point
 template from RegistrationData("PRNet", partial_source=True), its own
-discounted loss, in f32. All run through learning3d_tpu_torch's Trainer (its
+discounted loss, in f32. ``--model flownet`` is examples/train_flownet.py's
+FlowNet3D() on B=16 SyntheticSceneflow pairs of N=2048 points, the masked
+flow MSE, SGD (lr 1e-3, momentum 0.9), in f32. All run through
+learning3d_tpu_torch's Trainer (its
 train_step on one device batch), with the numpy-seeded weights of
 chip_smoke.py. After a few warm-up
-steps, ``--steps`` steps run under torch.profiler. Prints one JSON line:
-host wall time per step, device time per step by kernel (largest first),
-the device's idle share (1 - device busy time / wall time) and the launches
-per step. Needs a CUDA card.
+steps, ``--steps`` steps run without the profiler, timed on the host's
+clock after a synchronize, then ``--steps`` more under torch.profiler.
+Prints one JSON line: host wall time per step, with and without the
+profiler, device time per step by kernel (largest first), the device's
+idle share (1 - device busy time / wall time) against either wall time
+(the profiler's own host overhead lengthens the profiled steps) and the
+launches per step. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -49,7 +55,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", choices=("pointnet", "dcp", "ipcrnet", "pcn", "prnet"), default="pointnet")
+    parser.add_argument("--model", choices=("pointnet", "dcp", "ipcrnet", "pcn", "prnet", "flownet"),
+                        default="pointnet")
     parser.add_argument("--detailed", action="store_true", help="pcn: with the folding decoder")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default=None,
                         help="bf16 for pointnet and f32 for the others unless given")
@@ -101,6 +108,15 @@ def main() -> None:
         data = RegistrationData("PRNet", SyntheticModelNet40(num_points=N, size=B), partial_source=True)
         batch = to_device(next(batch_iterator(data, B, shuffle=False)), "cuda")
         cfg = dict(task="prnet")
+    elif args.model == "flownet":
+        from learning3d_tpu_torch.data import FlowData, SyntheticSceneflow
+        from learning3d_tpu_torch.models import FlowNet3D
+
+        B, N, unit = chip_smoke.FLOW_B, chip_smoke.FLOW_N, "pairs"
+        model = load_nnx_state(FlowNet3D(dtype=dtype), chip_smoke.random_flownet_state(rng))
+        data = FlowData(SyntheticSceneflow(npoints=N, size=B))
+        batch = to_device(next(batch_iterator(data, B, shuffle=False)), "cuda")
+        cfg = dict(task="flow", optimizer="sgd", momentum=chip_smoke.FLOW_MOMENTUM)
     else:
         B, N, unit = chip_smoke.DCP_B, chip_smoke.DCP_N, "pairs"
         model = DCP(DGCNN(emb_dims=chip_smoke.DCP_EMB, k=chip_smoke.DCP_K, dtype=dtype), dtype=dtype)
@@ -114,6 +130,11 @@ def main() -> None:
         for _ in range(3):
             trainer.train_step(batch)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        plain_wall_s = time.perf_counter() - t0
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
             t0 = time.perf_counter()
@@ -133,6 +154,7 @@ def main() -> None:
             launches += evt.count
     busy_ms = sum(per_kernel.values()) / 1e3 / args.steps
     wall_ms = 1e3 * wall_s / args.steps
+    plain_wall_ms = 1e3 * plain_wall_s / args.steps
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:25]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -143,6 +165,8 @@ def main() -> None:
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "wall_ms_per_step_unprofiled": plain_wall_ms,
+        "device_idle_share_unprofiled": 1.0 - busy_ms / plain_wall_ms,
         "device_launches_per_step": launches / args.steps,
         f"{unit}_per_s": B / (wall_ms * 1e-3),
         "device_ms_per_step": {k: v / 1e3 / args.steps for k, v in top},
