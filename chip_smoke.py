@@ -7,10 +7,10 @@ Drives the port's main paths at full width, bf16 and int8 (post-training
 quantized) eval serving of the PointNet-1024 classifier and of DCP
 registration (DGCNN-512, the co-attention pointer and the SVD head), bf16
 serving of iPCRNet with multi-start registration, f32 serving of PRNet
-(with multi-start registration) and of FlowNet3D, and training of the
-PointNet-1024 classifier, DCP, iPCRNet, PCN, PRNet and FlowNet3D through
-the Trainer, and holds every CUDA kernel of those paths against its plain
-PyTorch version.
+(with multi-start registration), of FlowNet3D and of RPMNet, and training
+of the PointNet-1024 classifier, DCP, iPCRNet, PCN, PRNet, FlowNet3D and
+RPMNet through the Trainer, and holds every CUDA kernel of those paths
+against its plain PyTorch version.
 Phases, one JSON line each with the seconds since start:
 
 1. device: the card, and its name and power limit from nvidia-smi;
@@ -211,6 +211,34 @@ Phases, one JSON line each with the seconds since start:
    changed; one step against the plain versions (FLOW_STEP_TOL, the
    control must fail); a save -> load round trip; the step's parts,
    pairs/s and peak memory;
+31. kernel_k16 (ball_group_pallas): against its plain version, values
+   equal, at RPMNet's PPFNet grouping (the template clouds of 16
+   RegistrationData("RPMNet") pairs with normals: 1024 queries among 1024
+   points, r 0.3, nsample 64, C = 6), nsample 8 (outside the TPU gate), a
+   ragged N = 1000 with 777 queries, centers outside the cloud and a lattice
+   on the radius; times, with torch.cdist + where + topk + gather as
+   ``library_ms``, and the bound from the points this run's queries read.
+   Its data, and that of the phases below, come from a generator of their
+   own;
+32. kernel_k17 (sinkhorn_log_pallas): against its plain version within
+   K17_TOL at RPMNet's Sinkhorn (16, 1024, 1024, 5 iterations) on
+   affinities of RPMNet's range, J != K, one iteration and a wide range;
+   times and the bound (no single PyTorch call computes the slack
+   Sinkhorn: ``library_ms`` null);
+33. serve_rpmnet: RPMNet() in f32 eval with numpy-seeded weights through
+   InferenceEngine(batch_size=16) on 16 and 5 pairs of N=1024 points with
+   normals: K16 3 and K17 2 launches a chunk, nothing else; est_T,
+   transformed_source and r finite, est_R a rotation; est_T,
+   transformed_source and r on the kernels against the plain versions
+   within RPM_TOL, and the control k17_bf16_output outside it; the bytes a
+   request copies out, pairs/s and model_ms;
+34. train_rpmnet: RPMNet() in f32, B=16, Adam 1e-3, through Trainer.fit on
+   RegistrationData("RPMNet", SyntheticModelNet40(use_normals=True)) for
+   RPM_TRAIN_STEPS steps: K16 3 and K17 2 launches a step (the backward
+   recomputes through K17's plain version); the loss finite, no step
+   skipped, every weight changed; one step against the plain versions
+   (RPM_STEP_TOL, the control must fail); a save -> load round trip; the
+   step's parts, pairs/s and peak memory;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``. Any
 failed check raises, so the script exits non-zero and prints no result. It
@@ -221,6 +249,7 @@ release checkpoint and writes only into the kernels' build directory.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import shutil
 import statistics
@@ -720,13 +749,13 @@ def phase_kernel_k6(rng) -> dict:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the kernel entries of the DCP, iPCRNet, PCN, PRNet and FlowNet3D
-    paths (K5, K6, K7, K9, K10, K11a/b; K1, K12, K13; K8; K14, K15) to the
-    kernels' plain versions (on the same card) for the reference run;
-    restored on exit."""
+    """Route the kernel entries of the DCP, iPCRNet, PCN, PRNet, FlowNet3D
+    and RPMNet paths (K5, K6, K7, K9, K10, K11a/b; K1, K12, K13; K8; K14,
+    K15; K16, K17) to the kernels' plain versions (on the same card) for the
+    reference run; restored on exit."""
     from learning3d_tpu_torch import quant
     from learning3d_tpu_torch.kernels import attention, chamfer, dgcnn_fused, edgeconv, emd, knn, pointnet_fused
-    from learning3d_tpu_torch.kernels import sampling, transformer_int8
+    from learning3d_tpu_torch.kernels import sampling, sinkhorn, transformer_int8
     from learning3d_tpu_torch.models import dgcnn
 
     def encoder(x, convs, bns, k, approx_knn=False):
@@ -752,7 +781,9 @@ def plain_versions():
                (pointnet_fused, "pointnet_pooled_kernel", pointnet_fused.oracle_chain),
                (chamfer, "nn_oneway", chamfer._nn_oneway_reference), (emd, "emd_kernel", emd._emd_fwd_reference),
                (knn, "knn_pallas", knn.knn_reference), (sampling, "fps_pallas", sampling.fps_reference),
-               (sampling, "ball_query_pallas", sampling.ball_query_reference)]
+               (sampling, "ball_query_pallas", sampling.ball_query_reference),
+               (sampling, "ball_group_pallas", sampling.ball_group_reference),
+               (sinkhorn, "sinkhorn_log_pallas", sinkhorn.sinkhorn_slack_reference)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
@@ -2903,6 +2934,358 @@ def phase_train_flownet(rng) -> dict:
     return result
 
 
+# RPMNet() as examples/train.py trains it (PPFNet: emb 96, radius 0.3, 64
+# neighbours, ppf + dxyz + xyz; 5 Sinkhorn iterations, 2 RPM iterations):
+# B=16 pairs of N=1024 points with normals from RegistrationData("RPMNet")
+# over SyntheticModelNet40(use_normals=True), f32, Adam lr 1e-3; served at
+# B=16 (BENCH_NOTES.md's RPMNet batch)
+RPM_B, RPM_N = 16, 1024
+RPM_REQUESTS = (16, 5)
+RPM_TRAIN_STEPS, RPM_LR = 3, 1e-3
+# a forward: PPFNet on the template once and on the source each iteration
+# (K16 once a PPFNet), one Sinkhorn an iteration (K17); the backward
+# recomputes the Sinkhorn through K17's plain version
+RPM_PER_FORWARD = {"ball_group_pallas": 3, "sinkhorn_log_pallas": 2}
+RPM_RADIUS, RPM_NSAMPLE = 0.3, 64
+# K17 against its plain version, max |k - p| absolute on the log matrix:
+# the kernel keeps row and column potentials, the plain version rewrites
+# the matrix pass after pass; at RPMNet's shape both lie within 4e-6 of the
+# f64 result, and 1e-5 is the JAX package's own tolerance between its
+# kernel and its XLA oracle
+K17_TOL = 1e-5
+# the served est_T and transformed_source on the kernels against the plain
+# versions, max |k - p| <= RPM_TOL * max |p|, and r (a difference of unit
+# features) to RPM_TOL absolute: K16 is exact and K17 within K17_TOL, which
+# the two Kabsch solves carry on; the control k17_bf16_output (K17's output
+# rounded to bf16, as a kernel computing below f32 would give) must fail it
+RPM_TOL = 1e-4
+# one RPMNet train step on the kernels against the same step on the plain
+# versions, per-tensor relative error (tools/torch_rpmnet_step_gaps.py sizes
+# it beside the plain step's own spread and a one-ulp move of the source)
+RPM_STEP_TOL = 1e-3
+RPM_NOISE_TOL = 1e-3
+
+
+def random_rpmnet_state(rng) -> dict:
+    """A flat nnx state of RPMNet() with numpy-seeded weights and GroupNorm
+    affines away from 1 and 0, keyed by the port's module paths (the JAX
+    package's)."""
+    from learning3d_tpu_torch.models import RPMNet
+    from learning3d_tpu_torch.utils.layers import GroupNorm, Linear
+
+    flat = {}
+    for name, mod in RPMNet(device="cpu").named_modules():
+        if isinstance(mod, Linear):
+            i, o = mod.in_features, mod.out_features
+            flat[f"{name}.kernel"] = rng.normal(0.0, i**-0.5, (i, o)).astype(np.float32)
+            flat[f"{name}.bias"] = rng.normal(0.0, 0.1, (o,)).astype(np.float32)
+        elif isinstance(mod, GroupNorm):
+            flat[f"{name}.scale"] = rng.uniform(0.5, 1.5, mod.num_features).astype(np.float32)
+            flat[f"{name}.bias"] = rng.normal(0.0, 0.1, mod.num_features).astype(np.float32)
+    return flat
+
+
+@functools.cache
+def rpm_clouds():
+    """The SyntheticModelNet40 clouds with normals that every RPMNet phase
+    draws from (normals estimated once an item and cached)."""
+    from learning3d_tpu_torch.data import SyntheticModelNet40
+
+    return SyntheticModelNet40(num_points=RPM_N, size=RPM_TRAIN_STEPS * RPM_B, use_normals=True)
+
+
+def rpm_requests(n_pairs, offset=0):
+    """(template, source) numpy arrays (n, 1024, 6) of RegistrationData("RPMNet")
+    items, from item ``offset`` on."""
+    from learning3d_tpu_torch.data import RegistrationData
+
+    ds = RegistrationData("RPMNet", rpm_clouds())
+    items = [ds[i] for i in range(offset, offset + n_pairs)]
+    return tuple(np.stack([it[j] for it in items]) for j in range(2))
+
+
+def ball_group_scan(radius, nsample, xyz, new_xyz, itself) -> int:
+    """The points K16's queries read: each query up to its nsample-th
+    in-ball point other than itself (all N where fewer are in the ball)."""
+    from learning3d_tpu_torch.kernels.knn import _sq_dist
+    from learning3d_tpu_torch.kernels.sampling import squared_radius
+
+    total = 0
+    cols = torch.arange(xyz.shape[1], device=xyz.device)
+    for b in range(xyz.shape[0]):
+        d = _sq_dist(new_xyz[b : b + 1], xyz[b : b + 1])
+        inside = (d <= torch.tensor(squared_radius(radius)).cuda()) & (cols != itself[b : b + 1, :, None])
+        reached = inside.int().cumsum(-1) >= nsample
+        total += int(torch.where(reached.any(-1), reached.int().argmax(-1) + 1, xyz.shape[1]).sum())
+    return total
+
+
+def k16_bound(radius, nsample, xyz, new_xyz, itself, values) -> tuple[float, str]:
+    """K16's bound: 9 f32 operations for each point a query reads, on the
+    CUDA cores; the clouds, the center indices and the values read once and
+    the (B, S, nsample, C) values written once."""
+    b, n, _ = xyz.shape
+    s, c = new_xyz.shape[1], values.shape[-1]
+    scanned = ball_group_scan(radius, nsample, xyz, new_xyz, itself)
+    nbytes = 12 * b * (n + s) + 4 * b * s + 4 * b * n * c + 4 * b * s * nsample * c
+    return bound(0.0, nbytes, f32_flops=9.0 * scanned)
+
+
+def library_ball_group(radius, nsample, xyz, new_xyz, itself, values):
+    """Yardstick only, never used by the port: torch.cdist, torch.where of
+    the in-ball indices other than the center's, torch.topk of the nsample
+    smallest, the center's index in the empty slots, and a gather."""
+    n, c = xyz.shape[1], values.shape[-1]
+    d = torch.cdist(new_xyz, xyz)
+    cols = torch.arange(n, device=xyz.device)
+    center = itself.long()[..., None]
+    key = torch.where((d <= radius) & (cols != center), cols, n)
+    key = torch.topk(key, nsample, dim=-1, largest=False).values
+    idx = torch.where(key == n, center, key)
+    return torch.gather(values, 1, idx.reshape(idx.shape[0], -1, 1).expand(-1, -1, c)).reshape(idx.shape + (c,))
+
+
+def phase_kernel_k16(rng) -> dict:
+    """K16 against its plain version, values equal, at RPMNet's grouping
+    (the template clouds of 16 pairs: S = N = 1024, r 0.3, nsample 64, C =
+    6), nsample 8 (outside the TPU gate's nsample * C % 128 == 0), N = 1000
+    (not a multiple of 32), centers outside [0, N), a lattice on the radius;
+    times at RPMNet's shape."""
+    from learning3d_tpu_torch.kernels.sampling import ball_group_pallas, ball_group_reference
+
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    pc = dev(rpm_requests(RPM_B)[0])
+    xyz = pc[..., :3].contiguous()
+    every = torch.arange(RPM_N, dtype=torch.int32, device="cuda").expand(RPM_B, RPM_N).contiguous()
+    cases = {"rpmnet": (RPM_RADIUS, RPM_NSAMPLE, xyz, xyz, every, pc),
+             "nsample_8": (RPM_RADIUS, 8, xyz, xyz, every, pc)}
+    x = dev(rng.uniform(-1.0, 1.0, (3, 1000, 6)).astype(np.float32))
+    cases["ragged"] = (RPM_RADIUS, RPM_NSAMPLE, x[..., :3].contiguous(), x[:, :777, :3].contiguous(),
+                       torch.arange(777, dtype=torch.int32, device="cuda").expand(3, 777).contiguous(), x)
+    it = every[:2].clone()
+    it[:, ::7], it[:, 3::7] = -1, RPM_N
+    cases["centers_outside"] = (RPM_RADIUS, RPM_NSAMPLE, xyz[:2], xyz[:2], it, pc[:2])
+    g = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    lat = dev((0.1 * g + 0.37).astype(np.float32)[rng.permutation(len(g))][None])
+    cases["on_the_radius"] = (0.1, 16, lat, lat, torch.arange(125, dtype=torch.int32, device="cuda")[None], lat)
+    checked = {}
+    with torch.inference_mode():
+        for name, args in cases.items():
+            got, want = ball_group_pallas(*args), ball_group_reference(*args)
+            torch.cuda.synchronize()
+            differ = int((got != want).sum())
+            require(differ == 0, f"K16 vs plain ({name}): {differ} values differ")
+            checked[name] = {"B": args[2].shape[0], "N": args[2].shape[1], "S": args[3].shape[1], "radius": args[0],
+                             "nsample": args[1], "C": args[5].shape[-1], "values_differing": differ}
+        args = cases["rpmnet"]
+        b_ms, b_by = k16_bound(*args)
+        times = {"kernel_ms": cuda_ms(lambda: ball_group_pallas(*args)),
+                 "plain_ms": cuda_ms(lambda: ball_group_reference(*args), reps=5, warmup=1),
+                 "library_ms": cuda_ms(lambda: library_ball_group(*args), reps=5), "bound_ms": b_ms, "bound_by": b_by}
+    result = {"max_abs_err": 0.0, "max_rel_err": 0.0, **times}
+    emit("kernel_k16", name="ball_group_pallas", tolerance="values equal", cases=checked,
+         main_shape="RPMNet's PPFNet grouping (16, 1024 among 1024, r 0.3, nsample 64, C 6)",
+         output_mb=4 * RPM_B * RPM_N * RPM_NSAMPLE * 6 / 1e6,
+         library="torch.cdist + torch.where + torch.topk + torch.gather, yardstick only", **result)
+    return result
+
+
+def rpm_affinity(rng, b, j, k, beta=1.0, alpha=0.7, c=96):
+    """RPMNet's affinity -beta (d - alpha), d the squared distance of unit
+    features, on the card."""
+    f = torch.from_numpy(rng.normal(size=(b, j, c)).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.normal(size=(b, k, c)).astype(np.float32)).cuda()
+    f, g = f / f.norm(dim=-1, keepdim=True), g / g.norm(dim=-1, keepdim=True)
+    d = (-2.0 * torch.matmul(f, g.transpose(1, 2)) + (f * f).sum(-1)[..., None]) + (g * g).sum(-1)[:, None]
+    return (-beta * (d - alpha)).contiguous()
+
+
+def k17_bound(b, j, k, n_iters) -> tuple[float, str]:
+    """K17's bound: the matrix read once and written once, against 2 n_iters
+    (J+1)(K+1) exponentials on the SFU, whichever takes longer."""
+    exp_s = 2.0 * n_iters * b * (j + 1) * (k + 1) / SFU_EXP_PER_S
+    bytes_s = 8.0 * b * j * k / PEAK_BYTES
+    return 1e3 * max(exp_s, bytes_s), "operations" if exp_s >= bytes_s else "bytes"
+
+
+def phase_kernel_k17(rng) -> dict:
+    """K17 against its plain version within K17_TOL at RPMNet's shape
+    (16, 1024, 1024) on affinities of RPMNet's range, at J != K, at one
+    iteration and at a wide range (beta 10); times at RPMNet's shape."""
+    from learning3d_tpu_torch.kernels.sinkhorn import sinkhorn_log_pallas, sinkhorn_slack_reference
+
+    cases = {"rpmnet": (rpm_affinity(rng, RPM_B, RPM_N, RPM_N), 5),
+             "j_ne_k": (rpm_affinity(rng, 3, 717, 1000, beta=3.0), 5),
+             "one_iteration": (rpm_affinity(rng, 2, 1024, 1024), 1),
+             "wide": (rpm_affinity(rng, 2, 513, 300, beta=10.0), 5)}
+    errs = {}
+    with torch.inference_mode():
+        for name, (la, n_iters) in cases.items():
+            got, want = sinkhorn_log_pallas(la, n_iters), sinkhorn_slack_reference(la, n_iters)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(got).all()), f"K17 ({name}): finite")
+            err = (got - want).abs().max().item()
+            require(err <= K17_TOL, f"K17 vs plain ({name}): max abs err {err} > {K17_TOL}")
+            errs[name] = {"shape": list(la.shape), "n_iters": n_iters, "max_abs_err": err,
+                          "min_log": want.min().item()}
+        la, n_iters = cases["rpmnet"]
+        b_ms, b_by = k17_bound(*la.shape, n_iters)
+        times = {"kernel_ms": cuda_ms(lambda: sinkhorn_log_pallas(la, n_iters)),
+                 "plain_ms": cuda_ms(lambda: sinkhorn_slack_reference(la, n_iters), reps=5, warmup=1),
+                 "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    err = max(e["max_abs_err"] for e in errs.values())
+    result = {"max_abs_err": err, "max_rel_err": err / abs(errs["rpmnet"]["min_log"]), **times}
+    emit("kernel_k17", name="sinkhorn_log_pallas", tolerance=f"max abs err <= {K17_TOL}", cases=errs,
+         main_shape="RPMNet's Sinkhorn (16, 1024, 1024), 5 iterations",
+         library="none: no single PyTorch call computes the slack Sinkhorn (the torch.logsumexp chain is the "
+                 "plain version)", **result)
+    return result
+
+
+@contextlib.contextmanager
+def k17_bf16_output():
+    """The control of the RPMNet checks: K17 with its output rounded to
+    bf16, as a kernel that computed below the configuration's f32 would
+    give."""
+    from learning3d_tpu_torch.kernels import sinkhorn
+
+    kernel = sinkhorn.sinkhorn_log_pallas
+    sinkhorn.sinkhorn_log_pallas = lambda la, n_iters=5: kernel(la, n_iters).to(torch.bfloat16).float()
+    try:
+        yield
+    finally:
+        sinkhorn.sinkhorn_log_pallas = kernel
+
+
+def rpm_gaps(model, inputs, control=None) -> dict:
+    """The model on the kernels against the same model on the plain
+    versions: max |k - p| / max |p| of est_T and transformed_source, max |k
+    - p| of r; and of the ``control``, if given."""
+    def gap(got, want):
+        return max([(got[k] - want[k]).abs().max().item() / want[k].abs().max().item()
+                    for k in ("est_T", "transformed_source")] + [(got["r"] - want["r"]).abs().max().item()])
+
+    got = model(*inputs)
+    with plain_versions():
+        want = model(*inputs)
+    out = {"rel_gap": gap(got, want)}
+    if control:
+        with control():
+            out["control_rel_gap"] = gap(model(*inputs), want)
+    return out
+
+
+def phase_serve_rpmnet(rng) -> dict:
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.models import RPMNet
+    from learning3d_tpu_torch.serve import InferenceEngine, _tree_map
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    model = load_nnx_state(RPMNet(), random_rpmnet_state(rng)).eval()
+    engine = InferenceEngine(model, batch_size=RPM_B)
+    requests, offset = [], 0
+    for n in RPM_REQUESTS:
+        requests.append(rpm_requests(n, offset))
+        offset += n
+    chunks = sum(-(-n // RPM_B) for n in RPM_REQUESTS)
+    reset_launches()
+    outs = [engine(*r) for r in requests]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    for name, count in launches.items():
+        require(count == RPM_PER_FORWARD.get(name, 0) * chunks,
+                f"serve_rpmnet: {name} launched {count} times for {chunks} chunks")
+    rot_err = 0.0
+    for r, out in zip(requests, outs):
+        n = r[0].shape[0]
+        require(out["est_T"].shape == (n, 4, 4) and len(out["perm_matrices"]) == 2, "serve_rpmnet: output shapes")
+        for key in ("est_T", "r", "transformed_source"):
+            require(bool(np.isfinite(out[key]).all()), f"serve_rpmnet: {key} finite")
+        rot_err = max(rot_err, rotation_error(out["est_R"]))
+    require(rot_err <= ROT_TOL, f"serve_rpmnet: est_R off a rotation by {rot_err}")
+    arrays = []
+    _tree_map(arrays.append, outs[0])
+    out_mb = sum(a.nbytes for a in arrays) / 1e6
+    inputs = [torch.from_numpy(a[:RPM_B]).cuda() for a in requests[0]]
+    with torch.inference_mode():
+        agree = rpm_gaps(model, inputs, control=k17_bf16_output)
+        require(agree["rel_gap"] <= RPM_TOL, f"serve_rpmnet: kernels vs plain {agree} > {RPM_TOL}")
+        require(agree["control_rel_gap"] > RPM_TOL, f"serve_rpmnet: the control passed {RPM_TOL}: {agree}")
+        model_ms = cuda_ms(lambda: model(*inputs), reps=5, warmup=2)
+        with plain_versions():
+            plain_model_ms = cuda_ms(lambda: model(*inputs), reps=2, warmup=1)
+    engine(*requests[0])
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine(*requests[0])
+    host_s = (time.perf_counter() - t0) / reps
+    result = {"launches": launches}
+    emit("serve_rpmnet", config={"model": "RPMNet() f32 eval (PPFNet emb 96, r 0.3, 64 neighbours; 5 Sinkhorn, "
+                                           "2 iterations)", "B": RPM_B, "N": RPM_N},
+         dataset="RegistrationData('RPMNet', SyntheticModelNet40(use_normals=True))", requests=list(RPM_REQUESTS),
+         chunks=chunks, launches={k: v for k, v in launches.items() if v}, max_rotation_error=rot_err,
+         tolerance=f"est_T, transformed_source <= {RPM_TOL} of max and r <= {RPM_TOL} against the plain versions, "
+                   "the k17_bf16_output control above it",
+         agree=agree, output_mb_per_request=out_mb, pairs_per_s=RPM_B / host_s, engine_ms=1e3 * host_s,
+         model_ms=model_ms, plain_model_ms=plain_model_ms, model_pairs_per_s=RPM_B / (model_ms * 1e-3))
+    return result
+
+
+def phase_train_rpmnet(rng) -> dict:
+    import dataclasses
+    import tempfile
+
+    from learning3d_tpu_torch.data import RegistrationData, batch_iterator, to_device
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.models import RPMNet
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    state = random_rpmnet_state(rng)
+
+    def build():
+        return load_nnx_state(RPMNet(), state)
+
+    data = RegistrationData("RPMNet", rpm_clouds())
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = TrainConfig(exp_name="chip_smoke_train_rpmnet", task="rpmnet", batch_size=RPM_B, num_points=RPM_N,
+                          optimizer="adam", lr=RPM_LR, epochs=1, ckpt_dir=ckpt)
+        trainer = Trainer(cfg, build())
+        before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        reset_launches()
+        with contextlib.redirect_stdout(sys.stderr):  # the Trainer's epoch line
+            trainer.fit(data)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        want = {k: v * RPM_TRAIN_STEPS for k, v in RPM_PER_FORWARD.items()}
+        require(launches == want, f"train_rpmnet launches {launches} in {RPM_TRAIN_STEPS} steps (want {want})")
+        epoch = trainer.history[-1]
+        skipped, changed = check_trained(trainer, before)
+        require(all(np.isfinite(epoch[k]) for k in ("train_rot_deg", "train_trans")), f"train metrics: {epoch}")
+        batch = to_device(next(batch_iterator(data, RPM_B, seed=SEED)), "cuda")
+        require(len(batch) == 3 and batch[0].shape == (RPM_B, RPM_N, 6), "the (template, source, igt) batch")
+        agreement = step_agreement(lambda: Trainer(cfg, build()), batch, RPM_STEP_TOL, plain_versions, (),
+                                   RPM_NOISE_TOL, what="RPMNet train step", control=k17_bf16_output)
+        check_round_trip(trainer, lambda: Trainer(dataclasses.replace(cfg, resume="latest"), build()), data)
+        trainer.model.train()
+        torch.cuda.reset_peak_memory_stats()
+        timing = time_train_step(trainer, batch, reps=3, unit="pairs")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        trainer.close()
+    result = {"launches": launches, "train_loss": epoch["train_loss"], "train_rot_deg": epoch["train_rot_deg"],
+              "epoch_s": epoch["seconds"], "peak_memory_gib": peak_gib, **timing}
+    emit("train_rpmnet", config={"model": "RPMNet() f32 train", "B": RPM_B, "N": RPM_N, "optimizer": "adam",
+                                 "lr": RPM_LR, "steps": RPM_TRAIN_STEPS},
+         dataset="RegistrationData('RPMNet', SyntheticModelNet40(use_normals=True))", skipped_steps=skipped,
+         tensors_changed=sum(changed.values()), tensors=len(changed),
+         step_vs_plain={"tolerance": f"loss, gradients {RPM_STEP_TOL}; the control k17_bf16_output must fail",
+                        **agreement},
+         roundtrip="exact", **result)
+    return result
+
+
 def kernel_entry(name, source, replaces, launches, res) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -3007,6 +3390,11 @@ def main() -> None:
     k8_launches = serve_prnet["launches"]["knn_pallas"] + serve_prnet["multistart_launches"]["knn_pallas"] + \
         train_prnet["launches"]["knn_pallas"] + serve_flownet["launches"]["knn_pallas"] + \
         train_flownet["launches"]["knn_pallas"]
+    rpm_rng = np.random.default_rng(SEED + 13)
+    k16 = phase_kernel_k16(rpm_rng)
+    k17 = phase_kernel_k17(rpm_rng)
+    serve_rpmnet = phase_serve_rpmnet(rpm_rng)
+    train_rpmnet = phase_train_rpmnet(rpm_rng)
 
     csrc = "learning3d_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
@@ -3044,6 +3432,12 @@ def main() -> None:
         kernel_entry("ball_query_pallas", csrc + "ball_query.cu", "learning3d_tpu/kernels/sampling.py:264",
                      serve_flownet["launches"]["ball_query_pallas"] + train_flownet["launches"]["ball_query_pallas"],
                      k15),
+        kernel_entry("ball_group_pallas", csrc + "ball_group.cu", "learning3d_tpu/kernels/sampling.py:183",
+                     serve_rpmnet["launches"]["ball_group_pallas"] + train_rpmnet["launches"]["ball_group_pallas"],
+                     k16),
+        kernel_entry("sinkhorn_log_pallas", csrc + "sinkhorn.cu", "learning3d_tpu/kernels/sinkhorn.py:52",
+                     serve_rpmnet["launches"]["sinkhorn_log_pallas"] +
+                     train_rpmnet["launches"]["sinkhorn_log_pallas"], k17),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -23,6 +23,8 @@ LAUNCHES: dict[str, int] = {
     "knn_pallas": 0,
     "fps_pallas": 0,
     "ball_query_pallas": 0,
+    "ball_group_pallas": 0,
+    "sinkhorn_log_pallas": 0,
 }
 
 

@@ -50,6 +50,8 @@ SIGNATURES = {
     "fps_smem_points": ([], ctypes.c_int),
     "fps_sample": ([_P] * 4 + [_I] * 3 + [_P], ctypes.c_int),
     "ball_query": ([_P] * 3 + [_I] * 4 + [_F, _P], ctypes.c_int),
+    "ball_group": ([_P] * 5 + [_I] * 5 + [_F, _P], ctypes.c_int),
+    "sinkhorn_slack": ([_P] * 4 + [_I] * 4 + [_P], ctypes.c_int),
     "l3d_error_string": ([_I], ctypes.c_char_p),
 }
 

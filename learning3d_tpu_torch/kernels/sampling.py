@@ -1,7 +1,8 @@
-"""Farthest-point sampling (K14) and ball query (K15): two CUDA kernels
-(``csrc/fps.cu``, ``csrc/ball_query.cu``), counterparts of
-``learning3d_tpu/kernels/sampling.py::fps_pallas`` and
-``::ball_query_pallas``.
+"""Farthest-point sampling (K14), ball query (K15) and the self-excluding
+ball grouping (K16): three CUDA kernels (``csrc/fps.cu``,
+``csrc/ball_query.cu``, ``csrc/ball_group.cu``), counterparts of
+``learning3d_tpu/kernels/sampling.py::fps_pallas``, ``::ball_query_pallas``
+and ``::ball_group_pallas``.
 
 ``fps_pallas(xyz, npoint, start=None)``: xyz (B, N, 3) -> idx (B, npoint)
 int32. The first pick is ``start`` (point 0 for None), each next one the
@@ -20,13 +21,27 @@ the ball N everywhere. ``r2`` is the Python float ``radius ** 2`` rounded
 once to f32, as the JAX package hands it to its kernel. Any N, S and
 nsample (the TPU kernel's nsample <= 128 is a limit of its VMEM).
 
+``ball_group_pallas(radius, nsample, xyz, new_xyz, itself_idx, values)``:
+xyz (B, N, 3), new_xyz (B, S, 3), itself_idx (B, S) int, values (B, N, C)
+-> (B, S, nsample, C) f32, PPFNet's grouping: the same in-ball test as the
+ball query, with column ``itself_idx[b, s]`` left out; slot j holds the
+values of the j-th in-ball column in ascending index order, and the slots
+past the count hold the values of column ``itself_idx[b, s]`` (zeros where
+that index lies outside [0, N), as the TPU kernel's one-hot gather gives).
+The values are gathered exactly: the TPU kernel gathers through a bf16
+hi/lo split on its matrix unit, which is off by up to ~2^-17 of a value;
+the JAX package's oracle ``index_points`` is exact, and so are this kernel
+and its plain version. Any nsample and C: the TPU kernel's ``nsample * C %
+128 == 0`` is a limit of its lanes.
+
 A CUDA tensor launches the kernel, or raises NotImplementedError naming the
-limit it breaks (``fps_kernel_limit``, ``ball_query_kernel_limit``: the
-indices and counts are int32); a CPU
-tensor runs the plain version (``fps_reference``, ``ball_query_reference``),
-the same arithmetic with torch ops, which the kernels match index for
-index. Neither kernel has a backward: the indices carry no gradient, and
-the callers detach the operands.
+limit it breaks (``fps_kernel_limit``, ``ball_query_kernel_limit``,
+``ball_group_kernel_limit``: the indices and counts are int32); a CPU
+tensor runs the plain version (``fps_reference``, ``ball_query_reference``,
+``ball_group_reference``), the same arithmetic with torch ops, which the
+kernels match index for index (value for value for K16). None of the
+kernels has a backward: the indices carry no gradient, K16's operands are
+geometry from the data, and the callers detach the operands.
 """
 
 from __future__ import annotations
@@ -55,6 +70,15 @@ def ball_query_kernel_limit(n, nsample):
     both are int32 in the kernel (N is also the index of an empty ball)."""
     if not (1 <= n <= INT32_MAX and 1 <= nsample <= INT32_MAX):
         return f"K15 (ball_query_pallas) takes 1 <= N, nsample <= 2**31 - 1 (int32), got N={n}, nsample={nsample}"
+    return None
+
+
+def ball_group_kernel_limit(n, nsample, c):
+    """The limit of K16 that N, ``nsample`` or C breaks, as a message, or
+    None: each is int32 in the kernel."""
+    if not (1 <= n <= INT32_MAX and 1 <= nsample <= INT32_MAX and 1 <= c <= INT32_MAX):
+        return (f"K16 (ball_group_pallas) takes 1 <= N, nsample, C <= 2**31 - 1 (int32), got N={n}, "
+                f"nsample={nsample}, C={c}")
     return None
 
 
@@ -204,3 +228,80 @@ def ball_query_pallas(radius, nsample, xyz, new_xyz):
     _build.check(err, "ball_query")
     LAUNCHES["ball_query_pallas"] += 1
     return idx
+
+
+def ball_group_reference(radius, nsample, xyz, new_xyz, itself_idx, values):
+    """The kernel's plain version: (B, S, nsample, C) f32. The in-ball
+    columns by exact per-coordinate differences, column ``itself_idx`` and
+    the rest outside the ball keyed N, the nsample smallest keys in
+    ascending order, N replaced by ``itself_idx``; then the values at those
+    columns (zeros at a center index outside [0, N)). Batches go in chunks
+    whose (b, S, N) intermediates stay under CHUNK_BYTES."""
+    p, q, v = xyz.float(), new_xyz.float(), values.float()
+    it = itself_idx.long()
+    B, N, _ = p.shape
+    S, C = q.shape[1], v.shape[-1]
+    r2 = torch.tensor(squared_radius(radius), device=p.device)
+    cols = torch.arange(N, device=p.device)
+    k = min(nsample, N)
+    step = max(1, CHUNK_BYTES // (8 * max(S, 1) * N))
+    outs = []
+    for lo in range(0, B, step):
+        d = _sq_dist(q[lo : lo + step], p[lo : lo + step])  # K8's C == 3 arithmetic: exact differences
+        center = it[lo : lo + step, :, None]
+        key = torch.where((d <= r2) & (cols != center), cols, N)
+        key = torch.topk(key, k, dim=-1, largest=False, sorted=True).values
+        if k < nsample:
+            key = torch.cat([key, torch.full(key.shape[:-1] + (nsample - k,), N, dtype=key.dtype,
+                                             device=key.device)], dim=-1)
+        idx = torch.where(key == N, center, key)
+        inside = (idx >= 0) & (idx < N)
+        flat = torch.where(inside, idx, 0).reshape(idx.shape[0], -1, 1).expand(-1, -1, C)
+        g = torch.gather(v[lo : lo + step], 1, flat).reshape(idx.shape + (C,))
+        outs.append(torch.where(inside[..., None], g, 0.0))
+    return torch.cat(outs)
+
+
+def _check_ball_group(nsample, xyz, new_xyz, itself_idx, values):
+    _check_ball_query(nsample, xyz, new_xyz)
+    B, N, S = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
+    if tuple(itself_idx.shape) != (B, S):
+        raise ValueError(f"itself_idx must be (B, S) = {(B, S)}, got {tuple(itself_idx.shape)}")
+    if values.ndim != 3 or tuple(values.shape[:2]) != (B, N) or values.shape[-1] == 0:
+        raise ValueError(f"values must be (B, N, C) with B, N = {(B, N)} and C >= 1, got {tuple(values.shape)}")
+    if itself_idx.dtype.is_floating_point or itself_idx.dtype == torch.bool:
+        raise ValueError(f"itself_idx must be an integer tensor, got {itself_idx.dtype}")
+    if not (xyz.device == itself_idx.device == values.device):
+        raise ValueError(f"xyz on {xyz.device}, itself_idx on {itself_idx.device}, values on {values.device}")
+
+
+def ball_group_pallas(radius, nsample, xyz, new_xyz, itself_idx, values):
+    """xyz (B, N, 3), new_xyz (B, S, 3), itself_idx (B, S), values (B, N, C)
+    -> (B, S, nsample, C) f32. One kernel launch on a CUDA tensor (past
+    ``ball_group_kernel_limit`` NotImplementedError), the plain version on a
+    CPU one. No gradient: the operands are detached."""
+    _check_ball_group(nsample, xyz, new_xyz, itself_idx, values)
+    if xyz.device.type == "cpu":
+        return ball_group_reference(radius, nsample, xyz.detach(), new_xyz.detach(), itself_idx,
+                                    values.detach())
+    if xyz.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xyz.device}")
+    limit = ball_group_kernel_limit(xyz.shape[1], nsample, values.shape[-1])
+    if limit is not None:
+        raise NotImplementedError(limit)
+    p, q = xyz.detach().float().contiguous(), new_xyz.detach().float().contiguous()
+    v = values.detach().float().contiguous()
+    it = itself_idx.detach().to(torch.int32).contiguous()
+    B, N, _ = p.shape
+    S, C = q.shape[1], v.shape[-1]
+    out = torch.empty((B, S, nsample, C), device=p.device, dtype=torch.float32)
+    if B == 0 or S == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = lib.ball_group(p.data_ptr(), q.data_ptr(), it.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, S,
+                             nsample, C, float(squared_radius(radius)), stream)
+    _build.check(err, "ball_group")
+    LAUNCHES["ball_group_pallas"] += 1
+    return out

@@ -1,8 +1,9 @@
 """Point-cloud geometry primitives, counterpart of
-``learning3d_tpu/ops/geometry.py``. Ported so far: what DGCNN, PRNet and
-FlowNet3D need (squared distances, exact kNN of a cloud and of queries
-among another cloud, neighbor gather, edge features, farthest-point
-sampling, ball query, three-NN inverse-distance interpolation).
+``learning3d_tpu/ops/geometry.py``. Ported so far: what DGCNN, PRNet,
+FlowNet3D and PPFNet need (squared distances, exact kNN of a cloud and of
+queries among another cloud, neighbor gather, edge features, farthest-point
+sampling, ball query, three-NN inverse-distance interpolation, the robust
+angle between vectors).
 
 All functions are channel-last (B, N, C). Neighbor selection follows
 ``jax.lax.top_k``: nearest first, exact ties to the smaller index.
@@ -234,3 +235,24 @@ def three_interpolate_weights(dist, eps=1e-8):
     """Inverse-distance weights: w = (1/(d + eps)) / sum(1/(d + eps))."""
     recip = 1.0 / (dist + eps)
     return recip / torch.sum(recip, dim=-1, keepdim=True)
+
+
+def angle(v1, v2, eps=1e-12):
+    """The angle between vector batches, atan2(|v1 x v2|, v1 . v2), as the
+    JAX package's ``angle``: where |v1 x v2|^2 <= eps the cross norm is
+    flushed to 0 (angles below ~1e-6 between unit vectors become 0 or pi),
+    and where also |v1 . v2| <= eps (a zero vector, such as the offset of a
+    neighbour slot padded with the center) the pair is pinned to atan2(0, 1)
+    = 0. The double where keeps the gradient finite (zero) at those points,
+    where sqrt and atan2 have none. v1 and v2 broadcast against each other
+    over the leading axes; the last axis is 3."""
+    v1, v2 = torch.broadcast_tensors(v1, v2)
+    cross = torch.linalg.cross(v1, v2, dim=-1)
+    s = torch.sum(cross * cross, dim=-1)
+    dot = torch.sum(v1 * v2, dim=-1)
+    safe_s = s > eps
+    cross_norm = torch.where(safe_s, torch.sqrt(torch.where(safe_s, s, torch.ones_like(s))), torch.zeros_like(s))
+    degen = ~safe_s & (torch.abs(dot) <= eps)
+    y = torch.where(degen, torch.zeros_like(cross_norm), cross_norm)
+    x = torch.where(degen, torch.ones_like(dot), dot)
+    return torch.atan2(y, x)

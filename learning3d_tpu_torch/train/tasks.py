@@ -2,7 +2,7 @@
 Every loss_fn has the signature ``loss_fn(model, batch, generator) ->
 (loss, aux_dict)``; ``generator`` is the Trainer's ``torch.Generator`` on
 the training device, for tasks that draw random numbers. Ported so far:
-classification, DCP, PRNet, iPCRNet, PCN and scene flow."""
+classification, DCP, PRNet, iPCRNet, PCN, scene flow and RPMNet."""
 
 from __future__ import annotations
 
@@ -39,6 +39,17 @@ def _rt_mse(R_est, t_est, R, t):
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
     RtR = (R_est[..., :, :, None] * R[..., :, None, :]).sum(-3)  # sum_j R_est[j, i] R[j, k]
     return torch.mean((RtR - eye) ** 2) + torch.mean((t_est - t) ** 2)
+
+
+def rpmnet(model, batch, generator=None):
+    """frobenius_norm_loss(est_T, igt) + rmse_features_loss(r), the reference's
+    train_rpmnet loss (PointNetLK's), with the registration metrics. The
+    model's ``default_iterations`` sets the iterations; its forward cuts the
+    gradient between them, so every iteration trains."""
+    template, source, igt = batch
+    out = model(template, source)
+    loss = losses.frobenius_norm_loss(out["est_T"], igt) + losses.rmse_features_loss(out["r"])
+    return loss, registration_errors(out["est_T"], igt)
 
 
 def ipcrnet(model, batch, generator=None):
@@ -104,5 +115,5 @@ def flownet(model, batch, generator=None):
     return loss, {"epe": err.mean(), "acc3d_strict": acc_s, "acc3d_relax": acc_r}
 
 
-TASKS = {"classification": classification, "ipcrnet": ipcrnet, "dcp": dcp, "prnet": prnet, "pcn": pcn,
-         "flow": flownet}
+TASKS = {"classification": classification, "rpmnet": rpmnet, "ipcrnet": ipcrnet, "dcp": dcp, "prnet": prnet,
+         "pcn": pcn, "flow": flownet}

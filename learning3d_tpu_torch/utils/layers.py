@@ -5,7 +5,8 @@ The reference's Conv1d(kernel=1) stacks are per-point Linear layers over
 channel-last (B, N, C) inputs. Parameters are kept in float32 and the
 arithmetic runs in the module's ``dtype`` (e.g. bf16), as flax nnx does
 with ``param_dtype`` and ``dtype``. BatchNorm follows ``nnx.BatchNorm``
-(``momentum=0.9``, fast variance, biased running variance), dropout
+(``momentum=0.9``, fast variance, biased running variance), GroupNorm
+``nnx.GroupNorm`` (eps 1e-6, fast variance, channel-last groups), dropout
 ``nnx.Dropout`` with an explicit ``torch.Generator``. The train-mode fused
 PointNet tail ``linear_bn_relu_maxpool`` is a ``torch.autograd.Function``
 over K3 and K4 (``kernels/poolgrad.py``).
@@ -124,6 +125,45 @@ class BatchNorm(nn.Module):
         mean = xs.mean(red)
         var = torch.clamp((xs * xs).mean(red) - mean * mean, min=0.0)
         self.update_running(mean.detach(), var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(dt).to(st)
+        return ((xs - mean) * mul + self.bias.to(dt).to(st)).to(dt)
+
+
+class GroupNorm(nn.Module):
+    """``nnx.GroupNorm(num_features, num_groups)`` with flax's defaults, on
+    channel-last input (B, ..., C): the C channels split into ``num_groups``
+    groups of consecutive channels, and each (batch item, group) normalised
+    by the statistics over every axis but the first, within the group's
+    channels. The statistics are in at least f32 with the fast variance,
+    var = max(0, E[x^2] - E[x]^2), and y = (x - mean) * (rsqrt(var + eps) *
+    weight) + bias, rounded to ``dtype``; eps is flax's 1e-6. (torch's
+    ``nn.GroupNorm`` is channel-first, takes eps 1e-5 and the two-pass
+    variance.) ``weight`` and ``bias`` are nnx's ``scale`` and ``bias``. No
+    running statistics: train and eval mode are the same."""
+
+    def __init__(self, num_features, num_groups=32, *, eps=1e-6, dtype=None, device=DEFAULT_DEVICE):
+        super().__init__()
+        if num_features % num_groups:
+            raise ValueError(f"num_features {num_features} is not a multiple of num_groups {num_groups}")
+        device = resolve_device(device)
+        self.num_features = num_features
+        self.num_groups = num_groups
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+
+    def forward(self, x):
+        dt = _compute_dtype(self.dtype, x, self.weight)
+        st = torch.promote_types(dt, torch.float32)
+        xs = x.to(dt).to(st)
+        B, C, G = x.shape[0], x.shape[-1], self.num_groups
+        g = xs.reshape(B, -1, G, C // G)
+        mean = g.mean((1, 3))
+        var = torch.clamp((g * g).mean((1, 3)) - mean * mean, min=0.0)
+        shape = (B,) + (1,) * (x.ndim - 2) + (C,)
+        mean = mean.repeat_interleave(C // G, dim=-1).reshape(shape)
+        var = var.repeat_interleave(C // G, dim=-1).reshape(shape)
         mul = torch.rsqrt(var + self.eps) * self.weight.to(dt).to(st)
         return ((xs - mean) * mul + self.bias.to(dt).to(st)).to(dt)
 

@@ -1143,3 +1143,184 @@ def test_flownet_runs_k14_k15_k8_on_card(cuda, monkeypatch):
             m.setattr(sampling, "ball_query_pallas", sampling.ball_query_reference)
             want = model(*inputs)
         assert torch.equal(got, want)
+
+
+# -- K16 (ball_group_pallas) and K17 (sinkhorn_log_pallas): RPMNet ---------------
+
+def unit_cloud(rng, b, n):
+    """Points with unit normals spread through the unit ball, as
+    SyntheticModelNet40's normalised clouds are: (B, N, 6)."""
+    x = rng.uniform(-1.0, 1.0, (b, n, 3))
+    nrm = rng.normal(size=(b, n, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    return np.concatenate([x, nrm], -1).astype(np.float32)
+
+
+def k16_case(name, rng, device):
+    """(radius, nsample, xyz, new_xyz, itself, values) of a K16 case."""
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    if name == "on_the_radius":
+        g = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        x = (0.1 * g + 0.37).astype(np.float32)[rng.permutation(len(g))][None]
+        v = np.concatenate([x, rng.normal(size=x.shape).astype(np.float32)], -1)
+        return 0.1, 16, dev(x), dev(x), dev(np.arange(125, dtype=np.int32)[None]), dev(v)
+    b, n, ns = {"rpmnet": (2, 1024, 64), "nsample_8": (2, 1024, 8), "ragged": (3, 1000, 64),
+                "small": (2, 20, 40), "outside": (2, 300, 64)}[name]
+    pc = unit_cloud(rng, b, n)
+    itself = np.broadcast_to(np.arange(n, dtype=np.int32), (b, n)).copy()
+    if name == "outside":  # center indices outside [0, N): nothing left out, zeros padded
+        itself[:, ::7] = -1
+        itself[:, 3::7] = n
+    return (0.3 if name != "small" else 0.9), ns, dev(pc[..., :3]), dev(pc[..., :3]), dev(itself), dev(pc)
+
+
+@pytest.mark.parametrize("name", ["rpmnet", "nsample_8", "ragged", "small", "outside", "on_the_radius"])
+def test_k16_matches_plain(cuda, name):
+    """K16 gives its plain version's values exactly: RPMNet's grouping (N =
+    S = 1024, r 0.3, nsample 64, C = 6), nsample 8 (outside the TPU gate's
+    nsample * 6 % 128 == 0), N = 1000 (not a multiple of 32), nsample past
+    N, center indices outside [0, N), a lattice on the radius."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.sampling import ball_group_pallas, ball_group_reference
+
+    case = k16_case(name, np.random.default_rng(len(name)), cuda)
+    before = LAUNCHES["ball_group_pallas"]
+    got = ball_group_pallas(*case)
+    want = ball_group_reference(*case)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ball_group_pallas"] == before + 1
+    assert got.shape == want.shape == case[3].shape[:2] + (case[1], case[5].shape[-1])
+    assert torch.equal(got, want)
+    if name == "outside":
+        assert bool((got[:, ::7, -1] == 0).all())
+
+
+def test_k16_refuses_past_its_limits(cuda):
+    from learning3d_tpu_torch.kernels.sampling import ball_group_pallas
+
+    x = torch.zeros(1, 40, 3, device=cuda)
+    it = torch.zeros(1, 10, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="K16"):
+        ball_group_pallas(0.5, 2**31, x, x[:, :10], it, x)
+    with pytest.raises(ValueError):
+        ball_group_pallas(0.5, 8, x, x[:, :10], it[:, :5], x)
+    with pytest.raises(ValueError):
+        ball_group_pallas(0.5, 8, x, x[:, :10], it.float(), x)
+
+
+def k17_case(name, rng, device):
+    """(log_alpha, n_iters): affinities of RPMNet's range, -beta (d - alpha)
+    with d the squared distance of unit features, or a wide random range."""
+    b, j, k, n_iters, beta = {"rpmnet": (2, 1024, 1024, 5, 1.0), "j_ne_k": (3, 300, 517, 5, 3.0),
+                              "small": (2, 5, 7, 5, 1.0), "one_iter": (2, 64, 96, 1, 1.0),
+                              "no_iter": (2, 33, 40, 0, 1.0), "wide": (2, 257, 255, 5, 10.0)}[name]
+    f = rng.normal(size=(b, j, 32))
+    g = rng.normal(size=(b, k, 32))
+    f /= np.linalg.norm(f, axis=-1, keepdims=True)
+    g /= np.linalg.norm(g, axis=-1, keepdims=True)
+    d = ((f[:, :, None] - g[:, None]) ** 2).sum(-1)
+    return torch.from_numpy((-beta * (d - 0.7)).astype(np.float32)).to(device), n_iters
+
+
+# The kernel keeps row and column potentials; the plain version rewrites the
+# matrix pass after pass, in another order: at RPMNet's shape they lie 4e-6
+# apart on log values down to -10 (each within 4e-6 of the f64 result).
+# 1e-5 absolute is the JAX package's own tolerance between its kernel and
+# its XLA oracle (tests/test_pallas_interpret.py).
+K17_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("name", ["rpmnet", "j_ne_k", "small", "one_iter", "no_iter", "wide"])
+def test_k17_matches_plain(cuda, name):
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.sinkhorn import sinkhorn_log_pallas, sinkhorn_slack_reference
+
+    la, n_iters = k17_case(name, np.random.default_rng(len(name)), cuda)
+    before = LAUNCHES["sinkhorn_log_pallas"]
+    got = sinkhorn_log_pallas(la, n_iters)
+    want = sinkhorn_slack_reference(la, n_iters)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sinkhorn_log_pallas"] == before + 1
+    assert got.shape == la.shape and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    if n_iters == 0:
+        assert torch.equal(got, la)
+    assert (got - want).abs().max().item() <= K17_ATOL
+
+
+def test_k17_backward_recomputes_through_plain(cuda):
+    """The gradient of K17 is the plain version's VJP at the same input (one
+    kernel launch, no launch in the backward)."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.sinkhorn import sinkhorn_log_pallas, sinkhorn_slack_reference
+
+    la, _ = k17_case("j_ne_k", np.random.default_rng(5), cuda)
+    w = torch.from_numpy(np.random.default_rng(6).normal(size=la.shape).astype(np.float32)).to(cuda)
+    x = la.clone().requires_grad_(True)
+    before = LAUNCHES["sinkhorn_log_pallas"]
+    (torch.exp(sinkhorn_log_pallas(x, 5)) * w).sum().backward()
+    assert LAUNCHES["sinkhorn_log_pallas"] == before + 1
+    y = la.clone().requires_grad_(True)
+    (torch.exp(sinkhorn_slack_reference(y, 5)) * w).sum().backward()
+    # the same recompute; only exp(out) differs by the forward's 1e-5
+    torch.testing.assert_close(x.grad, y.grad, rtol=1e-4, atol=1e-4 * y.grad.abs().max().item())
+
+
+def test_k17_refuses_bad_arguments(cuda):
+    from learning3d_tpu_torch.kernels.sinkhorn import sinkhorn_kernel_limit, sinkhorn_log_pallas
+
+    with pytest.raises(ValueError):
+        sinkhorn_log_pallas(torch.zeros(4, 4, device=cuda))
+    with pytest.raises(ValueError):
+        sinkhorn_log_pallas(torch.zeros(1, 4, 4, device=cuda), -1)
+    assert sinkhorn_kernel_limit(3, 2**30, 8) is not None and sinkhorn_kernel_limit(16, 1024, 1024) is None
+
+
+def test_rpmnet_runs_k16_k17_on_card(cuda, monkeypatch):
+    """RPMNet(PPFNet(emb 32)) at B=2, N=1024 with normals: K16 3 and K17 2
+    launches a forward; against the same model on the plain versions est_T
+    and transformed_source lie within 1e-4 of max and the feature residual r
+    within 1e-5 absolute (the difference of two sets of unit features: its
+    own max is small where the clouds are alike) (K16 exact, K17 1e-5); one
+    tasks.rpmnet step's gradients on the kernels against the plain versions'
+    within 1e-3 (K17's forward gap carried through two Kabsch solves)."""
+    from learning3d_tpu_torch.kernels import LAUNCHES, sampling, sinkhorn
+    from learning3d_tpu_torch.models import PPFNet, RPMNet
+    from learning3d_tpu_torch.train import tasks
+
+    rng = np.random.default_rng(11)
+    gen = torch.Generator().manual_seed(3)
+    model = RPMNet(feature_model=PPFNet(emb_dims=32, generator=gen), generator=gen)
+    template = torch.from_numpy(unit_cloud(rng, 2, 1024)).to(cuda)
+    source = template.clone()
+    source[..., :3] = source[..., :3] + 0.02
+    igt = torch.eye(4, device=cuda).expand(2, 4, 4).clone()
+    igt[:, :3, 3] = 0.02
+
+    def run():
+        model.zero_grad()
+        loss, aux = tasks.rpmnet(model, (template, source, igt))
+        loss.backward()
+        return loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    before = dict(LAUNCHES)
+    with torch.no_grad():
+        got = model(template, source)
+    assert {k: LAUNCHES[k] - before[k] for k in ("ball_group_pallas", "sinkhorn_log_pallas")} == {
+        "ball_group_pallas": 3, "sinkhorn_log_pallas": 2}
+    loss, grads = run()
+    with monkeypatch.context() as m:
+        m.setattr(sampling, "ball_group_pallas", sampling.ball_group_reference)
+        m.setattr(sinkhorn, "sinkhorn_log_pallas", sinkhorn.sinkhorn_slack_reference)
+        with torch.no_grad():
+            want = model(template, source)
+        want_loss, want_grads = run()
+    for key in ("est_T", "r", "transformed_source"):
+        assert bool(torch.isfinite(got[key]).all())
+        scale = 0.1 if key == "r" else want[key].abs().max().item()
+        assert (got[key] - want[key]).abs().max().item() <= 1e-4 * scale, key
+    assert abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item())
+    for name, g in grads.items():
+        assert bool(torch.isfinite(g).all()), name
+        ref = want_grads[name].norm().item()
+        assert (g - want_grads[name]).norm().item() <= 1e-3 * max(ref, 1e-12), name

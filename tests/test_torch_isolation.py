@@ -23,7 +23,8 @@ def port_files(*suffixes):
                   ROOT / "tools" / "sweep_torch_kernels.py", ROOT / "tools" / "time_kernel_build.py",
                   ROOT / "tools" / "profile_torch_train.py", ROOT / "tools" / "torch_dcp_step_gaps.py",
                   ROOT / "tools" / "torch_cls_step_gaps.py", ROOT / "tools" / "torch_prnet_step_gaps.py",
-                  ROOT / "tools" / "torch_flownet_step_gaps.py", ROOT / "tools" / "torch_square_distance_ab.py"]
+                  ROOT / "tools" / "torch_flownet_step_gaps.py", ROOT / "tools" / "torch_square_distance_ab.py",
+                  ROOT / "tools" / "torch_rpmnet_step_gaps.py"]
     return files
 
 
@@ -71,13 +72,14 @@ def test_no_torch_extension_build_and_no_releases():
 
 def test_entry_points_default_to_cuda():
     from learning3d_tpu_torch import DEFAULT_DEVICE, resolve_device
-    from learning3d_tpu_torch.models import DCP, DGCNN, PCN, Classifier, PointNet, PRNet, iPCRNet
+    from learning3d_tpu_torch.models import DCP, DGCNN, PCN, PPFNet, RPMNet, Classifier, PointNet, PRNet, iPCRNet
     from learning3d_tpu_torch.models.dcp import MLPHead
     from learning3d_tpu_torch.models.prnet import PRDGCNN, PRPointNet, PRSVDHead, TemperatureNet
+    from learning3d_tpu_torch.models.rpmnet import ParameterPredictionNet
     from learning3d_tpu_torch.serve import InferenceEngine, TemplateRegistrar
     from learning3d_tpu_torch.utils.jax_import import load_quant_pointnet
     from learning3d_tpu_torch.train import Trainer
-    from learning3d_tpu_torch.utils.layers import MLP1d, BatchNorm, Dropout, Linear
+    from learning3d_tpu_torch.utils.layers import MLP1d, BatchNorm, Dropout, GroupNorm, Linear
     from learning3d_tpu_torch.utils.transformer import (
         AnnotatedLayerNorm, FeedForward, MultiHeadedAttention, Transformer,
     )
@@ -86,7 +88,7 @@ def test_entry_points_default_to_cuda():
     for entry in (PointNet, Classifier, DGCNN, DCP, Transformer, MultiHeadedAttention, FeedForward,
                   AnnotatedLayerNorm, InferenceEngine, MLP1d, BatchNorm, Linear, resolve_device,
                   load_quant_pointnet, Trainer, Dropout, iPCRNet, PCN, PRNet, PRDGCNN, PRPointNet, PRSVDHead,
-                  TemperatureNet, MLPHead, TemplateRegistrar):
+                  TemperatureNet, MLPHead, TemplateRegistrar, PPFNet, RPMNet, ParameterPredictionNet, GroupNorm):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 
@@ -101,13 +103,15 @@ def test_training_subpackages_are_covered():
     for sub in ("train", "train.trainer", "train.tasks", "train.config", "train.metrics", "data", "data.dataloaders",
                 "data.device_pipeline", "losses", "losses.losses", "kernels.poolgrad", "kernels.edgeconv",
                 "kernels.chamfer", "kernels.emd", "kernels.knn", "models.pcrnet", "models.pcn", "models.prnet",
-                "ops.quaternion", "ops.geometry"):
+                "ops.quaternion", "ops.geometry", "ops.grouping", "kernels.sampling", "kernels.sinkhorn",
+                "models.ppfnet", "models.rpmnet", "utils.rigid"):
         assert f"learning3d_tpu_torch.{sub}" in names
     files = {p.relative_to(PORT).as_posix() for p in port_files(".py", ".cu") if PORT in p.parents}
     for f in ("train/trainer.py", "train/metrics.py", "data/dataloaders.py", "losses/losses.py",
               "kernels/csrc/poolgrad.cu", "kernels/edgeconv.py", "kernels/csrc/edgeconv.cu",
               "kernels/chamfer.py", "kernels/csrc/chamfer.cu", "kernels/emd.py", "kernels/csrc/emd.cu",
-              "kernels/knn.py", "kernels/csrc/knn.cu", "models/prnet.py"):
+              "kernels/knn.py", "kernels/csrc/knn.cu", "models/prnet.py", "kernels/csrc/ball_group.cu",
+              "kernels/sinkhorn.py", "kernels/csrc/sinkhorn.cu", "models/rpmnet.py"):
         assert f in files
 
 

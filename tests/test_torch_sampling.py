@@ -312,3 +312,104 @@ def test_three_interpolate_matches_jax():
     want_g = np.asarray(jax.grad(lambda f: jnp.sum(jax_interp(f) * ct))(jnp.asarray(feats)))
     assert np.isfinite(want_g).all()
     np.testing.assert_allclose(tf.grad.numpy(), want_g, rtol=0, atol=1e-6 * np.abs(want_g).max())
+
+
+# -- K16: ball_group_pallas (PPFNet's grouping) -------------------------------
+
+def jax_ball_group(radius, nsample, x, q, itself, vals):
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(jsampling.ball_group_pallas(radius, nsample, jnp.asarray(x), jnp.asarray(q),
+                                                      jnp.asarray(itself), jnp.asarray(vals), tile_s=64))
+
+
+def with_normals(x, seed):
+    n = np.random.default_rng(seed).normal(size=x.shape)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return np.concatenate([x, n], -1).astype(np.float32)
+
+
+def every_point(b, n):
+    return np.broadcast_to(np.arange(n, dtype=np.int32), (b, n)).copy()
+
+
+BG_CASES = {
+    # (radius, nsample, xyz, queries, itself, values): nsample * C % 128 == 0, the JAX kernel's lane limit
+    "rpmnet_like": lambda: (0.6, 64, normal(2, 200, 40), normal(2, 200, 40), every_point(2, 200),
+                            with_normals(normal(2, 200, 40), 41)),
+    "short_rows": lambda: (0.3, 64, normal(2, 150, 42), normal(2, 150, 42)[:, :70], every_point(2, 70),
+                           with_normals(normal(2, 150, 42), 43)),
+    "ragged_c16": lambda: (1.0, 8, normal(3, 131, 44), normal(3, 131, 44), every_point(3, 131),
+                           np.random.default_rng(45).normal(size=(3, 131, 16)).astype(np.float32)),
+}
+
+
+@pytest.mark.parametrize("case", list(BG_CASES))
+def test_ball_group_plain_version_matches_jax_kernel_in_interpret_mode(case):
+    """The plain version against the JAX kernel: the same columns, the
+    values to 1e-5 of the largest (the JAX kernel gathers through a bf16
+    hi/lo split, ~2^-17 of a value; the port gathers exactly). No launch on
+    a CPU tensor."""
+    radius, nsample, x, q, itself, vals = BG_CASES[case]()
+    before = dict(LAUNCHES)
+    got = tsampling.ball_group_pallas(radius, nsample, *map(torch.from_numpy, (x, q, itself, vals)))
+    assert LAUNCHES == before
+    assert got.dtype == torch.float32 and got.shape == (q.shape[0], q.shape[1], nsample, vals.shape[-1])
+    want = jax_ball_group(radius, nsample, x, q, itself, vals)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(vals).max()
+    if case == "short_rows":  # padded slots hold the center's own values
+        pads = (got.numpy()[:, :, -1] == vals[:, :70]).all(-1)
+        assert pads.all()
+
+
+def away_from_the_radius(radius, x, q, margin=1e-5):
+    d = ((q[:, :, None, :].astype(np.float64) - x[:, None, :, :]) ** 2).sum(-1)
+    return bool((np.abs(d - radius**2) > margin).all())
+
+
+@pytest.mark.parametrize("case", ["rpmnet_like", "short_rows"])
+def test_ball_group_plain_version_matches_jax_oracle(case):
+    """Away from the radius (every squared distance 1e-5 from r^2, asserted)
+    the plain version is bit-equal to JAX's oracle,
+    ``query_ball_point_excluding_self`` + ``index_points`` (exact gathers on
+    both sides)."""
+    from learning3d_tpu.ops import grouping as jgrouping
+
+    radius, nsample, x, q, itself, vals = BG_CASES[case]()
+    assert away_from_the_radius(radius, x, q)
+    got = tsampling.ball_group_reference(radius, nsample, *map(torch.from_numpy, (x, q, itself, vals)))
+    idx = jgrouping.query_ball_point_excluding_self(radius, nsample, jnp.asarray(x), jnp.asarray(q),
+                                                    jnp.asarray(itself))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jgeo.index_points(jnp.asarray(vals), idx)))
+
+
+def test_ball_group_centers_outside_the_cloud():
+    """A center index outside [0, N) leaves no column out and pads with
+    zeros, as the TPU kernel's one-hot gather does (its one-hot row matches
+    no column)."""
+    x = normal(1, 64, 46)
+    vals = with_normals(x, 47)
+    itself = np.array([[-1, 64, 5]], np.int32)
+    q = x[:, [0, 1, 5]]
+    got = tsampling.ball_group_reference(0.8, 64, *map(torch.from_numpy, (x, q, itself, vals))).numpy()
+    want = jax_ball_group(0.8, 64, x, q, itself, vals)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(vals).max()
+    assert (got[0, :2, -1] == 0).all()
+    d = ((x[0] - x[0, 0]) ** 2).sum(-1)
+    inside = np.flatnonzero(d <= np.float32(0.64))
+    np.testing.assert_array_equal(got[0, 0, : len(inside), :3], x[0][inside])  # point 0 itself among them
+    d = ((x[0] - x[0, 5]) ** 2).sum(-1)
+    inside = np.flatnonzero((d <= np.float32(0.64)) & (np.arange(64) != 5))  # point 5 left out
+    np.testing.assert_array_equal(got[0, 2, : len(inside), :3], x[0][inside])
+    assert (got[0, 2, len(inside) :] == vals[0, 5]).all()
+
+
+def test_ball_group_kernel_limit_and_argument_checks():
+    assert tsampling.ball_group_kernel_limit(1024, 64, 6) is None
+    assert "K16" in tsampling.ball_group_kernel_limit(1024, 2**31, 6)
+    x = torch.zeros(1, 10, 3)
+    with pytest.raises(ValueError):
+        tsampling.ball_group_pallas(0.5, 4, x, x, torch.zeros(1, 9, dtype=torch.int32), x)
+    with pytest.raises(ValueError):
+        tsampling.ball_group_pallas(0.5, 4, x, x, torch.zeros(1, 10), x)
+    with pytest.raises(ValueError):
+        tsampling.ball_group_pallas(0.5, 4, x, x, torch.zeros(1, 10, dtype=torch.int32), x[:, :5])

@@ -2,7 +2,7 @@
 """Where the time of the port's serving goes, on one card.
 
     python3 tools/profile_torch_serve.py [--model pointnet|dcp|pointnet-int8|dcp-int8|dcp-int8-fused|
-                                          dcp-int8-hybrid-fused|prnet|flownet] [--requests 20]
+                                          dcp-int8-hybrid-fused|prnet|flownet|rpmnet] [--requests 20]
 
 ``pointnet``: Classifier(PointNet(emb_dims=1024, use_bn=True)), requests of
 B=256 clouds of N=1024 points. ``dcp``: DCP(DGCNN(emb_dims=512, k=20)) with
@@ -17,7 +17,9 @@ eval. ``prnet``: PRNet() (PRDGCNN(512, k=20), the transformer pointer, 512
 keypoints, 3 iterations) in f32 eval, requests of B=32 (source, template)
 pairs of 768 and 1024 points (K8 and K6). ``flownet``: FlowNet3D() in f32
 eval, requests of B=16 SyntheticSceneflow pairs of N=2048 points (K14, K15
-and K8). All with the numpy-seeded
+and K8). ``rpmnet``: RPMNet() (PPFNet emb 96, 2 iterations, 5 Sinkhorn
+iterations) in f32 eval, requests of B=16 RegistrationData("RPMNet") pairs
+of N=1024 points with normals (K16 and K17). All with the numpy-seeded
 weights of chip_smoke.py, served through learning3d_tpu_torch's
 InferenceEngine under torch.profiler. Prints one JSON line: host wall time
 per request, device time per request by kernel (largest first), the
@@ -64,6 +66,11 @@ def build(name: str, rng):
                            dtype=bf16)
         load_nnx_state(model, chip_smoke.random_nnx_state(rng, chip_smoke.EMB, chip_smoke.CLASSES))
         return model, B, [rng.normal(size=(B, N, 3)).astype(np.float32)]
+    if name == "rpmnet":
+        from learning3d_tpu_torch.models import RPMNet
+
+        model = load_nnx_state(RPMNet(), chip_smoke.random_rpmnet_state(rng))
+        return model, chip_smoke.RPM_B, list(chip_smoke.rpm_requests(chip_smoke.RPM_B))
     if name == "flownet":
         from learning3d_tpu_torch.models import FlowNet3D
 
@@ -85,7 +92,8 @@ def build(name: str, rng):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=("pointnet", "dcp", "pointnet-int8", "dcp-int8", "dcp-int8-fused",
-                                            "dcp-int8-hybrid-fused", "prnet", "flownet"), default="pointnet")
+                                            "dcp-int8-hybrid-fused", "prnet", "flownet", "rpmnet"),
+                        default="pointnet")
     parser.add_argument("--requests", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's training step goes, on one card.
 
-    python3 tools/profile_torch_train.py [--model pointnet|dcp|ipcrnet|pcn|prnet|flownet] [--detailed]
+    python3 tools/profile_torch_train.py [--model pointnet|dcp|ipcrnet|pcn|prnet|flownet|rpmnet] [--detailed]
                                          [--dtype bf16|f32] [--steps 10]
 
 ``--model pointnet`` (the default) is bench.py's training configuration:
@@ -24,7 +24,11 @@ transformer pointer, 512 keypoints, 3 iterations) on B=16 pairs
 template from RegistrationData("PRNet", partial_source=True), its own
 discounted loss, in f32. ``--model flownet`` is examples/train_flownet.py's
 FlowNet3D() on B=16 SyntheticSceneflow pairs of N=2048 points, the masked
-flow MSE, SGD (lr 1e-3, momentum 0.9), in f32. All run through
+flow MSE, SGD (lr 1e-3, momentum 0.9), in f32. ``--model rpmnet`` is
+examples/train.py's RPMNet() (PPFNet emb 96, 2 iterations) on B=16 pairs of
+N=1024 points with normals from RegistrationData("RPMNet",
+SyntheticModelNet40(use_normals=True)), the Frobenius + feature-residual
+loss, Adam at 1e-3, in f32. All run through
 learning3d_tpu_torch's Trainer (its
 train_step on one device batch), with the numpy-seeded weights of
 chip_smoke.py. After a few warm-up
@@ -55,7 +59,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", choices=("pointnet", "dcp", "ipcrnet", "pcn", "prnet", "flownet"),
+    parser.add_argument("--model", choices=("pointnet", "dcp", "ipcrnet", "pcn", "prnet", "flownet", "rpmnet"),
                         default="pointnet")
     parser.add_argument("--detailed", action="store_true", help="pcn: with the folding decoder")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default=None,
@@ -108,6 +112,14 @@ def main() -> None:
         data = RegistrationData("PRNet", SyntheticModelNet40(num_points=N, size=B), partial_source=True)
         batch = to_device(next(batch_iterator(data, B, shuffle=False)), "cuda")
         cfg = dict(task="prnet")
+    elif args.model == "rpmnet":
+        from learning3d_tpu_torch.models import RPMNet
+
+        B, N, unit = chip_smoke.RPM_B, chip_smoke.RPM_N, "pairs"
+        model = load_nnx_state(RPMNet(dtype=dtype), chip_smoke.random_rpmnet_state(rng))
+        data = RegistrationData("RPMNet", chip_smoke.rpm_clouds())
+        batch = to_device(next(batch_iterator(data, B, shuffle=False)), "cuda")
+        cfg = dict(task="rpmnet")
     elif args.model == "flownet":
         from learning3d_tpu_torch.data import FlowData, SyntheticSceneflow
         from learning3d_tpu_torch.models import FlowNet3D
