@@ -39,9 +39,14 @@ Phases, one JSON line each with the seconds since start:
    768 queries against 1024 keys, and back; drawn from a generator of their
    own, so that the later phases see the data they saw before these cases
    were added), whose output must be f32, not rounded to bf16, within
-   K6_F32_TOL of the plain version; times, with
-   scaled_dot_product_attention as ``library_ms`` (at the head's shape with
-   the first backend, in PyTorch's order, that takes it, named);
+   K6_F32_TOL of the plain version; the edges of the wgmma instance's tiles
+   (N=37 against 200 keys, 768 against 1000, Dv=256 ragged, D=80 with
+   Dv=8, two heads side by side whose second head's K and V are inf, where
+   the first head must stay finite; from a third generator); times at the pointer's shape in bf16 and f32,
+   the head's, Dv=256 and PRNet's, each beside its bound, the three-product
+   floor of the exact max and the instance that ran, with
+   scaled_dot_product_attention as ``library_ms`` (in f32 and at the head's
+   shape with the first backend, in PyTorch's order, that takes it, named);
 7. serve_dcp: DCP(DGCNN(512, k=20)) in bf16 eval with numpy-seeded weights
    loaded through load_nnx_state, served through
    InferenceEngine(batch_size=32) on 32, 10 and 70 (template, source)
@@ -62,8 +67,13 @@ Phases, one JSON line each with the seconds since start:
    fused_layers=False); K9 against its plain version on the full, ragged and
    lattice clouds, with an eager topk + torch._int_mm chain as
    ``library_ms``; K10 in both modes (int8 and bf16 P V) at the pointer's
-   shape and a ragged N=M=1000, with scaled_dot_product_attention on the
-   dequantized q, k, v as ``library_ms``;
+   shape, a ragged N=M=1000 and the edges of its 128-key tiles (D=256 and
+   512, N=37 against 200 keys, 768 against 768, 100 against 1000, two heads
+   side by side, the second's keys all 127 and, in the hybrid mode through
+   the C entry, its bf16 V inf; from a generator of their own), timed at the pointer's
+   shape in both modes beside the bound, the three-product floor and the
+   instance, with scaled_dot_product_attention on the dequantized q, k, v
+   as ``library_ms``;
 10. serve_dcp_int8: the int8 clone through InferenceEngine on the DCP
    requests: K9 launched 2, K10 6 and K6 1 times a chunk, every output
    finite, every est_R a rotation, r and est_t within DCP_TOL of the same
@@ -249,6 +259,7 @@ release checkpoint and writes only into the kernels' build directory.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import json
 import shutil
@@ -665,9 +676,18 @@ def attention_bound(q, k, v) -> tuple[float, str]:
     return bound(flops, nbytes)
 
 
-def head_library_ms(q, k, v) -> tuple[float, str]:
-    """SDPA at the SVD head's shape (D=512, Dv=3) with the first backend,
-    in PyTorch's order of preference, that takes it; its time and name."""
+def attention_floor3(q, k, v) -> float:
+    """K6's least time with the exact max (ms): the two passes' three
+    products, Q K^T twice and P V once, at the dense bf16 peak."""
+    B, H, N, D = q.shape
+    M, Dv = v.shape[2], v.shape[3]
+    return 1e3 * 2.0 * B * H * N * M * (2 * D + Dv) / PEAK_BF16_FLOPS
+
+
+def sdpa_library_ms(q, k, v) -> tuple[float, str]:
+    """SDPA on q, k, v with the first backend, in PyTorch's order of
+    preference, that takes them (the head's D=512, Dv=3, f32); its time and
+    name."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -680,7 +700,61 @@ def head_library_ms(q, k, v) -> tuple[float, str]:
                 return cuda_ms(lambda: sdpa(q, k, v)), f"scaled_dot_product_attention ({backend.name})"
         except RuntimeError:
             continue
-    raise RuntimeError("no SDPA backend takes the head's shape")
+    raise RuntimeError(f"no SDPA backend takes q {tuple(q.shape)} {q.dtype}, v {tuple(v.shape)}")
+
+
+def k6_instance(q, v) -> str:
+    """The instance of K6 (attention.cu) that runs q, v's shapes."""
+    from learning3d_tpu_torch.kernels import _build
+
+    return _build.library().attention_bf16_instance(q.shape[-1], v.shape[-1]).decode()
+
+
+def side_by_side_heads(q, k, v, big):
+    """q, k, v with the second head's keys all ``big``: a kernel that read
+    them for the first head's keys past M would move its softmax."""
+    k = k.clone()
+    k[:, 1] = big
+    return q, k, v
+
+
+def inf_second_head(q, k, v):
+    """q, k, v with the second head's K and V all inf (see
+    ``check_first_head``)."""
+    k, v = k.clone(), v.clone()
+    k[:, 1] = v[:, 1] = float("inf")
+    return q, k, v
+
+
+def check_first_head(got, want, what: str, tol: float = TOL) -> tuple[float, float]:
+    """Two heads side by side whose second head's K and V are inf: the
+    first head within ``tol`` of its plain version and finite (a kernel that
+    read the second head's rows for the first head's keys past M would give
+    0 * inf = NaN there, though the mask makes their p exactly 0), the
+    second head not finite (its inputs did reach the kernel)."""
+    require(not bool(torch.isfinite(got[:, 1].float()).all()), f"{what}: the second head's inf reached it")
+    return check_close(got[:, :1], want[:, :1], f"{what}, first head", tol)
+
+
+# K10's one instance (csrc/attention_int8.cu), with its ring depth at D = 128
+K10_INSTANCE = "wgmma+TMA, 128-key tiles, 3 K + 2 V stages"
+
+
+def k10_hybrid_bf16_v(q, k, v16, s_q, s_k, s_v):
+    """K10's hybrid mode through its C entry on a bf16 V that the caller
+    made, so that V may hold what no int8 V widens to (inf). The wrapper
+    widens its int8 V to this layout, (B*H, M, D) bf16, first."""
+    from learning3d_tpu_torch.kernels import _build
+
+    B, H, N, D = q.shape
+    M = k.shape[2]
+    q, k, v16 = (t.contiguous() for t in (q, k, v16))
+    out = torch.empty((B, H, N, D), device=q.device, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _build.library().attention_int8(q.data_ptr(), k.data_ptr(), v16.data_ptr(), out.data_ptr(), B * H, N, M,
+                                          M, D, ctypes.c_float(s_q * s_k / D**0.5), ctypes.c_float(s_v), 0, stream)
+    _build.check(err, "attention_int8")
+    return out
 
 
 def phase_kernel_k6(rng) -> dict:
@@ -691,6 +765,7 @@ def phase_kernel_k6(rng) -> dict:
                 for shape in ((b, h, n, d), (b, h, m, d), (b, h, m, dv))]
 
     prnet_rng = np.random.default_rng([SEED, 6])  # cases added later draw apart from the shared stream
+    edge_rng = np.random.default_rng([SEED, 14])
 
     cases = {
         "pointer": qkv(DCP_B, 4, DCP_N, DCP_N, 128, 128),
@@ -704,6 +779,15 @@ def phase_kernel_k6(rng) -> dict:
         # 1024-point template, and back
         "prnet_f32": qkv(PRNET_TRAIN_B, 4, PRNET_NS, PRNET_NT, 128, 128, torch.float32, prnet_rng),
         "prnet_back_f32": qkv(PRNET_TRAIN_B, 4, PRNET_NT, PRNET_NS, 128, 128, torch.float32, prnet_rng),
+        # the edges of the wgmma instance's 128-row blocks and 128-key
+        # tiles: N below 64, key counts no multiple of the tile, Dv = 256
+        # ragged, a partial 64-column box of D with one narrow slab, and two
+        # heads side by side whose second head's K and V are inf
+        "n37_m200": qkv(1, 2, 37, 200, 128, 128, gen=edge_rng),
+        "n768_m1000": qkv(1, 2, 768, 1000, 128, 128, gen=edge_rng),
+        "dv256_ragged": qkv(1, 2, 300, 1000, 256, 256, gen=edge_rng),
+        "d80_dv8": qkv(1, 2, 130, 70, 80, 8, gen=edge_rng),
+        "heads_side_by_side": inf_second_head(*qkv(1, 2, 100, 200, 128, 128, gen=edge_rng)),
     }
     errs, times = {}, {}
     with torch.inference_mode():
@@ -714,21 +798,26 @@ def phase_kernel_k6(rng) -> dict:
             require(got.dtype == q.dtype, f"K6 ({name}): output {got.dtype} for q {q.dtype}")
             if q.dtype == torch.float32:
                 require(bool((got != got.to(torch.bfloat16).float()).any()), f"K6 ({name}): output rounded to bf16")
-            errs[name] = check_close(got, want, f"K6 vs plain ({name})",
-                                     K6_F32_TOL if q.dtype == torch.float32 else TOL)
-        for name in ("pointer", "head", "dv256", "prnet_f32"):
+            tol = K6_F32_TOL if q.dtype == torch.float32 else TOL
+            if name == "heads_side_by_side":
+                errs[name] = check_first_head(got, want, f"K6 vs plain ({name})", tol)
+                continue
+            errs[name] = check_close(got, want, f"K6 vs plain ({name})", tol)
+        for name in ("pointer", "pointer_f32", "head", "dv256", "prnet_f32", "prnet_back_f32"):
             q, k, v = cases[name]
             times[name] = {
                 "kernel_ms": cuda_ms(lambda: attention_pallas(q, k, v)),
                 "plain_ms": cuda_ms(lambda: attention_reference(q, k, v), reps=3, warmup=1),
-                "bound_ms": attention_bound(q, k, v)[0],
+                "bound_ms": attention_bound(q, k, v)[0], "floor3_ms": attention_floor3(q, k, v),
+                "instance": k6_instance(q, v),
             }
         q, k, v = cases["pointer"]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         l_ms = cuda_ms(lambda: sdpa(q, k, v))
         times["pointer"]["library_ms"] = l_ms
-        times["head"]["library_ms"], times["head"]["library"] = head_library_ms(*cases["head"])
         times["dv256"]["library_ms"] = cuda_ms(lambda: sdpa(*cases["dv256"]))
+        for name in ("pointer_f32", "head", "prnet_f32", "prnet_back_f32"):
+            times[name]["library_ms"], times[name]["library"] = sdpa_library_ms(*cases[name])
     bound_ms, bound_by = attention_bound(*cases["pointer"])
     result = {
         "max_abs_err": max(a for a, _ in errs.values()),
@@ -741,9 +830,13 @@ def phase_kernel_k6(rng) -> dict:
          shapes={"pointer": [DCP_B, 4, DCP_N, DCP_N, 128, 128], "head": [DCP_B, 1, DCP_N, DCP_N, DCP_EMB, 3],
                  "dv256": [DCP_B, 4, DCP_N, DCP_N, 256, 256], "pointer_f32": "pointer in f32",
                  "head_f32": "head in f32", "prnet_f32": [PRNET_TRAIN_B, 4, PRNET_NS, PRNET_NT, 128, 128],
-                 "prnet_back_f32": [PRNET_TRAIN_B, 4, PRNET_NT, PRNET_NS, 128, 128]},
+                 "prnet_back_f32": [PRNET_TRAIN_B, 4, PRNET_NT, PRNET_NS, 128, 128],
+                 "n37_m200": [1, 2, 37, 200, 128, 128], "n768_m1000": [1, 2, 768, 1000, 128, 128],
+                 "dv256_ragged": [1, 2, 300, 1000, 256, 256], "d80_dv8": [1, 2, 130, 70, 80, 8],
+                 "heads_side_by_side": [1, 2, 100, 200, 128, 128]},
          errors={k: {"abs": a, "rel": r} for k, (a, r) in errs.items()}, times=times,
-         library="torch scaled_dot_product_attention at the pointer's shape, yardstick only", **result)
+         library="torch scaled_dot_product_attention (default backends in bf16, the first that takes f32 or the "
+                 "head's shape), yardstick only", **result)
     return result
 
 
@@ -1021,35 +1114,63 @@ def attention_int8_bound(b, h, n, m, d, int8_pv) -> tuple[float, str]:
     return bound(0.0 if int8_pv else ops, nbytes, int8_ops=2 * ops if int8_pv else ops)
 
 
+def attention_int8_floor3(b, h, n, m, d, int8_pv) -> float:
+    """K10's least time with the exact max (ms): Q K^T twice in int8 and
+    P V once, in int8 or bf16."""
+    ops = 2.0 * b * h * n * m * d
+    return 1e3 * ((3 if int8_pv else 2) * ops / PEAK_INT8_OPS + (0 if int8_pv else ops) / PEAK_BF16_FLOPS)
+
+
 def phase_kernel_k10(rng) -> dict:
     from learning3d_tpu_torch.kernels.attention import attention_int8_kernel, attention_int8_reference
 
-    def qkv(b, h, n, m, d):
-        return [torch.from_numpy(rng.integers(-127, 128, (b, h, s, d)).astype(np.int8)).cuda() for s in (n, m, m)]
+    def qkv(b, h, n, m, d, gen=rng):
+        return [torch.from_numpy(gen.integers(-127, 128, (b, h, s, d)).astype(np.int8)).cuda() for s in (n, m, m)]
 
     s_q, s_k, s_v = 0.004, 0.005, 0.03
-    cases = {"pointer": qkv(DCP_B, 4, DCP_N, DCP_N, 128), "ragged": qkv(4, 4, 1000, 1000, 128)}
+    edge_rng = np.random.default_rng([SEED, 10, 14])  # cases added later draw apart from the shared stream
+    cases = {"pointer": qkv(DCP_B, 4, DCP_N, DCP_N, 128), "ragged": qkv(4, 4, 1000, 1000, 128),
+             # the edges of the 128-key tiles and 128-row blocks, D = 256 and
+             # 512 (shallower rings), and two heads side by side whose second
+             # head's keys are all 127
+             "n37_m200_d256": qkv(1, 1, 37, 200, 256, gen=edge_rng),
+             "n768_m768": qkv(1, 2, 768, 768, 128, gen=edge_rng),
+             "n100_m1000": qkv(1, 1, 100, 1000, 128, gen=edge_rng),
+             "n40_m300_d512": qkv(1, 1, 40, 300, 512, gen=edge_rng),
+             "heads_side_by_side": side_by_side_heads(*qkv(1, 2, 100, 200, 128, gen=edge_rng), 127)}
     errs, times = {}, {}
     with torch.inference_mode():
+        q, k, v = cases["pointer"]
+        deq = [(t.float() * s).to(torch.bfloat16) for t, s in ((q, s_q), (k, s_k), (v, s_v))]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        l_ms = cuda_ms(lambda: sdpa(*deq))
         for int8_pv in (True, False):
             mode = "int8_pv" if int8_pv else "hybrid"
             for name, (q, k, v) in cases.items():
                 got = attention_int8_kernel(q, k, v, s_q, s_k, s_v, int8_pv)
                 want = attention_int8_reference(q, k, v, s_q, s_k, s_v, int8_pv)
                 torch.cuda.synchronize()
+                if name == "heads_side_by_side":
+                    for h in range(2):
+                        check_close(got[:, h], want[:, h], f"K10 vs plain ({mode}, {name}, head {h})")
+                    if not int8_pv:  # the bf16 V the hybrid reads, the second head's inf
+                        v16 = v.to(torch.bfloat16)
+                        v16[:, 1] = float("inf")
+                        errs[f"{mode}/{name}_inf_v"] = check_first_head(
+                            k10_hybrid_bf16_v(q, k, v16, s_q, s_k, s_v),
+                            attention_int8_reference(q, k, v, s_q, s_k, s_v, False), f"K10 ({mode}, {name}, inf V)")
                 errs[f"{mode}/{name}"] = check_close(got, want, f"K10 vs plain ({mode}, {name})")
             q, k, v = cases["pointer"]
             times[mode] = {
                 "kernel_ms": cuda_ms(lambda: attention_int8_kernel(q, k, v, s_q, s_k, s_v, int8_pv)),
                 "plain_ms": cuda_ms(lambda: attention_int8_reference(q, k, v, s_q, s_k, s_v, int8_pv),
                                     reps=3, warmup=1),
+                "library_ms": l_ms,
+                "floor3_ms": attention_int8_floor3(DCP_B, 4, DCP_N, DCP_N, 128, int8_pv),
+                "instance": K10_INSTANCE,
             }
             times[mode]["bound_ms"], times[mode]["bound_by"] = attention_int8_bound(DCP_B, 4, DCP_N, DCP_N, 128,
                                                                                     int8_pv)
-        q, k, v = cases["pointer"]
-        deq = [(t.float() * s).to(torch.bfloat16) for t, s in ((q, s_q), (k, s_k), (v, s_v))]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        l_ms = cuda_ms(lambda: sdpa(*deq))
     exp_sfu_ms = 1e3 * DCP_B * 4 * DCP_N * DCP_N / SFU_EXP_PER_S
     served = times["int8_pv"]
     result = {

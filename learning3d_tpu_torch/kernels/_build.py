@@ -38,6 +38,8 @@ SIGNATURES = {
     "pointnet_pooled_int8": ([_P] * 11 + [_F] * 4 + [_P, _I, _I, _I, _P], ctypes.c_int),
     "dgcnn_encode_int8": ([_P] * 13 + [_F] * 4 + [_P, _P] + [_I] * 5 + [_P], ctypes.c_int),
     "attention_int8": ([_P] * 4 + [_I] * 5 + [_F, _F, _I, _P], ctypes.c_int),
+    "attention_int8_values": ([_P, _P] + [_I] * 5 + [_P], ctypes.c_int),
+    "attention_bf16_instance": ([_I, _I], ctypes.c_char_p),
     "layer_ln_quant": ([_P] * 4 + [_I] * 4 + [_F] * 3 + [_P], ctypes.c_int),
     "layer_gemm_s8": ([_P] * 7 + [_I] * 6 + [_P], ctypes.c_int),
     "layer_attention_s8": ([_P] * 4 + [_I] * 8 + [_F] * 3 + [_I, _P], ctypes.c_int),
@@ -72,8 +74,9 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
+    """A hash of the flags and of every source and header."""
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

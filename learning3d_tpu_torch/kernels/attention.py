@@ -22,7 +22,7 @@ from learning3d_tpu_torch.kernels import LAUNCHES
 from learning3d_tpu_torch.kernels import _build
 from learning3d_tpu_torch.ops.int8 import f32_scalar
 
-MAX_D, MAX_DV = 512, 512  # what the kernel's shared-memory tiles take (Dv in 128-wide slabs)
+MAX_D, MAX_DV = 512, 512  # what the kernel's shared-memory tiles take (Dv in slabs)
 
 
 def attention_reference(q, k, v):
@@ -43,6 +43,12 @@ def attention_oracle(q, k, v):
     s = torch.matmul(q.to(bf16).to(f32), k.to(bf16).to(f32).transpose(-1, -2)) / (q.shape[-1] ** 0.5)
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p.to(bf16).to(f32), v.to(bf16).to(f32)).to(q.dtype)
+
+
+def _aligned(t):
+    """``t`` (contiguous), or a copy of it if its data is not 16-byte
+    aligned: TMA reads a tensor only from a 16-byte aligned address."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_kernel_args(q, k, v):
@@ -71,7 +77,7 @@ def attention_pallas(q, k, v):
     B, H, N, D = q.shape
     M, Dv = v.shape[2], v.shape[3]
     bf16 = torch.bfloat16
-    qb, kb, vb = (t.to(bf16).contiguous() for t in (q, k, v))
+    qb, kb, vb = (_aligned(t.to(bf16).contiguous()) for t in (q, k, v))
     # the output in q's dtype, as the TPU kernel's: bf16 stored as such,
     # any other dtype from the kernel's f32 (so f32 is never rounded to bf16)
     out_f32 = q.dtype != bf16
@@ -165,13 +171,44 @@ def attention_int8_ok(q, k):
     return D % 128 == 0 and D <= INT8_MAX_D and 128 <= M <= 4096
 
 
+def key_order(mp):
+    """The key each position of K10's V^T holds, for ``mp`` keys (a
+    multiple of 16): in every 16 keys, position 4t + i holds key 2t + i for
+    i < 2 and key 8 + 2t + i - 2 for i >= 2. A thread's score accumulators
+    hold keys 2t, 2t+1, 8+2t, 9+2t of each 16, and an int8 wgmma A fragment
+    takes four consecutive k: stored in this order, a tile of V^T meets P
+    in the order the accumulators hand it over in."""
+    pos = torch.arange(mp)
+    r = pos % 16
+    t, i = r // 4, r % 4
+    return pos - r + torch.where(i < 2, 2 * t + i, 6 + 2 * t + i)
+
+
+PV_KEYS = 32  # K10's int8 V^T pads the keys to a multiple of this
+
+
+def int8_pv_values(v):
+    """(BH, M, D) int8 V -> (BH, D, Mp) V^T as K10's int8 P.V reads it: the
+    keys zero-padded to Mp (a multiple of PV_KEYS) and in ``key_order``.
+    Within 16 keys, key 8a + 2t + b goes to position 4t + 2a + b: a swap of
+    the (a, t) axes. The plain version of ``attention_int8_values``, the
+    port's kernel that makes it on the card in one coalesced pass (torch's
+    strided copy took 0.114 ms at the pointer's shape on the H100)."""
+    bh, m, d = v.shape
+    mp = -(-m // PV_KEYS) * PV_KEYS
+    if mp != m:
+        v = torch.nn.functional.pad(v, (0, 0, 0, mp - m))
+    return v.reshape(bh, mp // 16, 2, 4, 2, d).permute(0, 5, 1, 3, 2, 4).reshape(bh, d, mp)
+
+
 def attention_int8_kernel(q, k, v, s_q, s_k, s_v, int8_pv=False):
     """int8 (B, H, N|M, D) q, k, v -> (B, H, N, D) bf16. A CUDA tensor runs
     K10; a CPU tensor runs the plain version ``attention_int8_reference``.
 
-    The kernel reads V transposed, (B*H, D, Mp) with the keys zero-padded to
-    Mp = a multiple of 64: one transposing copy here, so that every tile of
-    V reaches shared memory by 16-byte loads."""
+    The kernel reads V as its P.V product takes it, made first by the
+    port's ``attention_int8_values`` kernel in one pass over V: with
+    ``int8_pv`` V^T in ``key_order`` (its plain version ``int8_pv_values``),
+    in the hybrid mode V widened to bf16."""
     if q.device.type == "cpu":
         return attention_int8_reference(q, k, v, s_q, s_k, s_v, int8_pv)
     if q.device.type != "cuda":
@@ -184,19 +221,20 @@ def attention_int8_kernel(q, k, v, s_q, s_k, s_v, int8_pv=False):
         raise ValueError("q, k, v must be int8 on one device")
     if D % 128 or not 128 <= D <= INT8_MAX_D or N < 1 or M < 1:
         raise ValueError(f"the kernel takes D % 128 == 0, D <= {INT8_MAX_D}; got D={D}, N={N}, M={M}")
-    Mp = -(-M // 64) * 64
-    qc = q.reshape(B * H, N, D).contiguous()
-    kc = k.reshape(B * H, M, D).contiguous()
-    vt = v.reshape(B * H, M, D).transpose(1, 2)
-    if Mp != M:
-        vt = torch.nn.functional.pad(vt, (0, Mp - M))
-    vt = vt.contiguous()
+    qc, kc, vc = (_aligned(t.reshape(B * H, -1, D).contiguous()) for t in (q, k, v))
+    mp = -(-M // PV_KEYS) * PV_KEYS if int8_pv else M
+    if int8_pv:
+        vk = torch.empty((B * H, D, mp), device=q.device, dtype=torch.int8)
+    else:
+        vk = torch.empty((B * H, M, D), device=q.device, dtype=torch.bfloat16)
     out = torch.empty((B * H, N, D), device=q.device, dtype=torch.bfloat16)
     oscale = s_v / 127.0 if int8_pv else s_v
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.attention_int8(qc.data_ptr(), kc.data_ptr(), vt.data_ptr(), out.data_ptr(), B * H, N, M, Mp, D,
+        err = lib.attention_int8_values(vc.data_ptr(), vk.data_ptr(), B * H, M, mp, D, int(bool(int8_pv)), stream)
+        _build.check(err, "attention_int8_values")
+        err = lib.attention_int8(qc.data_ptr(), kc.data_ptr(), vk.data_ptr(), out.data_ptr(), B * H, N, M, mp, D,
                                  ctypes.c_float(s_q * s_k / (D**0.5)), ctypes.c_float(oscale), int(bool(int8_pv)),
                                  stream)
     _build.check(err, "attention_int8")

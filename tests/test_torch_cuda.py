@@ -98,11 +98,22 @@ def test_k5_matches_plain(cuda, case, batch, n_pts, k, emb):
 
 
 # the pointer's shape, the SVD head's (D=512, Dv=3), ragged N and M, small
-# odd shapes, and the pointer's and head's in f32 (f32 DCP's calls)
+# odd shapes, and the pointer's and head's in f32 (f32 DCP's calls). The
+# edges of the wgmma instance's tiles: key counts that are no multiple of
+# the 128-key tile (200, 768, 1000), query counts past or below the 128
+# rows of a block (37, 300, 768), PRNet's f32 pointer (768 <-> 1024 keys),
+# Dv = 256 in two slabs, D = 80 (a partial 64-column box) with one narrow
+# slab, and the head's instance at a ragged shape; that instance's 8-column
+# slabs at wider V (D = 512 with Dv = 40, and Dv = 100, no multiple of 8).
 @pytest.mark.parametrize("batch,heads,n,m,d,dv,dtype", [
     (2, 4, 1024, 1024, 128, 128, torch.bfloat16), (2, 1, 1024, 1024, 512, 3, torch.bfloat16),
     (2, 4, 1000, 1000, 128, 128, torch.bfloat16), (1, 2, 37, 70, 64, 40, torch.bfloat16),
     (2, 4, 1024, 1024, 128, 128, torch.float32), (2, 1, 1024, 1024, 512, 3, torch.float32),
+    (1, 2, 37, 200, 128, 128, torch.bfloat16), (1, 2, 768, 1000, 128, 128, torch.bfloat16),
+    (2, 4, 768, 1024, 128, 128, torch.float32), (2, 4, 1024, 768, 128, 128, torch.float32),
+    (1, 2, 300, 1000, 256, 256, torch.bfloat16), (1, 2, 130, 70, 80, 8, torch.bfloat16),
+    (1, 1, 100, 200, 512, 3, torch.bfloat16), (1, 2, 100, 200, 512, 40, torch.bfloat16),
+    (1, 1, 37, 70, 128, 100, torch.bfloat16),
 ])
 def test_k6_matches_plain(cuda, batch, heads, n, m, d, dv, dtype):
     """K6 against its plain version. The output is in q's dtype, as the TPU
@@ -273,6 +284,48 @@ def test_dcp_f32_serves_on_card(cuda):
         assert err <= chip_smoke.DCP_TOL * np.abs(plain[key]).max(), key
 
 
+def side_by_side(rng, m, d, dv, dtype):
+    """q, k, v of B=1, H=2, N=100 with the second head's K and V all inf:
+    a kernel that read the second head's rows for the first head's keys
+    past M would give 0 * inf = NaN in the first head's P V, though the
+    mask makes their p exactly 0."""
+    import chip_smoke
+
+    q = torch.from_numpy(rng.normal(size=(1, 2, 100, d)).astype(np.float32)).to(dtype)
+    k = torch.from_numpy(rng.normal(size=(1, 2, m, d)).astype(np.float32)).to(dtype)
+    v = torch.from_numpy(rng.normal(size=(1, 2, m, dv)).astype(np.float32)).to(dtype)
+    return chip_smoke.inf_second_head(q, k, v)
+
+
+# the wgmma instance (D = 128, 256) and the mma.sync one (the head, D = 512)
+@pytest.mark.parametrize("d,dv", [(128, 128), (256, 256), (512, 3)])
+def test_k6_heads_do_not_read_each_other(cuda, d, dv):
+    import chip_smoke
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.attention import attention_pallas, attention_reference
+
+    q, k, v = (t.to(cuda) for t in side_by_side(np.random.default_rng(d), 200, d, dv, torch.bfloat16))
+    before = LAUNCHES["attention_pallas"]
+    got = attention_pallas(q, k, v)
+    want = attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["attention_pallas"] == before + 1
+    chip_smoke.check_first_head(got, want, f"K6 D={d}", 2e-2)
+
+
+def test_k6_instance_by_shape(cuda):
+    """The C entry names the instance it runs for (D, Dv): the wgmma one
+    for the pointer's shapes, the mma.sync one for the head's and for V
+    rows that no TMA map takes."""
+    from learning3d_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for d, dv in ((128, 128), (256, 256), (64, 40), (80, 8)):
+        assert lib.attention_bf16_instance(d, dv).decode().startswith("wgmma+TMA"), (d, dv)
+    for d, dv in ((512, 3), (128, 3), (512, 128), (128, 100)):
+        assert lib.attention_bf16_instance(d, dv).decode().startswith("mma.sync"), (d, dv)
+
+
 def test_k6_wide_values_raise(cuda):
     """Dv=640 at the pointer's shapes, past K6's Dv <= 512: the attention
     raises NotImplementedError naming K6's limit instead of running the
@@ -380,8 +433,12 @@ def test_k9_matches_plain(cuda, case, batch, n_pts, k, emb):
     assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
 
 
+# the pointer's shape, ragged N and M, D = 256; the edges of the 128-key
+# tiles (M = 768 and 1000 with N = 768 and 100), and D = 512, where the
+# Q tile and a K stage take 64 KB each and the rings are shallower
 @pytest.mark.parametrize("int8_pv", [True, False])
-@pytest.mark.parametrize("batch,heads,n,m,d", [(2, 4, 1024, 1024, 128), (1, 2, 1000, 1000, 128), (1, 1, 37, 200, 256)])
+@pytest.mark.parametrize("batch,heads,n,m,d", [(2, 4, 1024, 1024, 128), (1, 2, 1000, 1000, 128), (1, 1, 37, 200, 256),
+                                               (1, 2, 768, 768, 128), (1, 1, 100, 1000, 128), (1, 1, 40, 300, 512)])
 def test_k10_matches_plain(cuda, int8_pv, batch, heads, n, m, d):
     from learning3d_tpu_torch.kernels import LAUNCHES
     from learning3d_tpu_torch.kernels.attention import attention_int8_kernel, attention_int8_reference
@@ -399,6 +456,57 @@ def test_k10_matches_plain(cuda, int8_pv, batch, heads, n, m, d):
     # exact int8 products; exp, the row sum's order and round(127 p) may
     # differ by an ulp or one step of P
     assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("int8_pv", [True, False])
+def test_k10_heads_do_not_read_each_other(cuda, int8_pv):
+    """B=1, H=2, M=200 with the second head's keys all 127: a kernel that
+    read them for the first head's keys past M would move its softmax. The
+    hybrid mode's bf16 V can hold inf: through the C entry with the second
+    head's V inf, a read of it for the first head's keys past M would give
+    0 * inf = NaN there. (The int8 mode's V^T has the keys on its inner
+    axis, bounded by Mp; no int8 value is non-finite.)"""
+    import chip_smoke
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.attention import attention_int8_kernel, attention_int8_reference
+
+    rng = np.random.default_rng(2 + int8_pv)
+    q, k, v = (torch.from_numpy(rng.integers(-127, 128, (1, 2, s, 128)).astype(np.int8)) for s in (100, 200, 200))
+    k[:, 1] = 127
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    s_q, s_k, s_v = 0.004, 0.005, 0.03
+    before = LAUNCHES["attention_int8"]
+    got = attention_int8_kernel(q, k, v, s_q, s_k, s_v, int8_pv).float()
+    want = attention_int8_reference(q, k, v, s_q, s_k, s_v, int8_pv).float()
+    torch.cuda.synchronize()
+    assert LAUNCHES["attention_int8"] == before + 1
+    for h in range(2):
+        assert (got[:, h] - want[:, h]).abs().max().item() <= 2e-2 * want[:, h].abs().max().item(), h
+    if not int8_pv:
+        v16 = v.to(torch.bfloat16)
+        v16[:, 1] = float("inf")
+        chip_smoke.check_first_head(chip_smoke.k10_hybrid_bf16_v(q, k, v16, s_q, s_k, s_v), want, "K10 inf V", 2e-2)
+
+
+@pytest.mark.parametrize("int8_pv", [True, False])
+@pytest.mark.parametrize("m,d", [(1024, 128), (1000, 128), (200, 256), (33, 512)])
+def test_k10_values_match_plain(cuda, int8_pv, m, d):
+    """K10's V as its P.V reads it, made by attention_int8_values: V^T in
+    key_order, zero past M, equal to its plain version int8_pv_values; V
+    widened to bf16, equal to torch's."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.attention import PV_KEYS, int8_pv_values
+
+    rng = np.random.default_rng(m + d)
+    v = torch.from_numpy(rng.integers(-128, 128, (3, m, d)).astype(np.int8)).to(cuda)
+    mp = -(-m // PV_KEYS) * PV_KEYS
+    want = int8_pv_values(v.cpu()).to(cuda) if int8_pv else v.to(torch.bfloat16)
+    got = torch.full_like(want, 7)
+    stream = torch.cuda.current_stream().cuda_stream
+    _build.check(_build.library().attention_int8_values(v.data_ptr(), got.data_ptr(), 3, m, mp if int8_pv else m, d,
+                                                        int(int8_pv), stream), "attention_int8_values")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def quantized_layer(kind, d, heads, d_ff, batch, n, device, seed):
