@@ -83,8 +83,9 @@ Phases, one JSON line each with the seconds since start:
    modes at the DCP shape (B=32, N=1024, d=512, 4 heads, ff 1024) and at
    N=512, on the encoder's features, against their plain versions with the
    JAX package's tie-flip profile (max |diff| < 0.08, under 1% of the
-   elements above 2e-4); the unfused int8 layer (QuantMHA + QuantFF on K10
-   and torch._int_mm) as ``library_ms``;
+   elements above 2e-4), naming the attention instance that runs in each
+   mode; the unfused int8 layer (QuantMHA + QuantFF on K10 and
+   torch._int_mm) as ``library_ms``;
 12. serve_dcp_int8_fused, serve_dcp_int8_hybrid_fused and
    serve_dcp_int8_hybrid_fused_approx: bench.py's fused int8 DCP
    configurations (int8 P.V; hybrid P.V; hybrid with DGCNN(approx_knn=True))
@@ -1333,6 +1334,8 @@ def phase_kernel_k11(layers, inputs) -> dict:
              tolerance=f"max|k-p| < {LAYER_TOL['max_abs']}, under {LAYER_TOL['frac']} of elements above "
                        f"{LAYER_TOL['atol']}",
              shape={"B": DCP_B, "N": [DCP_N, 512], "d": d, "heads": heads, "ff": d_ff}, errors=kerrs,
+             attention_instances={m: k11.attention_instance(d // heads, m == "int8_pv")
+                                  for m in ("int8_pv", "hybrid")},
              library="the unfused int8 layer (QuantMHA + QuantFF: K10 and torch._int_mm), yardstick only",
              **out[kind])
     return out

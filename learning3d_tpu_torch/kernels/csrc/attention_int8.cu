@@ -36,7 +36,8 @@
 // the conversion is exact (|S| < 2^24) and rounding x * sscale is monotone
 // for sscale >= 0, so it is the max of the scaled scores bit for bit.
 //
-// Design (csrc/attention_sm90.cuh; K6's, csrc/attention.cu, with int8
+// Design (csrc/attention_sm90.cuh, where the consumers live, shared with
+// K11's int8 P.V instance; K6's design, csrc/attention.cu, with int8
 // operands):
 // * Grid (ceil(N / 128), BH), 384 threads: two consumer warpgroups of 64
 //   query rows and a producer warpgroup whose one thread issues every TMA
@@ -60,7 +61,8 @@
 //   shape) rather than by each block in shared memory through the CUDA
 //   cores, which are the busy units here.
 // * V's form for either mode is made before the kernel by values_t_kernel
-//   or values_bf16_kernel below (C entry attention_int8_values): a
+//   (sm90::values_t_block) or values_bf16_kernel below (C entry
+//   attention_int8_values): a
 //   coalesced pass through shared memory, where torch's strided copies took
 //   0.114 ms (the transpose) and 0.049 ms (the widening) at the pointer's
 //   shape on the H100, half of the attention kernel's own time.
@@ -89,7 +91,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kTileK = 128;  // keys a tile: 128 int8 keys are one swizzle row of V^T
+constexpr int kTileK = sm90::kS8TileK;
 constexpr int kMaxD = 512;
 
 struct Args {
@@ -99,90 +101,7 @@ struct Args {
   sm90::Layout lay;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
-}
-
-__device__ __forceinline__ uint32_t pack4(int b0, int b1, int b2, int b3) {
-  return static_cast<uint32_t>(b0 | (b1 << 8) | (b2 << 16) | (b3 << 24));
-}
-
-// Issues the warpgroup's 64 x 128 int32 scores S = Q K^T: `boxes` 128-wide
-// column boxes of Q (this warpgroup's 64 rows) and of the K tile, four
-// k-steps of 32 each. The caller commits the wgmma group and waits for it.
-__device__ __forceinline__ void issue_scores(int (&s)[64], const uint8_t* sq, const uint8_t* sk, int boxes) {
-  sm90::fence_operands(s);
-  sm90::wgmma_fence();
-  for (int b = 0; b < boxes; ++b) {
-    const uint64_t da = sm90::desc_sw128(sq + b * sm90::kRowsQ * sm90::kRowBytes, 16);
-    const uint64_t db = sm90::desc_sw128(sk + b * kTileK * sm90::kRowBytes, 16);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) sm90::mma_s8_ss_n128(s, da + 2 * kk, db + 2 * kk, b > 0 || kk > 0);
-  }
-}
-
-// The running integer max of rows g and g + 8 over a tile's scores. Only
-// the last tile is MASKED: there `left` is how many of its columns from
-// this thread's first (2 tq) on lie before M.
-template <bool MASKED>
-__device__ __forceinline__ void tile_max(int (&mx)[2], const int (&s)[64], int left) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i)
-    mx[(i >> 1) & 1] = max(mx[(i >> 1) & 1], !MASKED || 8 * (i >> 2) + (i & 1) < left ? s[i] : INT_MIN);
-}
-
-// p = expf(float(s) * sscale - m), in place (s then holds p's bits), and
-// l += p. Branch-free: in the MASKED last tile a column past M gets the
-// argument -inf, and expf gives exactly 0 (a branch around each expf would
-// serialize them).
-template <bool MASKED>
-__device__ __forceinline__ void tile_exp(int (&s)[64], float (&l)[2], const float (&m)[2], float sscale,
-                                         int left) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int h = (i >> 1) & 1;
-    const float x = __fsub_rn(__fmul_rn(__int2float_rn(s[i]), sscale), m[h]);
-    const float p = expf(!MASKED || 8 * (i >> 2) + (i & 1) < left ? x : -INFINITY);
-    l[h] += p;
-    s[i] = __float_as_int(p);
-  }
-}
-
-// P (the bits of p, from tile_exp) as wgmma A fragments. int8: round(127
-// p) to nearest even on the FP32 pipe (127 p is in [0, 127]; adding 1.5 *
-// 2^23 rounds it to an integer that the low byte of the sum's bits then
-// holds, where the F2I unit does 16 a clock an SM), four keys a register in
-// the fragment's k order: of the 32-key chunk c, accumulators 16c + {0, 1,
-// 4, 5}, {2, 3, 6, 7}, {8, 9, 12, 13}, {10, 11, 14, 15} (see key_order in
-// kernels/attention.py). bf16: k-step kk takes accumulators 8 kk .. 8 kk +
-// 7, the A-fragment layout.
-template <bool INT8_PV>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const int (&p)[64]) {
-  if constexpr (INT8_PV) {
-    uint32_t q[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i)
-      q[i] = __float_as_uint(__fadd_rn(__fmul_rn(__int_as_float(p[i]), 127.f), 12582912.f));
-    auto four = [&](int i0, int i1, int i2, int i3) {
-      return __byte_perm(__byte_perm(q[i0], q[i1], 0x0040), __byte_perm(q[i2], q[i3], 0x0040), 0x5410);
-    };
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int b = 16 * c;
-      pa[c][0] = four(b, b + 1, b + 4, b + 5);
-      pa[c][1] = four(b + 2, b + 3, b + 6, b + 7);
-      pa[c][2] = four(b + 8, b + 9, b + 12, b + 13);
-      pa[c][3] = four(b + 10, b + 11, b + 14, b + 15);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 64; i += 2)
-      pa[i >> 3][(i >> 1) & 3] = pack_bf16(__int_as_float(p[i]), __int_as_float(p[i + 1]));
-  }
-}
+using sm90::pack_bf16;
 
 template <bool INT8_PV>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
@@ -193,186 +112,29 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   const sm90::Layout& lay = a.lay;
   const sm90::Bars bars(smem, lay);
   const int bh = blockIdx.y, q0 = blockIdx.x * sm90::kRowsQ;
-  const int boxes = a.d / 128;
-  const int ntiles = (a.m + kTileK - 1) / kTileK;
   if (threadIdx.x == 0) bars.init(lay);
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // the producer
+  if (threadIdx.x / 128 == 2) {  // the producer
     sm90::setmaxnreg_dec<sm90::kProducerRegs>();
     if (threadIdx.x == 256) {
-      const sm90::Loads ld{&map_q, &map_k, &map_v, boxes, 128, kTileK, ntiles, a.d / sm90::kSlab,
-                           INT8_PV ? 1 : 2, INT8_PV ? 1 : 0};
+      const sm90::Loads ld{&map_q, &map_k, &map_v, a.d / 128, 128, kTileK, (a.m + kTileK - 1) / kTileK,
+                           a.d / sm90::kSlab, INT8_PV ? 1 : 2, INT8_PV ? 1 : 0};
       sm90::produce(ld, lay, smem, bars, q0, bh);
     }
-  } else {  // the consumers: rows q0 + 64 wg + [0, 64)
+  } else {  // the consumers (csrc/attention_sm90.cuh), O / l out as bf16
     sm90::setmaxnreg_inc<sm90::kConsumerRegs>();
-    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-    const int g = lane >> 2, tq = lane & 3;
-    const uint8_t* sq = smem + wg * 64 * sm90::kRowBytes;
-    sm90::Ring kr(lay.nk), vr(lay.nv);
-    const sm90::PingPong turns(wg);
-    int s[64];
-    // waits for the next K tile and issues its scores into s
-    auto issue = [&]() {
-      sm90::bar_wait(bars.k_full + kr.stage, kr.phase);
-      issue_scores(s, sq, smem + lay.k_off(kr.stage), boxes);
-    };
-    // after the wait: frees that K tile
-    auto retire = [&]() {
-      sm90::fence_operands(s);
-      sm90::release(bars.k_empty + kr.stage, lane);
-      kr.next();
-    };
-    const int left0 = a.m - 2 * tq;  // tile t: left0 - t kTileK
-    sm90::bar_wait(bars.q_full, 0);
-    turns.open();
-
-    // pass 1: the exact row max, an integer max of the accumulators (rows g
-    // and g + 8 of the warp's 16), converted and scaled once
-    int imx[2] = {INT_MIN, INT_MIN};
-    for (int t = 0; t < ntiles; ++t) {
-      turns.turn();
-      issue();
-      sm90::wgmma_commit();
-      turns.pass();
-      sm90::wgmma_wait<0>();
-      retire();
-      if ((t + 1) * kTileK <= a.m)
-        tile_max<false>(imx, s, 0);
-      else
-        tile_max<true>(imx, s, left0 - t * kTileK);
-    }
-    float mx[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      imx[h] = max(imx[h], __shfl_xor_sync(0xffffffffu, imx[h], 1));
-      imx[h] = max(imx[h], __shfl_xor_sync(0xffffffffu, imx[h], 2));
-      mx[h] = __fmul_rn(__int2float_rn(imx[h]), a.sscale);
-    }
-
-    // pass 2, per 128-column slab: p = expf(s - m), l = sum(p), O += P V.
-    // One wgmma group a tile, tile t's P V and tile t + 1's scores, whose
-    // exponentials follow while the other warpgroup's group runs.
     bf16* out = a.out + (size_t)bh * a.n * a.d;
-    const int row0 = q0 + wg * 64 + warp * 16 + g;
-    for (int v0 = 0; v0 < a.d; v0 += sm90::kSlab) {
-      int oi[64];
-      float of[64];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        oi[i] = 0;
-        of[i] = 0.f;
-      }
-      float l[2] = {0.f, 0.f};
-      uint32_t pa[8][4];
-      turns.turn();
-      issue();
-      sm90::wgmma_commit();
-      turns.pass();
-      sm90::wgmma_wait<0>();
-      retire();
-      const float sscale = a.sscale;
-      if (kTileK <= a.m)
-        tile_exp<false>(s, l, mx, sscale, 0);
-      else
-        tile_exp<true>(s, l, mx, sscale, left0);
-      pack_p<INT8_PV>(pa, s);
-      for (int t = 0; t < ntiles; ++t) {
-        const bool more = t + 1 < ntiles;
-        turns.turn();
-        sm90::bar_wait(bars.v_full + vr.stage, vr.phase);
-        const uint8_t* sv = smem + lay.v_off(vr.stage);
-        if constexpr (INT8_PV) {
-          sm90::fence_operands(oi);
-          sm90::wgmma_fence();
-          const uint64_t desc_v = sm90::desc_sw128(sv, 16);  // V^T: K-major, 128 rows of 128 keys
-#pragma unroll
-          for (int c = 0; c < 4; ++c) sm90::mma_s8_rs_n128(oi, pa[c], desc_v + 2 * c, 1);
-        } else {
-          sm90::fence_operands(of);
-          sm90::wgmma_fence();
-          const uint64_t desc_v = sm90::desc_sw128(sv, kTileK * sm90::kRowBytes);  // V: MN-major
-#pragma unroll
-          for (int kk = 0; kk < 8; ++kk) sm90::mma_bf16_rs_n128_mn(of, pa[kk], desc_v + 128 * kk, 1);
-        }
-        if (more) issue();
-        sm90::wgmma_commit();
-        turns.pass();
-        sm90::wgmma_wait<0>();
-        if constexpr (INT8_PV)
-          sm90::fence_operands(oi);
-        else
-          sm90::fence_operands(of);
-        sm90::release(bars.v_empty + vr.stage, lane);
-        vr.next();
-        if (more) {
-          retire();
-          if ((t + 2) * kTileK <= a.m)
-            tile_exp<false>(s, l, mx, sscale, 0);
-          else
-            tile_exp<true>(s, l, mx, sscale, left0 - (t + 1) * kTileK);
-          pack_p<INT8_PV>(pa, s);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = row0 + 8 * h;
-        if (row >= a.n) continue;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          float x[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 4 * j + 2 * h + e;
-            const float acc = INT8_PV ? __int2float_rn(oi[i]) : of[i];
-            x[e] = __fdiv_rn(__fmul_rn(acc, a.oscale), l[h]);
-          }
-          *reinterpret_cast<uint32_t*>(out + (size_t)row * a.d + v0 + 8 * j + 2 * tq) = pack_bf16(x[0], x[1]);
-        }
-      }
-    }
-    turns.close();
+    sm90::s8_two_pass_consumers<INT8_PV, float>(
+        lay, smem, bars, q0, a.n, a.m, a.d, a.sscale, a.oscale, [&](int row, int col, float x0, float x1) {
+          *reinterpret_cast<uint32_t*>(out + (size_t)row * a.d + col) = pack_bf16(x0, x1);
+        });
   }
 }
 
-// V as K10's P V reads it, made before the kernel in one pass over V.
-// INT8_PV: V^T (BH, D, Mp), its keys in key_order (position 16h + 4t + i
-// of a 16-key group holds key 16h + 2t + i for i < 2, 16h + 8 + 2t + i - 2
-// for i >= 2) and zero past M: a 64-key x 64-column tile a block, read and
-// written 16 bytes a thread through shared memory.
+// V^T in key_order for the int8 P V (sm90::values_t_block), V contiguous.
 __global__ void __launch_bounds__(256) values_t_kernel(const int8_t* v, int8_t* vt, int m, int mp, int d) {
-  __shared__ int8_t tile[64][64 + 16];
-  const int k0 = blockIdx.x * 64, c0 = blockIdx.y * 64, bh = blockIdx.z;
-  {
-    const int key = threadIdx.x >> 2, part = threadIdx.x & 3;
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (k0 + key < m) w = *reinterpret_cast<const uint4*>(v + ((size_t)bh * m + k0 + key) * d + c0 + 16 * part);
-    *reinterpret_cast<uint4*>(&tile[key][16 * part]) = w;
-  }
-  __syncthreads();
-  const int col = threadIdx.x >> 2, part = threadIdx.x & 3;  // positions 16 part .. 16 part + 15
-  if (k0 + 16 * part >= mp) return;
-  uint32_t w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int r = 4 * j + b, t = r >> 2, i = r & 3;  // position 16 part + r
-      const int key = 16 * part + (i < 2 ? 2 * t + i : 6 + 2 * t + i);
-      word |= static_cast<uint32_t>(static_cast<uint8_t>(tile[key][col])) << (8 * b);
-    }
-    w[j] = word;
-  }
-  int8_t* dst = vt + ((size_t)bh * d + c0 + col) * mp + k0 + 16 * part;
-  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  sm90::values_t_block(v, vt, m, mp, d, d, 1);
 }
 
 // Hybrid: V widened to bf16 (int8 values are exact), 16 values a thread.
@@ -393,18 +155,10 @@ __global__ void __launch_bounds__(256) values_bf16_kernel(const int8_t* v, bf16*
   }
 }
 
-sm90::Layout layout(int d, bool int8_pv) {
-  const int boxes = d / 128;
-  sm90::Layout lay{boxes * sm90::kRowsQ * sm90::kRowBytes, boxes * kTileK * sm90::kRowBytes,
-                   (int8_pv ? 1 : 2) * kTileK * sm90::kRowBytes, 0, 0};
-  sm90::choose_stages(&lay);
-  return lay;
-}
-
 template <bool INT8_PV>
 int launch(const void* q, const void* k, const void* v, void* out, int bh, int n, int m, int mp, int d, float sscale,
            float oscale, cudaStream_t stream) {
-  const sm90::Layout lay = layout(d, INT8_PV);
+  const sm90::Layout lay = sm90::s8_layout(d, INT8_PV);
   CUtensorMap mq, mk, mv;
   int err = sm90::make_map(&mq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, d, n, bh, 128, sm90::kRowsQ);
   if (err == 0) err = sm90::make_map(&mk, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, k, d, m, bh, 128, kTileK);

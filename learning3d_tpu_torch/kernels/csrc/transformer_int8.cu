@@ -6,47 +6,88 @@
 //
 // Replaces the TPU kernels learning3d_tpu/kernels/transformer_int8.py::
 // encoder_layer_int8 (body `_enc_kernel`) and ::decoder_layer_int8 (body
-// `_dec_kernel`). Same math as the port's plain versions
-// `encoder_layer_int8_reference` / `decoder_layer_int8_reference`.
+// `_dec_kernel`, attention `_attend`). Same math as the port's plain
+// versions `encoder_layer_int8_reference` / `decoder_layer_int8_reference`.
 //
 // The split. The TPU kernel runs one whole layer per batch item inside its
 // VMEM (~12 MB at the DCP shape). An SM has 227 KB of shared memory and one
 // (1024, 512) f32 activation is 2 MB, so here a layer is a short chain of
 // launches whose int8 and f32 intermediates go through device memory (L2
-// mostly: 0.5-2 MB a batch item):
-//   S1 `ln_quant`      one warp a row: LayerNorm in f32, then quant (or quant
-//                      alone, for the decoder's memory);
-//   S2 `gemm_s8`       int8 x int8 -> int32 on mma.sync m16n8k32, 128 x 128
-//                      block tiles, cp.async double buffering, and one of
-//                      three epilogues: requant at a per-column output scale
-//                      (Q|K|V in one GEMM for self-attention, K|V for cross,
-//                      Q alone for cross), ReLU + requant (FF1), dequant +
-//                      bias + f32 residual (Wo, FF2);
-//   S3 `attention_s8`  K10's two-pass int8 attention (csrc/attention_int8.cu)
-//                      reading Q, K and V by head in place from the
-//                      projection buffers (row stride 3d, or d and 2d for
-//                      cross); int8 P.V on the tensor cores with V
-//                      transposed inside its shared-memory tile load, the
-//                      hybrid P.V on the CUDA cores (below); its epilogue
-//                      rounds O to bf16 and quantizes it at s_att.
-// Launches a layer: encoder 7 (S1, S2 QKV, S3, S2 Wo, S1, S2 FF1, S2 FF2),
-// decoder 13 (S1, S2 QKV, S3, S2 Wo, S1, S1 memory, S2 Q, S2 KV, S3, S2 Wo,
-// S1, S2 FF1, S2 FF2). The residual stream stays f32 between them and is
-// written in x's dtype by the last GEMM only. Fusing further is later work.
+// mostly): encoder 7 (S1, S2 Q|K|V, S3, S2 Wo, S1, S2 FF1, S2 FF2), decoder
+// 13 (S1, S2 QKV, S3, S2 Wo, S1, S1 memory, S2 Q, S2 KV, S3, S2 Wo, S1, S2
+// FF1, S2 FF2); S3 with int8 P.V at d_k <= 256 is two (V^T, attention). The
+// residual stream stays f32 between them and is written in x's dtype by the
+// last GEMM only.
+//   S1 `ln_quant`       one warp a row: LayerNorm, then quant (or quant
+//                       alone, for the decoder's memory).
+//   S2 `gemm_s8`        int8 x int8 -> int32 on wgmma m64n128k32 s8.s8 fed by
+//                       TMA: 128 x 128 output tiles, a producer warp keeping
+//                       a 3-stage mbarrier ring of 128-byte k-steps of A (the
+//                       activations, (rows, k)) and B (the weight packed as
+//                       (out, in)) in flight, two consumer warpgroups of 64
+//                       rows, two blocks an SM so that one block's epilogue
+//                       runs under the other's products. The epilogues (one
+//                       template instance each, straight-line code): requant
+//                       at a per-column output scale (Q|K|V in one GEMM, K|V
+//                       for cross, Q alone for cross) or ReLU + requant
+//                       (FF1), staged as an int8 tile in the freed stages and
+//                       stored in whole rows; dequant + bias + f32 residual
+//                       (Wo, FF2), staged as an f32 tile and summed with the
+//                       residual row by row, every global access coalesced.
+//                       The tile's columns of the per-column vectors are
+//                       staged by the producer warp's other lanes. The
+//                       epilogue, not the products, bounds S2.
+//   S3 `attention`      int8 two-pass attention over Q, K and V read in place
+//                       from the projection buffers by head maps (4-D TMA
+//                       maps (columns, head, rows, batch): row stride 3d, or
+//                       d and 2d for cross; csrc/attention_sm90.cuh), the
+//                       epilogue rounding O / l to bf16 and quantizing it at
+//                       s_att into Wo's input. Three instances, by d_k and
+//                       mode (`layer_attention_instance` names the one that
+//                       runs):
+//     d_k <= 256, int8 P.V: K10's wgmma design (csrc/attention_int8.cu,
+//                       sm90::s8_two_pass_consumers) with l in f64, after
+//                       `values_t_kernel` writes V^T in key_order (a V^T
+//                       scratch). Bound by the softmax on the CUDA cores, as
+//                       K10, and the f64 l's conversions.
+//     d_k <= 256, hybrid: Q K^T for both passes on int8 wgmma (64-key tiles,
+//                       a K ring as deep as fits: pass 1 is bound by its
+//                       loads' latency), then bf16(p) handed through shared
+//                       memory to a chain on the CUDA cores: each thread owns
+//                       4 rows x 16 columns of O and walks the keys in order,
+//                       one FMA a key an output (exact product, one
+//                       rounding), 64 FMAs to 5 16-byte shared loads (1 of P,
+//                       4 of V in f32), no barrier inside the chain (a warp
+//                       reads back only its own P rows: __syncwarp around
+//                       the handover). The producer warpgroup's other three
+//                       warps widen each TMA'd int8 V tile to f32 once, into
+//                       a 2-stage ring. Bound by the chain's FMAs (2 B N M
+//                       d_k at 128 a clock an SM, ~0.51 ms at the DCP shape),
+//                       which issue at ~56% of that rate (PERF.md).
+//     d_k > 256 (both): the mma.sync instance (a 128-row Q tile and two K
+//                       stages do not fit 227 KB past d_k = 256): 64-key
+//                       tiles through shared memory, mma.sync m16n8k32, the
+//                       hybrid chain 64 FMAs to 8 shared loads between
+//                       block-wide barriers.
 //
-// Numeric traps, each kept as the plain version (and the TPU kernel) has it:
+// Numeric traps, each kept as the plain version (and the TPU kernel) has it.
+// Only the int32 products may run in any order; every other operation is the
+// plain version's, bit for bit:
 // * The oracle is the *_reference functions, not the module path: for a
 //   bf16 model the module path rounds each block's output to bf16 and adds
 //   the residual in bf16, while the layer keeps f32 throughout.
-// * quant is round(x / s) by IEEE division (__fdiv_rn), half to even
-//   (rintf), clamped to +-127. Built without --use_fast_math, and every
-//   epilogue is written with __fmul_rn/__fadd_rn so that nvcc does not
-//   contract it into FMAs: a one-ulp difference flips a .5 tie.
+// * quant is round(x / s) of the IEEE quotient, half to even, clamped to
+//   +-127. Built without --use_fast_math, and every epilogue is written
+//   with __fmul_rn/__fadd_rn so that nvcc does not contract it into FMAs: a
+//   one-ulp difference flips a .5 tie. S2's requant epilogues take x s_r
+//   (s_r = 1 / s rounded to f32) where that cannot change the rounded value
+//   and the IEEE quotient where it can (requant_epilogue).
 // * Association: projections acc * (f32(s_x) * s_w[c]) + b[c]; residual
 //   blocks (x32 + acc * (f32(s_att) * s_wo[c])) + b_o[c]. The products of
 //   scales are formed once, when the layer's weights are packed.
 // * The attention output passes through bf16 before its s_att quant. P is
-//   round(127 p) against the exact row max; l sums the unrounded f32 p.
+//   round(127 p) (int8 P.V) or bf16(p) (hybrid) against the exact row max,
+//   the same expf; l sums the unrounded f32 p.
 // * sscale = s_q s_k / sqrt(d_k) is taken in double by the caller and
 //   rounded to f32 once; K and V keep separate requant scales, per column.
 // * One flipped int8 value moves a whole row of the next GEMM, and through
@@ -56,51 +97,59 @@
 //   made order-free: the LayerNorm statistics and the softmax's l are
 //   summed in f64 and rounded to f32 once, and the hybrid P.V (exact f32
 //   products bf16(p) v) is summed in key order on the CUDA cores, as the
-//   plain version sums it. The JAX package sums these in f32 in XLA's
-//   order; the CPU tests hold the port's plain version to it.
+//   plain version sums it (a bf16 tensor-core P.V rounds otherwise). The
+//   JAX package sums these in f32 in XLA's order; the CPU tests hold the
+//   port's plain version to it.
 //
 // Bound. At the DCP shape (B=32, N=1024, d=512, 4 heads, ff 1024) an encoder
 // layer is 2 * 32,768 * 512 * (3 * 512 + 512 + 2 * 1024) = 137 G int8
 // operations in its GEMMs and 4 * 32 * 4 * 1024 * 1024 * 128 = 69 G in its
 // attention (with the hybrid P.V half of those at the bf16 rate): about 0.10
 // ms at the dense int8 peak (1,979 TOP/s); the decoder about 0.17 ms. Its
-// bytes are a few tens of MB (0.01-0.03 ms at 3.35 TB/s). So it is bound by
-// operations; mma.sync from shared memory reaches a fraction of that peak
-// (wgmma is the later step).
+// bytes are a few tens of MB (0.01-0.03 ms at 3.35 TB/s). The hybrid's P.V
+// has no tensor-core form that rounds as the plain version does, so its
+// floor is the chain's 17.2 G FMAs a launch on the CUDA cores (~0.51 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
 #include <string.h>
+
+#include "attention_sm90.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+using sm90::pack_bf16;
 
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint32_t ld32(const void* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
-}
 
 __device__ __forceinline__ uint32_t pack4(int b0, int b1, int b2, int b3) {
   return (static_cast<uint32_t>(b0) & 0xffu) | ((static_cast<uint32_t>(b1) & 0xffu) << 8) |
          ((static_cast<uint32_t>(b2) & 0xffu) << 16) | (static_cast<uint32_t>(b3) << 24);
 }
 
-// round(y / s), half to even, clamped to +-127.
+// round(y / s), half to even, clamped to +-127: the IEEE quotient, clamped,
+// then rounded on the FP32 pipe by adding 1.5 * 2^23 (the ulp there is 1, so
+// the add rounds to the nearest integer, ties to even, and the sum's bits
+// hold it), where rintf and the conversion to int each take the quarter-rate
+// conversion unit. y = 0 gives 0 without the division, whose check sends a
+// zero dividend to its slow path.
 __device__ __forceinline__ int quant(float y, float s) {
-  return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(y, s)), -127.f), 127.f));
+  const bool zero = y == 0.f;
+  const float x = fminf(fmaxf(__fdiv_rn(zero ? s : y, s), -127.f), 127.f);
+  const int q = __float_as_int(__fadd_rn(x, 12582912.f)) - 0x4B400000;
+  return zero ? 0 : q;
+}
+
+// The attention epilogue's value: quant(bf16(x), s_att).
+__device__ __forceinline__ int quant_bf16(float x, float s_att) {
+  return quant(__bfloat162float(__float2bfloat16_rn(x)), s_att);
 }
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
@@ -108,14 +157,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -198,144 +239,268 @@ __global__ void __launch_bounds__(kThreads) ln_quant_kernel(LnArgs args) {
 
 // ---------------------------------------------------------------- S2 ----
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;
-constexpr int kLdS = kBK + 16;  // shared rows of 80 bytes: conflict-free fragment loads
+namespace gemm {
 
-enum GemmMode { kRequant = 0, kReluRequant = 1, kResidual = 2 };
+constexpr int kBM = 128, kBN = 128;  // an output tile: two consumer warpgroups of 64 rows
+constexpr int kBK = 128;             // k-step: one 128-byte swizzle row of A and of B
+constexpr int kStages = 3;           // 96 KB a block: two blocks an SM
+constexpr int kThreads = 288;        // two consumer warpgroups and the producer warp
+constexpr int kStageBytes = (kBM + kBN) * kBK;
+constexpr int kBarBytes = 8 * (2 * kStages + 2);  // full[3], empty[3], vec_full, padding
+constexpr int kVecFloats = 4 * kBN;               // the tile's columns of cs, bias, so, sr
+constexpr int kSmem = kStages * kStageBytes + kBarBytes + 4 * kVecFloats + 1024;
 
-struct GemmArgs {
-  const int8_t* a;    // (m, k) int8
-  const int8_t* bt;   // (n, k) int8: the weight transposed, (out, in)
+enum Mode { kRequant = 0, kReluRequant = 1, kResidual = 2 };
+
+struct Args {
   const float* cs;    // (n,) f32(s_x) * s_w
   const float* bias;  // (n,)
   const float* so;    // (n,) output scales (requant modes)
+  const float* sr;    // (n,) 1 / so rounded to f32 (requant modes)
   const void* res;    // (m, n) residual, f32 or bf16 (residual mode)
   void* out;          // (m, n): int8 (requant modes), f32 or bf16 (residual mode)
-  int m, n, k, mode, res_bf16, out_bf16;
+  int m, n, k;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
+// The epilogues work in the accumulator layout: acc[4 j + 2 h + e] is row
+// g + 8 h of the warp's 16, column 8 j + 2 t + e of the tile.
+
+// (x32 + acc cs) + bias, in two steps: acc cs into the warpgroup's f32 tile
+// in shared memory (64 rows of 512 bytes, 16-byte chunk q of row r at q ^
+// (2 (r % 8)): conflict-free both ways), then row by row, four columns a
+// thread and whole rows a warp, the residual read, the sums and the output
+// written, all coalesced. `tile` may be written once both warpgroups are past
+// their products; rows r0 + 8 h (h < 2) of the tile, columns n0 + 8 j + 2 t
+// (+1).
+template <bool RES_BF16, bool OUT_BF16>
+__device__ __forceinline__ void residual_epilogue(const int (&acc)[64], const Args& args, const float* vec,
+                                                  float* tile, int r0, int m0, int n0, int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 cs = *reinterpret_cast<const float2*>(vec + 8 * j + 2 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, q = 2 * j + (t >> 1);
+      *reinterpret_cast<float2*>(tile + r * kBN + ((q ^ ((r & 7) << 1)) << 2) + 2 * (t & 1)) =
+          make_float2(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), cs.x),
+                      __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), cs.y));
+    }
+  }
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0)
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+#pragma unroll 4
+  for (int it = 0; it < 16; ++it) {
+    const int c = (threadIdx.x & 127) + 128 * it, r = c >> 5, q = c & 31;
+    const int row = m0 + wg * 64 + r;
+    if (row >= args.m) continue;
+    const float4 v = *reinterpret_cast<const float4*>(tile + r * kBN + ((q ^ ((r & 7) << 1)) << 2));
+    const float4 b = *reinterpret_cast<const float4*>(vec + kBN + 4 * q);
+    const size_t at = (size_t)row * args.n + n0 + 4 * q;
+    float x[4];
+    if constexpr (RES_BF16) {
+      const uint2 w = *reinterpret_cast<const uint2*>(static_cast<const bf16*>(args.res) + at);
+      x[0] = __uint_as_float(w.x << 16);
+      x[1] = __uint_as_float(w.x & 0xffff0000u);
+      x[2] = __uint_as_float(w.y << 16);
+      x[3] = __uint_as_float(w.y & 0xffff0000u);
+    } else {
+      const float4 w = *reinterpret_cast<const float4*>(static_cast<const float*>(args.res) + at);
+      x[0] = w.x;
+      x[1] = w.y;
+      x[2] = w.z;
+      x[3] = w.w;
+    }
+    const float y0 = __fadd_rn(__fadd_rn(x[0], v.x), b.x), y1 = __fadd_rn(__fadd_rn(x[1], v.y), b.y);
+    const float y2 = __fadd_rn(__fadd_rn(x[2], v.z), b.z), y3 = __fadd_rn(__fadd_rn(x[3], v.w), b.w);
+    if constexpr (OUT_BF16)
+      *reinterpret_cast<uint2*>(static_cast<bf16*>(args.out) + at) = make_uint2(pack_bf16(y0, y1), pack_bf16(y2, y3));
+    else
+      *reinterpret_cast<float4*>(static_cast<float*>(args.out) + at) = make_float4(y0, y1, y2, y3);
+  }
 }
 
-// Grid (n / 128, ceil(m / 128)); 8 warps as 2 x 4, each a 64 x 32 tile.
-__global__ void __launch_bounds__(kThreads) gemm_s8_kernel(GemmArgs args) {
-  __shared__ __align__(16) int8_t as[2][kBM * kLdS];
-  __shared__ __align__(16) int8_t bs[2][kBN * kLdS];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int nk = args.k / kBK;
-
-  auto load = [&](int buf, int kt) {
-    const int k0 = kt * kBK;
-    for (int i = threadIdx.x; i < kBM * (kBK / 16); i += kThreads) {
-      const int r = i >> 2, c = (i & 3) * 16;
-      const bool valid = m0 + r < args.m;  // rows past m are zero-filled
-      cp_async16(&as[buf][r * kLdS + c], args.a + (size_t)(valid ? m0 + r : 0) * args.k + k0 + c, valid);
-      cp_async16(&bs[buf][r * kLdS + c], args.bt + (size_t)(n0 + r) * args.k + k0 + c, true);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
+// quant(acc cs + bias (ReLU'd), so) into the warpgroup's staged int8 tile
+// (64 rows of 128 bytes, 16-byte chunk c of row r at c ^ (r % 8)): rows r0
+// and r0 + 8, columns 8 j + 2 t (+1) of the tile; vec holds the tile's
+// columns of cs, bias, so and sr = 1 / so (f32). Without the division: x =
+// y sr lies within 3 2^-24 |y / so| (< 2.3e-5 below the clamp) of the IEEE
+// quotient, so rint(x) is rint(y / so) unless x lies within 2^-15 of a
+// half-integer (a few elements in 10^5); past +-127 both clamp to +-127.
+// Such an element is flagged in `near` and its y kept in ybuf (64 x 128
+// f32), and the warps that have one redo those by the division afterwards,
+// so that the loop stays branch-free (tests/test_torch_k11_layout.py pins
+// the rule in numpy).
+template <bool RELU>
+__device__ __forceinline__ void requant_epilogue(const int (&acc)[64], const float* vec, uint8_t* tile, float* ybuf,
+                                                 int r0, int t) {
+  auto at = [&](int j, int h) {
+    const int r = r0 + 8 * h;
+    return tile + r * kBK + (((j >> 1) ^ (r & 7)) << 4) + 8 * (j & 1) + 2 * t;
   };
-
-  int acc[4][4][4];
+  uint64_t near = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 16; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 cs = *reinterpret_cast<const float2*>(vec + c);
+    const float2 bias = *reinterpret_cast<const float2*>(vec + kBN + c);
+    const float2 sr = *reinterpret_cast<const float2*>(vec + 3 * kBN + c);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+    for (int h = 0; h < 2; ++h) {
+      uint32_t q[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e;
+        float y = __fadd_rn(__fmul_rn(__int2float_rn(acc[i]), e ? cs.y : cs.x), e ? bias.y : bias.x);
+        if (RELU) y = fmaxf(y, 0.f);
+        const float x = fminf(fmaxf(__fmul_rn(y, e ? sr.y : sr.x), -127.f), 127.f);
+        const float u = __fadd_rn(x, 12582912.f);  // rint(x) + 1.5 * 2^23
+        const bool flag = fabsf(__fsub_rn(x, __fsub_rn(u, 12582912.f))) > 0.5f - 0x1p-15f;
+        if (flag) ybuf[(r0 + 8 * h) * kBN + c + e] = y;
+        near |= static_cast<uint64_t>(flag) << i;
+        q[e] = __float_as_uint(u) & 0xffu;
+      }
+      *reinterpret_cast<uint16_t*>(at(j, h)) = static_cast<uint16_t>(q[0] | (q[1] << 8));
+    }
+  }
+  if (__any_sync(0xffffffffu, near != 0)) {
+    while (near != 0) {
+      const int i = __ffsll(static_cast<long long>(near)) - 1;
+      near &= near - 1;
+      const int j = i >> 2, h = (i >> 1) & 1, e = i & 1, c = 8 * j + 2 * t + e;
+      at(j, h)[e] = static_cast<uint8_t>(quant(ybuf[(r0 + 8 * h) * kBN + c], vec[2 * kBN + c]));
+    }
+  }
+}
 
-  load(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load((kt + 1) & 1, kt + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
+// Grid (n / 128, ceil(m / 128)). Stage s holds A's 128 rows then B's 128
+// rows of one k-step, each a TMA box of 128-byte swizzled rows; full[s]
+// takes the producer's arrival and the bytes, empty[s] one arrival from each
+// consumer warp. A consumer warpgroup issues a k-step's four wgmma and
+// retires the previous group (wait 1) before it frees that stage, so the
+// tensor cores always hold one k-step of each warpgroup. One instance for
+// each epilogue (MODE) and residual and output type, so that the epilogue is
+// straight-line code.
+template <int MODE, bool RES_BF16, bool OUT_BF16>
+__global__ void __launch_bounds__(kThreads, 2)
+    gemm_s8_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                   const Args args) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* vec_full = empty + kStages;
+  float* vec = reinterpret_cast<float*>(smem + kStages * kStageBytes + kBarBytes);
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int nk = (args.k + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::bar_init(full + s, 1);
+      sm90::bar_init(empty + s, 8);
+    }
+    sm90::bar_init(vec_full, 1);
+    sm90::bar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer warp
+    if (threadIdx.x > 256) {  // lanes 1-31: the tile's columns of cs, bias, so and sr into shared memory
+      const float* src[4] = {args.cs, args.bias, args.so, args.sr};
+      for (int i = threadIdx.x - 257; i < kVecFloats / 4; i += 31) {
+        const int v = i / (kBN / 4), c = 4 * (i - v * (kBN / 4));
+        if (src[v] != nullptr)
+          *reinterpret_cast<float4*>(vec + v * kBN + c) = *reinterpret_cast<const float4*>(src[v] + n0 + c);
+      }
+      __syncwarp(0xfffffffeu);
+      if (threadIdx.x == 257) sm90::bar_arrive(vec_full);
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    const int8_t* A = as[kt & 1];
-    const int8_t* Bs = bs[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int8_t* p = A + (wm + 16 * i + g) * kLdS + kk + 4 * t;
-        a[i][0] = ld32(p);
-        a[i][1] = ld32(p + 8 * kLdS);
-        a[i][2] = ld32(p + 16);
-        a[i][3] = ld32(p + 8 * kLdS + 16);
+      sm90::Ring r(kStages);
+      for (int kt = 0; kt < nk; ++kt) {
+        sm90::bar_wait(empty + r.stage, r.phase ^ 1u);
+        sm90::bar_expect_tx(full + r.stage, kStageBytes);
+        uint8_t* st = smem + r.stage * kStageBytes;
+        sm90::tma_load_3d(st, &map_a, full + r.stage, kt * kBK, m0, 0);
+        sm90::tma_load_3d(st + kBM * kBK, &map_b, full + r.stage, kt * kBK, n0, 0);
+        r.next();
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* q = Bs + (wn + 8 * j + g) * kLdS + kk + 4 * t;
-        b[j][0] = ld32(q);
-        b[j][1] = ld32(q + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
     }
-    __syncthreads();  // the buffer is refilled by the next iteration's load
+    return;
   }
 
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int acc[64];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + wn + 8 * j + 2 * t;
-    const float cs0 = args.cs[col], cs1 = args.cs[col + 1];
-    const float b0 = args.bias[col], b1 = args.bias[col + 1];
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  sm90::Ring r(kStages);
+  int prev = -1;
+  for (int kt = 0; kt < nk; ++kt) {
+    sm90::bar_wait(full + r.stage, r.phase);
+    const uint8_t* st = smem + r.stage * kStageBytes;
+    const uint64_t da = sm90::desc_sw128(st + wg * 64 * kBK, 16);
+    const uint64_t db = sm90::desc_sw128(st + kBM * kBK, 16);
+    sm90::fence_operands(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::mma_s8_ss_n128(acc, da + 2 * kk, db + 2 * kk, 1);
+    sm90::wgmma_commit();
+    if (prev >= 0) {
+      sm90::wgmma_wait<1>();
+      sm90::fence_operands(acc);
+      sm90::release(empty + prev, lane);
+    }
+    prev = r.stage;
+    r.next();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_operands(acc);
+
+  // Both warpgroups past their products: the stages are free. The residual
+  // modes take 32 KB of them a warpgroup; the requant modes 8 KB for the
+  // int8 tile and 32 KB for ybuf.
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+  sm90::bar_wait(vec_full, 0);
+  if constexpr (MODE == kResidual) {
+    residual_epilogue<RES_BF16, OUT_BF16>(acc, args, vec, reinterpret_cast<float*>(smem + wg * kBM * kBN * 2),
+                                          warp * 16 + g, m0, n0, t);
+  } else {
+    requant_epilogue<MODE == kReluRequant>(acc, vec, smem + wg * 64 * kBK,
+                                           reinterpret_cast<float*>(smem + 2 * 64 * kBK + wg * 64 * kBN * 4),
+                                           warp * 16 + g, t);
+    // the warpgroup's 64 x 128 int8 tile out of shared memory, 16 bytes a
+    // thread, each warp four whole 128-byte rows at a time
+    if (wg == 0)  // named barriers 1 and 2, constant ids (a register id reserves all 16)
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    else
+      asm volatile("bar.sync 2, 128;\n" ::: "memory");
+    const uint8_t* tile = smem + wg * 64 * kBK;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm + 16 * i + g + 8 * half;
-        if (row >= args.m) continue;
-        const float v0 = __fmul_rn(__int2float_rn(acc[i][j][2 * half]), cs0);
-        const float v1 = __fmul_rn(__int2float_rn(acc[i][j][2 * half + 1]), cs1);
-        const size_t at = (size_t)row * args.n + col;
-        if (args.mode == kResidual) {
-          float r0, r1;
-          if (args.res_bf16) {
-            const uint32_t w = ld32(static_cast<const bf16*>(args.res) + at);
-            r0 = __uint_as_float(w << 16);
-            r1 = __uint_as_float(w & 0xffff0000u);
-          } else {
-            const float2 w = *reinterpret_cast<const float2*>(static_cast<const float*>(args.res) + at);
-            r0 = w.x;
-            r1 = w.y;
-          }
-          const float y0 = __fadd_rn(__fadd_rn(r0, v0), b0), y1 = __fadd_rn(__fadd_rn(r1, v1), b1);
-          if (args.out_bf16)
-            *reinterpret_cast<uint32_t*>(static_cast<bf16*>(args.out) + at) = pack_bf16(y0, y1);
-          else
-            *reinterpret_cast<float2*>(static_cast<float*>(args.out) + at) = make_float2(y0, y1);
-        } else {
-          float y0 = __fadd_rn(v0, b0), y1 = __fadd_rn(v1, b1);
-          if (args.mode == kReluRequant) {
-            y0 = fmaxf(y0, 0.f);
-            y1 = fmaxf(y1, 0.f);
-          }
-          const int q0 = quant(y0, args.so[col]), q1 = quant(y1, args.so[col + 1]);
-          *reinterpret_cast<uint16_t*>(static_cast<int8_t*>(args.out) + at) =
-              static_cast<uint16_t>((q0 & 0xff) | ((q1 & 0xff) << 8));
-        }
-      }
+      const int c = (threadIdx.x & 127) + 128 * i, r = c >> 3, ch = c & 7;
+      const int row = m0 + wg * 64 + r;
+      if (row < args.m)
+        *reinterpret_cast<uint4*>(static_cast<int8_t*>(args.out) + (size_t)row * args.n + n0 + 16 * ch) =
+            *reinterpret_cast<const uint4*>(tile + r * kBK + ((ch ^ (r & 7)) << 4));
     }
   }
 }
 
-// ---------------------------------------------------------------- S3 ----
+// The instance for (mode, res_bf16, out_bf16).
+template <int MODE, bool RES_BF16, bool OUT_BF16>
+int launch(const CUtensorMap& ma, const CUtensorMap& mb, const Args& args, cudaStream_t stream) {
+  auto kernel = gemm_s8_kernel<MODE, RES_BF16, OUT_BF16>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(args.n / kBN, (args.m + kBM - 1) / kBM);
+  kernel<<<grid, kThreads, kSmem, stream>>>(ma, mb, args);
+  return (int)cudaGetLastError();
+}
 
-constexpr int kAttWarps = 8;
-constexpr int kRowsQ = 16 * kAttWarps;  // query rows a block
-constexpr int kTileK = 64;              // keys a tile
-constexpr int kSlabV = 128;             // output columns a pass-2 slab
-constexpr int kMaxDk = 1024;
-constexpr int kLdV8 = kTileK + 16;      // int8 V tile row (bytes), one row a column
-constexpr int kLdP = kTileK + 4;        // hybrid: a warp's P rows (f32)
+}  // namespace gemm
+
+// ---------------------------------------------------------------- S3 ----
 
 struct AttArgs {
   const int8_t* q;  // head 0's first column of Q, rows of stride ldq
@@ -345,6 +510,345 @@ struct AttArgs {
   int n, m, dk, heads, ldq, ldkv, ldo;
   float sscale, oscale, s_att;
 };
+
+constexpr int kSm90MaxDk = 256;  // the wgmma instances: a 128-row Q tile and the rings fit 227 KB
+
+// ---- d_k <= 256, int8 P.V: K10's design on head maps --------------------
+
+// V^T (batch * heads, dk, Mp) in key_order from V read in place.
+__global__ void __launch_bounds__(256) values_t_kernel(const int8_t* v, int8_t* vt, int m, int mp, int dk, int ldv,
+                                                       int heads) {
+  sm90::values_t_block(v, vt, m, mp, dk, ldv, heads);
+}
+
+// Grid (ceil(n / 128), batch * heads), 384 threads: Q and K through head
+// maps, V^T (values_t_kernel's) through a 3-D map; the consumers are K10's
+// (sm90::s8_two_pass_consumers) with l summed in f64, and the epilogue
+// writes quant(bf16(O / l), s_att) into Wo's input.
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    attention_s8_pv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_vt, const AttArgs a, const sm90::Layout lay) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  const sm90::Bars bars(smem, lay);
+  const int bh = blockIdx.y, q0 = blockIdx.x * sm90::kRowsQ;
+  if (threadIdx.x == 0) bars.init(lay);
+  __syncthreads();
+
+  if (threadIdx.x / 128 == 2) {  // the producer
+    sm90::setmaxnreg_dec<sm90::kProducerRegs>();
+    if (threadIdx.x == 256) {
+      const int tile = sm90::kS8TileK;
+      const sm90::Loads ld{&map_q,    &map_k, &map_vt, a.dk / 128, 128, tile, (a.m + tile - 1) / tile,
+                           a.dk / sm90::kSlab, 1, 1, a.heads};
+      sm90::produce(ld, lay, smem, bars, q0, bh);
+    }
+  } else {
+    sm90::setmaxnreg_inc<sm90::kConsumerRegs>();
+    const int item = bh / a.heads, head = bh - item * a.heads;
+    int8_t* out = a.out + (size_t)item * a.n * a.ldo + head * a.dk;
+    const float s_att = a.s_att;
+    sm90::s8_two_pass_consumers<true, double>(
+        lay, smem, bars, q0, a.n, a.m, a.dk, a.sscale, a.oscale, [&](int row, int col, float x0, float x1) {
+          const int q0v = quant_bf16(x0, s_att), q1v = quant_bf16(x1, s_att);
+          *reinterpret_cast<uint16_t*>(out + (size_t)row * a.ldo + col) =
+              static_cast<uint16_t>((q0v & 0xff) | ((q1v & 0xff) << 8));
+        });
+  }
+}
+
+// ---- d_k <= 256, hybrid: int8 wgmma scores, the P.V chain on the CUDA cores
+
+namespace hybrid {
+
+constexpr int kTileK = 64;                      // keys a tile
+constexpr int kSlab = 128;                      // output columns a slab
+constexpr int kNv = 2;                          // int8 V stages and f32 V stages
+constexpr int kLdP = 20;                        // a key's row of a warp's P: 16 rows, padded (conflict-free)
+constexpr int kV8Bytes = kTileK * kSlab;        // an int8 V tile: 64 keys x 128 columns
+constexpr int kVfBytes = kTileK * kSlab * 4;    // the same in f32
+constexpr int kPBytes = kTileK * kLdP * 4;      // a warp's P tile
+constexpr int kConverters = 96;                 // the producer warpgroup's warps 1-3
+
+// Shared memory: the Q tile, the K ring, the int8 V ring, the f32 V ring,
+// the eight consumer warps' P tiles, then the barriers: q_full, k_full[nk],
+// k_empty[nk], v8_full[2], v8_empty[2], vf_full[2], vf_empty[2]. The K ring
+// is as deep as fits (pass 1 is latency-bound on its loads): 6 stages at d_k
+// = 128, 4 at 256.
+struct Layout {
+  int boxes, nk;
+  __host__ __device__ explicit Layout(int dk) : boxes(dk / 128), nk(6) {
+    while (total() > sm90::kMaxSmem) --nk;
+  }
+  __host__ __device__ int q_bytes() const { return boxes * sm90::kRowsQ * sm90::kRowBytes; }
+  __host__ __device__ int k_bytes() const { return boxes * kTileK * sm90::kRowBytes; }
+  __host__ __device__ int k_off(int s) const { return q_bytes() + s * k_bytes(); }
+  __host__ __device__ int v8_off(int s) const { return k_off(nk) + s * kV8Bytes; }
+  __host__ __device__ int vf_off(int s) const { return v8_off(kNv) + s * kVfBytes; }
+  __host__ __device__ int p_off(int w) const { return vf_off(kNv) + w * kPBytes; }
+  __host__ __device__ int bar_off() const { return p_off(8); }
+  __host__ __device__ int total() const { return bar_off() + 8 * (1 + 2 * nk + 4 * kNv) + 1024; }
+};
+
+struct Bars {
+  uint64_t *q_full, *k_full, *k_empty, *v8_full, *v8_empty, *vf_full, *vf_empty;
+  __device__ Bars(uint8_t* smem, const Layout& l)
+      : q_full(reinterpret_cast<uint64_t*>(smem + l.bar_off())),
+        k_full(q_full + 1),
+        k_empty(k_full + l.nk),
+        v8_full(k_empty + l.nk),
+        v8_empty(v8_full + kNv),
+        vf_full(v8_empty + kNv),
+        vf_empty(vf_full + kNv) {}
+  __device__ void init(const Layout& l) const {
+    sm90::bar_init(q_full, 1);
+    for (int s = 0; s < l.nk; ++s) {
+      sm90::bar_init(k_full + s, 1);
+      sm90::bar_init(k_empty + s, 8);  // the consumer warps
+    }
+    for (int s = 0; s < kNv; ++s) {
+      sm90::bar_init(v8_full + s, 1);
+      sm90::bar_init(v8_empty + s, 3);  // the converter warps
+      sm90::bar_init(vf_full + s, 3);
+      sm90::bar_init(vf_empty + s, 8);
+    }
+    sm90::bar_fence_init();
+  }
+};
+
+// The warpgroup's 64 x 64 int32 scores of one K tile (boxes 128-wide column
+// boxes of Q's 64 rows and of the tile). The caller commits and waits.
+__device__ __forceinline__ void issue_scores(int (&s)[32], const uint8_t* sq, const uint8_t* sk, int boxes) {
+  sm90::fence_operands(s);
+  sm90::wgmma_fence();
+  for (int b = 0; b < boxes; ++b) {
+    const uint64_t da = sm90::desc_sw128(sq + b * sm90::kRowsQ * sm90::kRowBytes, 16);
+    const uint64_t db = sm90::desc_sw128(sk + b * kTileK * sm90::kRowBytes, 16);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::mma_s8_ss_n64(s, da + 2 * kk, db + 2 * kk, b > 0 || kk > 0);
+  }
+}
+
+// Grid (ceil(n / 128), batch * heads), 384 threads. Warpgroups 0 and 1:
+// rows q0 + 64 wg + [0, 64); warp 8: the TMA producer; warps 9-11: widen
+// each int8 V tile to f32. Pass 1 takes the exact row max (an integer max);
+// pass 2, for every slab of 128 output columns and every 64-key tile: S =
+// Q K^T, p = expf(s - m), l += p in f64, bf16(p) into the warp's P tile,
+// then the chain O[r][c] = fma(P[r][k], V[k][c], O[r][c]) over the tile's
+// keys in order.
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    attention_hybrid_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, const AttArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  const Layout lay(a.dk);
+  const Bars bars(smem, lay);
+  const int bh = blockIdx.y, q0 = blockIdx.x * sm90::kRowsQ;
+  const int item = bh / a.heads, head = bh - item * a.heads;
+  const int ntiles = (a.m + kTileK - 1) / kTileK, nslabs = a.dk / kSlab, steps = ntiles * nslabs;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) bars.init(lay);
+  __syncthreads();
+
+  if (threadIdx.x == 256) {  // the producer: Q; pass 1's K tiles; then each (slab, tile)'s K and V
+    sm90::bar_expect_tx(bars.q_full, lay.q_bytes());
+    for (int b = 0; b < lay.boxes; ++b)
+      sm90::tma_load_4d(smem + b * sm90::kRowsQ * sm90::kRowBytes, &map_q, bars.q_full, 128 * b, head, q0, item);
+    sm90::Ring kr(lay.nk), vr(kNv);
+    auto load_k = [&](int t) {
+      sm90::bar_wait(bars.k_empty + kr.stage, kr.phase ^ 1u);
+      sm90::bar_expect_tx(bars.k_full + kr.stage, lay.k_bytes());
+      for (int b = 0; b < lay.boxes; ++b)
+        sm90::tma_load_4d(smem + lay.k_off(kr.stage) + b * kTileK * sm90::kRowBytes, &map_k, bars.k_full + kr.stage,
+                          128 * b, head, t * kTileK, item);
+      kr.next();
+    };
+    for (int t = 0; t < ntiles; ++t) load_k(t);
+    for (int i = 0; i < steps; ++i) {
+      const int slab = i / ntiles, t = i - slab * ntiles;
+      load_k(t);
+      sm90::bar_wait(bars.v8_empty + vr.stage, vr.phase ^ 1u);
+      sm90::bar_expect_tx(bars.v8_full + vr.stage, kV8Bytes);
+      sm90::tma_load_4d(smem + lay.v8_off(vr.stage), &map_v, bars.v8_full + vr.stage, kSlab * slab, head,
+                        t * kTileK, item);
+      vr.next();
+    }
+    return;
+  }
+  if (threadIdx.x > 256) {  // the converters: int8 V tile -> f32, a key a row of 128 columns
+    if (threadIdx.x < 256 + 32) return;  // the producer warp's other lanes
+    const int c = threadIdx.x - 288;
+    sm90::Ring r(kNv);
+    for (int i = 0; i < steps; ++i) {
+      sm90::bar_wait(bars.v8_full + r.stage, r.phase);
+      sm90::bar_wait(bars.vf_empty + r.stage, r.phase ^ 1u);
+      const uint8_t* src = smem + lay.v8_off(r.stage);
+      float* dst = reinterpret_cast<float*>(smem + lay.vf_off(r.stage));
+      for (int chunk = c; chunk < kV8Bytes / 16; chunk += kConverters) {
+        const uint4 w = *reinterpret_cast<const uint4*>(src + 16 * chunk);
+        const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+        float4* row = reinterpret_cast<float4*>(dst + 16 * chunk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          row[e] = make_float4(static_cast<float>(static_cast<int8_t>(words[e] & 0xffu)),
+                               static_cast<float>(static_cast<int8_t>((words[e] >> 8) & 0xffu)),
+                               static_cast<float>(static_cast<int8_t>((words[e] >> 16) & 0xffu)),
+                               static_cast<float>(static_cast<int8_t>(words[e] >> 24)));
+      }
+      sm90::release(bars.v8_empty + r.stage, lane);
+      sm90::release(bars.vf_full + r.stage, lane);
+      r.next();
+    }
+    return;
+  }
+  // The consumers. In the accumulator layout, lane (g, tq) of warp w holds
+  // rows 16 w + g + 8 h (h < 2) of its warpgroup's 64 and key columns 8 j +
+  // 2 tq + e of a tile. The warp's P tile holds bf16(p) of its 16 rows a key
+  // a row, row 2 g + h for accumulator row g + 8 h. In the chain, lane (rg,
+  // cg) = (lane / 8, lane % 8) owns P rows 4 rg .. 4 rg + 3 (accumulator
+  // rows 2 rg + i / 2 + 8 (i % 2)) and slab columns 32 c + 4 cg .. + 3 (c <
+  // 4), so a warp reads back only the P rows it wrote, and a key costs 5
+  // 16-byte shared loads (1 of P, 4 of V) for 64 FMAs.
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, tq = lane & 3, rg = lane >> 3, cg = lane & 7;
+  const uint8_t* sq = smem + wg * 64 * sm90::kRowBytes;
+  float* pw = reinterpret_cast<float*>(smem + lay.p_off(4 * wg + warp));
+  sm90::Ring kr(lay.nk), vr(kNv);
+  int s[32];
+  // waits for the next K tile and issues its scores into s
+  auto issue = [&]() {
+    sm90::bar_wait(bars.k_full + kr.stage, kr.phase);
+    issue_scores(s, sq, smem + lay.k_off(kr.stage), lay.boxes);
+    sm90::wgmma_commit();
+  };
+  // waits for them and frees the K tile
+  auto retire = [&]() {
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(s);
+    sm90::release(bars.k_empty + kr.stage, lane);
+    kr.next();
+  };
+  const int left0 = a.m - 2 * tq;  // tile t: left0 - t kTileK of this thread's first column on lie before M
+  sm90::bar_wait(bars.q_full, 0);
+
+  // pass 1: the exact row max, an integer max of the accumulators,
+  // converted and scaled once (rounding by sscale >= 0 is monotone)
+  int imx[2] = {INT_MIN, INT_MIN};
+  for (int t = 0; t < ntiles; ++t) {
+    issue();
+    retire();
+    const int left = left0 - t * kTileK;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      imx[(j >> 1) & 1] = max(imx[(j >> 1) & 1], 8 * (j >> 2) + (j & 1) < left ? s[j] : INT_MIN);
+  }
+  float mx[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    imx[h] = max(imx[h], __shfl_xor_sync(0xffffffffu, imx[h], 1));
+    imx[h] = max(imx[h], __shfl_xor_sync(0xffffffffu, imx[h], 2));
+    mx[h] = __fmul_rn(__int2float_rn(imx[h]), a.sscale);
+  }
+
+  // pass 2
+  const float sscale = a.sscale, oscale = a.oscale, s_att = a.s_att;
+  float o[4][16];
+  double l[2];
+  for (int i = 0; i < steps; ++i) {
+    const int slab = i / ntiles, t = i - slab * ntiles;
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 16; ++c) o[r][c] = 0.f;
+      l[0] = l[1] = 0.0;
+    }
+    issue();
+    retire();
+    // p = expf(s - m) (a column past M gets -inf: p = 0), l += p in f64,
+    // bf16(p) as f32 into the warp's P tile
+    const int left = left0 - t * kTileK;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int h = (j >> 1) & 1;
+      const float x = __fsub_rn(__fmul_rn(__int2float_rn(s[j]), sscale), mx[h]);
+      const float p = expf(8 * (j >> 2) + (j & 1) < left ? x : -INFINITY);
+      l[h] += static_cast<double>(p);
+      s[j] = __float_as_int(__bfloat162float(__float2bfloat16_rn(p)));
+    }
+    __syncwarp();  // the warp's chain has read the previous tile's P
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(pw + (8 * j + 2 * tq + e) * kLdP + 2 * g) =
+            make_float2(__int_as_float(s[4 * j + e]), __int_as_float(s[4 * j + 2 + e]));
+    __syncwarp();
+
+    // the chain: O[r][c] += P[r][k] V[k][c] for the tile's keys in order,
+    // one rounding a key (the product bf16 x int8 is exact in f32)
+    sm90::bar_wait(bars.vf_full + vr.stage, vr.phase);
+    const float* vk = reinterpret_cast<const float*>(smem + lay.vf_off(vr.stage)) + 4 * cg;
+    const float* pk = pw + 4 * rg;
+#pragma unroll 4
+    for (int k = 0; k < kTileK; ++k) {
+      const float4 p4 = *reinterpret_cast<const float4*>(pk + k * kLdP);
+      const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 v4 = *reinterpret_cast<const float4*>(vk + k * kSlab + 32 * c);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          o[r][4 * c] = __fmaf_rn(pr[r], v4.x, o[r][4 * c]);
+          o[r][4 * c + 1] = __fmaf_rn(pr[r], v4.y, o[r][4 * c + 1]);
+          o[r][4 * c + 2] = __fmaf_rn(pr[r], v4.z, o[r][4 * c + 2]);
+          o[r][4 * c + 3] = __fmaf_rn(pr[r], v4.w, o[r][4 * c + 3]);
+        }
+      }
+    }
+    sm90::release(bars.vf_empty + vr.stage, lane);
+    vr.next();
+
+    if (t == ntiles - 1) {  // the slab's epilogue: quant(bf16((O s_v) / l), s_att)
+      float lf[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        lf[h] = __double2float_rn(l[h]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int ga = 2 * rg + (r >> 1);  // accumulator row ga + 8 (r & 1)
+        const float lr = __shfl_sync(0xffffffffu, lf[r & 1], 4 * ga);
+        const int row = q0 + wg * 64 + warp * 16 + ga + 8 * (r & 1);
+        if (row >= a.n) continue;
+        int8_t* out = a.out + ((size_t)item * a.n + row) * a.ldo + head * a.dk + kSlab * slab + 4 * cg;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          int qv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qv[e] = quant_bf16(__fdiv_rn(__fmul_rn(o[r][4 * c + e], oscale), lr), s_att);
+          *reinterpret_cast<uint32_t*>(out + 32 * c) = pack4(qv[0], qv[1], qv[2], qv[3]);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace hybrid
+
+// ---- d_k > 256 (both modes): the mma.sync instance ----------------------
+
+namespace mma_sync {
+
+constexpr int kMaxDk = 1024;
+constexpr int kAttWarps = 8;
+constexpr int kRowsQ = 16 * kAttWarps;  // query rows a block
+constexpr int kTileK = 64;              // keys a tile
+constexpr int kSlabV = 128;             // output columns a pass-2 slab
+constexpr int kLdV8 = kTileK + 16;      // int8 V tile row (bytes), one row a column
+constexpr int kLdP = kTileK + 4;        // hybrid: a warp's P rows (f32)
 
 // Shared memory: the Q tile, then the K tile (in hybrid mode also the
 // warps' P rows, after the scores are taken), then the V tile: int8 with a
@@ -441,8 +945,9 @@ __device__ __forceinline__ void store_q16(int8_t* out, const int (&q)[16]) {
   *reinterpret_cast<uint4*>(out) = w;
 }
 
-// Grid (ceil(n / 128), batch * heads). K10's design (csrc/attention_int8.cu):
-// pass 1 takes the exact row max, pass 2 per 128-column slab p, l and O.
+// Grid (ceil(n / 128), batch * heads), 8 warps of 16 query rows. K10's old
+// design: pass 1 takes the exact row max, pass 2 per 128-column slab p, l
+// and O, every K and V tile through shared memory between block barriers.
 // So that the kernel and its plain version round alike (one flip of an int8
 // value moves a whole row of the next GEMM, and through K and V every row
 // of the batch item), l is summed in f64 and rounded to f32 once, and the
@@ -629,6 +1134,55 @@ int launch_attention(const AttArgs& args, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+
+}  // namespace mma_sync
+
+// ---- launches --------------------------------------------------------------
+
+int launch_s8_pv(const AttArgs& a, int batch, int8_t* vt, int mp, cudaStream_t stream) {
+  values_t_kernel<<<dim3((mp + 63) / 64, a.dk / 64, batch * a.heads), 256, 0, stream>>>(a.v, vt, a.m, mp, a.dk,
+                                                                                       a.ldkv, a.heads);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const sm90::Layout lay = sm90::s8_layout(a.dk, true);
+  CUtensorMap mq, mk, mv;
+  err = sm90::make_head_map(&mq, a.q, sm90::HeadMap(a.dk, a.heads, a.n, batch, a.ldq, sm90::kRowsQ),
+                            CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = sm90::make_head_map(&mk, a.k, sm90::HeadMap(a.dk, a.heads, a.m, batch, a.ldkv, sm90::kS8TileK),
+                              CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)  // V^T (batch * heads, dk, Mp): boxes of 128 keys x 128 columns
+    err = sm90::make_map(&mv, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, vt, mp, a.dk, batch * a.heads, sm90::kS8TileK,
+                         sm90::kSlab);
+  if (err != 0) return err;
+  const cudaError_t e =
+      cudaFuncSetAttribute(attention_s8_pv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total());
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.n + sm90::kRowsQ - 1) / sm90::kRowsQ, batch * a.heads);
+  attention_s8_pv_kernel<<<grid, sm90::kThreads, lay.total(), stream>>>(mq, mk, mv, a, lay);
+  return (int)cudaGetLastError();
+}
+
+int launch_hybrid(const AttArgs& a, int batch, cudaStream_t stream) {
+  const hybrid::Layout lay(a.dk);
+  CUtensorMap mq, mk, mv;
+  int err = sm90::make_head_map(&mq, a.q, sm90::HeadMap(a.dk, a.heads, a.n, batch, a.ldq, sm90::kRowsQ),
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)
+    err = sm90::make_head_map(&mk, a.k, sm90::HeadMap(a.dk, a.heads, a.m, batch, a.ldkv, hybrid::kTileK),
+                              CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0)  // int8 V as stored, a key a row, for the converters: no swizzle
+    err = sm90::make_head_map(&mv, a.v, sm90::HeadMap(a.dk, a.heads, a.m, batch, a.ldkv, hybrid::kTileK),
+                              CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  const cudaError_t e = cudaFuncSetAttribute(hybrid::attention_hybrid_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total());
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.n + sm90::kRowsQ - 1) / sm90::kRowsQ, batch * a.heads);
+  hybrid::attention_hybrid_kernel<<<grid, sm90::kThreads, lay.total(), stream>>>(mq, mk, mv, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entries, bound with ctypes; all pointers are device pointers, every
@@ -646,36 +1200,81 @@ extern "C" int layer_ln_quant(const void* x, const float* a, const float* b, voi
   return (int)cudaGetLastError();
 }
 
-// S2. a (m, k) int8, bt (n, k) int8, cs/bias/so (n,) f32, contiguous.
-// mode 0: out int8 = quant(acc cs + bias, so); mode 1: the same after ReLU;
-// mode 2: out = (res + acc cs) + bias, res f32 (res_bf16 = 0) or bf16, out
-// f32 (out_bf16 = 0) or bf16, both (m, n). Needs n % 128 == 0, k % 64 == 0.
+// S2. a (m, k) int8, bt (n, k) int8, cs/bias/so/sr (n,) f32 (sr = 1 / so
+// rounded to f32), contiguous, a and bt 16-byte aligned, cs, bias, so and sr
+// 8-byte aligned. mode 0: out int8 = quant(acc cs + bias, so); mode 1:
+// the same after ReLU; mode 2: out = (res + acc cs) + bias, res f32
+// (res_bf16 = 0) or bf16, out f32 (out_bf16 = 0) or bf16, both (m, n).
+// Needs n % 128 == 0 and k % 16 == 0.
 extern "C" int layer_gemm_s8(const void* a, const void* bt, const float* cs, const float* bias, const float* so,
-                             const void* res, void* out, int m, int n, int k, int mode, int res_bf16, int out_bf16,
-                             void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || n % kBN != 0 || k % kBK != 0 || mode < kRequant || mode > kResidual)
+                             const float* sr, const void* res, void* out, int m, int n, int k, int mode, int res_bf16,
+                             int out_bf16, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || n % gemm::kBN != 0 || k % 16 != 0 || mode < gemm::kRequant ||
+      mode > gemm::kResidual)
     return (int)cudaErrorInvalidValue;
-  const GemmArgs args{static_cast<const int8_t*>(a), static_cast<const int8_t*>(bt), cs, bias, so, res, out,
-                      m, n, k, mode, res_bf16, out_bf16};
-  dim3 grid(n / kBN, (m + kBM - 1) / kBM);
-  gemm_s8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(args);
-  return (int)cudaGetLastError();
+  CUtensorMap ma, mb;
+  int err = sm90::make_map(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, k, m, 1, gemm::kBK, gemm::kBM);
+  if (err == 0) err = sm90::make_map(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bt, k, n, 1, gemm::kBK, gemm::kBN);
+  if (err != 0) return err;
+  const gemm::Args args{cs, bias, so, sr, res, out, m, n, k};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using namespace gemm;
+  if (mode == kRequant) return launch<kRequant, false, false>(ma, mb, args, s);
+  if (mode == kReluRequant) return launch<kReluRequant, false, false>(ma, mb, args, s);
+  if (res_bf16)
+    return out_bf16 ? launch<kResidual, true, true>(ma, mb, args, s) : launch<kResidual, true, false>(ma, mb, args, s);
+  return out_bf16 ? launch<kResidual, false, true>(ma, mb, args, s) : launch<kResidual, false, false>(ma, mb, args, s);
 }
 
 // S3. q, k, v point at head 0's first column of Q, K and V inside their
 // projection buffers: rows of stride ldq (queries, batch * n of them) and
 // ldkv (keys and values, batch * m); out (batch * n, ldo) int8, head h at
 // columns h dk. sscale = s_q s_k / sqrt(dk); oscale = s_v / 127 with
-// int8_pv, s_v without. Needs dk % 128 == 0, dk <= 1024 and strides that
-// are multiples of 16.
-extern "C" int layer_attention_s8(const void* q, const void* k, const void* v, void* out, int batch, int heads,
-                                  int n, int m, int dk, int ldq, int ldkv, int ldo, float sscale, float oscale,
-                                  float s_att, int int8_pv, void* stream) {
-  if (batch <= 0 || heads <= 0 || n <= 0 || m <= 0 || dk <= 0 || dk % kSlabV != 0 || dk > kMaxDk ||
-      ldq % 16 != 0 || ldkv % 16 != 0 || ldo % 16 != 0)
+// int8_pv, s_v without. vt: with int8_pv and dk <= 256, a scratch of
+// (batch * heads, dk, mp) int8 for V^T, mp a multiple of 32 >= m (else
+// unused). Needs dk % 128 == 0, dk <= 1024, 16-byte aligned q, k and v and
+// strides that are multiples of 16. Launches the instance that
+// layer_attention_instance names.
+extern "C" int layer_attention_s8(const void* q, const void* k, const void* v, void* out, void* vt, int mp, int batch,
+                                  int heads, int n, int m, int dk, int ldq, int ldkv, int ldo, float sscale,
+                                  float oscale, float s_att, int int8_pv, void* stream) {
+  if (batch <= 0 || heads <= 0 || n <= 0 || m <= 0 || dk <= 0 || dk % 128 != 0 || dk > mma_sync::kMaxDk ||
+      ldq % 16 != 0 || ldkv % 16 != 0 || ldo % 16 != 0 || !(sscale >= 0.f))
     return (int)cudaErrorInvalidValue;
   const AttArgs args{static_cast<const int8_t*>(q), static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
                      static_cast<int8_t*>(out), n, m, dk, heads, ldq, ldkv, ldo, sscale, oscale, s_att};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int8_pv ? launch_attention<true>(args, batch, s) : launch_attention<false>(args, batch, s);
+  if (dk > kSm90MaxDk)
+    return int8_pv ? mma_sync::launch_attention<true>(args, batch, s)
+                   : mma_sync::launch_attention<false>(args, batch, s);
+  if (!int8_pv) return launch_hybrid(args, batch, s);
+  if (vt == nullptr || mp < m || mp % 32 != 0) return (int)cudaErrorInvalidValue;
+  return launch_s8_pv(args, batch, static_cast<int8_t*>(vt), mp, s);
+}
+
+// The S3 instance that layer_attention_s8 launches for (dk, int8_pv).
+extern "C" const char* layer_attention_instance(int dk, int int8_pv) {
+  static thread_local char name[128];
+  if (dk > kSm90MaxDk) {
+    snprintf(name, sizeof name, "mma.sync, 64-key tiles");
+  } else if (int8_pv) {
+    const sm90::Layout lay = sm90::s8_layout(dk, true);
+    snprintf(name, sizeof name, "wgmma+TMA two-pass, int8 P.V on V^T, %d-key tiles, %d K + %d V stages",
+             sm90::kS8TileK, lay.nk, lay.nv);
+  } else {
+    snprintf(name, sizeof name, "wgmma+TMA scores, key-order CUDA-core P.V chain, %d-key tiles, %d K stages",
+             hybrid::kTileK, hybrid::Layout(dk).nk);
+  }
+  return name;
+}
+
+// The head map (csrc/attention_sm90.cuh) that S3 encodes for a projection
+// buffer (batch, rows, ld) of heads of width dk: out[0..11) = its dims (4),
+// byte strides (3) and box (4), for the tests.
+extern "C" int layer_head_map(int dk, int heads, int rows, int batch, int ld, int box_rows, long long* out) {
+  const sm90::HeadMap h(dk, heads, rows, batch, ld, box_rows);
+  for (int i = 0; i < 4; ++i) out[i] = (long long)h.dims[i];
+  for (int i = 0; i < 3; ++i) out[4 + i] = (long long)h.strides[i];
+  for (int i = 0; i < 4; ++i) out[7 + i] = (long long)h.box[i];
+  return 0;
 }

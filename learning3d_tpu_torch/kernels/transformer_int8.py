@@ -31,11 +31,13 @@ from torch import nn
 
 from learning3d_tpu_torch.kernels import LAUNCHES
 from learning3d_tpu_torch.kernels import _build
+from learning3d_tpu_torch.kernels.attention import PV_KEYS
 from learning3d_tpu_torch.ops.int8 import div, f32_scalar, to_int8
 
 F32, BF16 = torch.float32, torch.bfloat16
 LN_EPS = 1e-6
 MAX_D = 1024  # what the kernels take: d % 128 == 0, d_k % 128 == 0, d <= MAX_D
+SM90_MAX_DK = 256  # S3's wgmma instances; wider heads run its mma.sync instance
 _REQUANT, _RELU_REQUANT, _RESIDUAL = 0, 1, 2  # the GEMM's epilogues (layer_gemm_s8's mode)
 
 
@@ -220,9 +222,10 @@ class FusedLayerWeights(nn.Module):
     """A layer's operands in the kernels' layout, built once from the weight
     dict of ``encoder_layer_int8_reference`` (or the decoder's) and the
     scales: each GEMM's int8 weight transposed to (out, in), with per-column
-    f32(s_x) * s_w, bias and output scales; Q|K|V concatenated into one GEMM
-    (K|V for the cross-attention); the feed-forward's hidden width padded to
-    a multiple of 128 with zero weights (a padded hidden unit is 0)."""
+    f32(s_x) * s_w, bias, output scales and their f32 reciprocals; Q|K|V
+    concatenated into one GEMM (K|V for the cross-attention); the
+    feed-forward's hidden width padded to a multiple of 128 with zero
+    weights (a padded hidden unit is 0)."""
 
     def __init__(self, weights, sc: LayerScales, n_heads: int, decoder: bool):
         super().__init__()
@@ -242,6 +245,7 @@ class FusedLayerWeights(nn.Module):
             self.register_buffer(name + "_b", torch.cat([w[b] for b in biases]).contiguous())
             if s_outs is not None:
                 self.register_buffer(name + "_so", torch.cat([full(d, s) for s in s_outs]))
+                self.register_buffer(name + "_sr", 1.0 / getattr(self, name + "_so"))
 
         gemm("qkv", ("wq", "wk", "wv"), sc.s_y, ("swq", "swk", "swv"), ("bq", "bk", "bv"), (sc.s_q, sc.s_k, sc.s_v))
         gemm("o", ("wo",), sc.s_att, ("swo",), ("bo",))
@@ -263,6 +267,7 @@ class FusedLayerWeights(nn.Module):
         self.register_buffer("ff1_cs", nn.functional.pad(f32_scalar(sc.s_ff, w["sw1"]) * w["sw1"], (0, pad)))
         self.register_buffer("ff1_b", nn.functional.pad(w["b1"], (0, pad)))
         self.register_buffer("ff1_so", full(d_ff + pad, sc.s_h))
+        self.register_buffer("ff1_sr", 1.0 / self.ff1_so)
         self.register_buffer("ff2_w", nn.functional.pad(w["w2"].t(), (0, pad)).contiguous().to(torch.int8))
         self.register_buffer("ff2_cs", f32_scalar(sc.s_h, w["sw2"]) * w["sw2"])
         self.register_buffer("ff2_b", w["b2"].contiguous())
@@ -288,13 +293,35 @@ def _gemm(a, pack, name, mode, res=None, out_dtype=torch.int8):
     wt = getattr(pack, name + "_w")
     n, k = wt.shape
     out = torch.empty((*a.shape[:-1], n), dtype=out_dtype, device=a.device)
-    so = getattr(pack, name + "_so", None)
+    so, sr = getattr(pack, name + "_so", None), getattr(pack, name + "_sr", None)
     err = _build.library().layer_gemm_s8(
         a.data_ptr(), wt.data_ptr(), getattr(pack, name + "_cs").data_ptr(), getattr(pack, name + "_b").data_ptr(),
-        _ptr(so), _ptr(res), out.data_ptr(), a.numel() // k, n, k, mode,
+        _ptr(so), _ptr(sr), _ptr(res), out.data_ptr(), a.numel() // k, n, k, mode,
         int(res is not None and res.dtype == BF16), int(out_dtype == BF16), _stream(a))
     _build.check(err, "layer_gemm_s8")
     return out
+
+
+def head_map(ld, rows, batch, heads, d_k, box_rows):
+    """The head map S3 reads Q, K or V through in place (``HeadMap`` in
+    ``csrc/attention_sm90.cuh``): a projection buffer (batch, rows, ld) int8
+    whose head h lies at columns h d_k on from the map's base, as the 4-D
+    tensor (columns d_k, head, rows, batch) with byte strides (d_k, ld,
+    rows ld), read in boxes of 128 columns x ``box_rows`` rows of one head
+    and item. Innermost first, as the TMA encoding takes them."""
+    return {"dims": (d_k, heads, rows, batch), "strides": (d_k, ld, rows * ld), "box": (128, 1, box_rows, 1)}
+
+
+def values_scratch_shape(batch, heads, m, d_k):
+    """The V^T scratch of S3's wgmma int8 P.V instance: (batch * heads, d_k,
+    Mp), Mp = M rounded up to PV_KEYS, the keys of each 32 in ``key_order``
+    (``attention.int8_pv_values`` of each head's V), written by the call."""
+    return (batch * heads, d_k, _round_up(m, PV_KEYS))
+
+
+def attention_instance(d_k, int8_pv):
+    """The S3 instance that runs at head width d_k (``.cu`` header)."""
+    return _build.library().layer_attention_instance(d_k, int(bool(int8_pv))).decode()
 
 
 def _attention(q, kv, d, k_off, v_off, n_heads, att, int8_pv):
@@ -303,13 +330,17 @@ def _attention(q, kv, d, k_off, v_off, n_heads, att, int8_pv):
     int8 (B, N, d). ``att`` = (sscale, s_v, s_att)."""
     B, N, ldq = q.shape
     M, ldkv = kv.shape[1], kv.shape[2]
+    d_k = d // n_heads
     sscale, s_v, s_att = att
     out = torch.empty((B, N, d), dtype=torch.int8, device=q.device)
+    vt = None
+    if int8_pv and d_k <= SM90_MAX_DK:
+        vt = torch.empty(values_scratch_shape(B, n_heads, M, d_k), dtype=torch.int8, device=q.device)
     base = kv.data_ptr()
     err = _build.library().layer_attention_s8(
-        q.data_ptr(), base + k_off, base + v_off, out.data_ptr(), B, n_heads, N, M, d // n_heads, ldq, ldkv, d,
-        ctypes.c_float(sscale), ctypes.c_float(s_v / 127.0 if int8_pv else s_v), ctypes.c_float(s_att),
-        int(bool(int8_pv)), _stream(q))
+        q.data_ptr(), base + k_off, base + v_off, out.data_ptr(), _ptr(vt), 0 if vt is None else vt.shape[-1], B,
+        n_heads, N, M, d_k, ldq, ldkv, d, ctypes.c_float(sscale), ctypes.c_float(s_v / 127.0 if int8_pv else s_v),
+        ctypes.c_float(s_att), int(bool(int8_pv)), _stream(q))
     _build.check(err, "layer_attention_s8")
     return out
 

@@ -565,6 +565,132 @@ def test_k11_matches_plain(cuda, kind, int8_pv, batch, n, d, heads, d_ff):
     assert_tie_flip_close(got, want)
 
 
+def k11_pack(rng, d, d_ff, heads, device):
+    """A decoder layer's FusedLayerWeights on random int8 weights and f32
+    scale, bias and LayerNorm vectors, with its plain weight dict."""
+    from learning3d_tpu_torch.kernels import transformer_int8 as k11
+
+    def mat(i, o):
+        return torch.from_numpy(rng.integers(-127, 128, (i, o)).astype(np.int8)).to(device)
+
+    def vec(c, lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, c).astype(np.float32)).to(device)
+
+    w = {}
+    for p in ("", "x"):
+        for m in ("q", "k", "v", "o"):
+            w[f"{p}w{m}"], w[f"{p}sw{m}"], w[f"{p}b{m}"] = mat(d, d), vec(d, 1e-4, 1e-3), vec(d, -0.1, 0.1)
+    w["w1"], w["sw1"], w["b1"] = mat(d, d_ff), vec(d_ff, 1e-4, 1e-3), vec(d_ff, -0.1, 0.1)
+    w["w2"], w["sw2"], w["b2"] = mat(d_ff, d), vec(d, 1e-4, 1e-3), vec(d, -0.1, 0.1)
+    for i in (1, 2, 3):
+        w[f"ln{i}a"], w[f"ln{i}b"] = vec(d, 0.9, 1.1), vec(d, -0.1, 0.1)
+    sc = k11.LayerScales(0.03, 0.05, 0.05, 0.04, 0.006, 0.03, 0.02, s_y2=0.03, s_mem=0.03, s_q2=0.05, s_k2=0.05,
+                         s_v2=0.04, s_att2=0.006)
+    return k11.FusedLayerWeights(w, sc, heads, decoder=True), w, sc
+
+
+def int8_tensor(rng, shape, device, lo=-127, hi=128):
+    return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int8)).to(device)
+
+
+# S2 against its plain counterpart, bit for bit, in each epilogue: Q|K|V and
+# the cross K|V (requant), FF1 (ReLU + requant; d_ff 200 is padded to 256),
+# Wo on a bf16 residual to f32 and FF2 on an f32 residual to bf16 (dequant +
+# bias + residual); ragged rows (B N % 128 != 0)
+@pytest.mark.parametrize("rows", [2 * 1024, 3 * 333])
+@pytest.mark.parametrize("stage", ["qkv", "xkv", "ff1", "o", "ff2"])
+def test_k11_gemm_matches_plain(cuda, stage, rows):
+    from learning3d_tpu_torch.kernels import transformer_int8 as k11
+
+    rng = np.random.default_rng(rows + len(stage))
+    d, d_ff = 512, 200
+    pack, w, sc = k11_pack(rng, d, d_ff, 4, cuda)
+    n_in = {"ff2": pack.ff2_w.shape[1]}.get(stage, d)
+    a = int8_tensor(rng, (1, rows, n_in), cuda, 0 if stage == "ff2" else -127)
+    x = torch.from_numpy(rng.normal(size=(1, rows, d)).astype(np.float32)).to(cuda)
+    with torch.inference_mode():
+        if stage in ("qkv", "xkv"):
+            p = "" if stage == "qkv" else "x"
+            names = ("q", "k", "v") if stage == "qkv" else ("k", "v")
+            s_x = sc.s_y if stage == "qkv" else sc.s_mem
+            s_out = {"q": sc.s_q, "k": sc.s_k, "v": sc.s_v} if stage == "qkv" else {"k": sc.s_k2, "v": sc.s_v2}
+            got = k11._gemm(a, pack, stage, k11._REQUANT)
+            want = torch.cat([k11._proj(a, s_x, w[f"{p}w{m}"], w[f"{p}sw{m}"], w[f"{p}b{m}"], s_out[m])
+                              for m in names], dim=-1)
+        elif stage == "ff1":
+            got = k11._gemm(a, pack, "ff1", k11._RELU_REQUANT)
+            assert not got[..., d_ff:].any()  # the padded hidden units are 0
+            got = got[..., :d_ff]
+            h = k11._gemm_i8(a, w["w1"])
+            want = k11._quant(torch.relu(h * (k11.f32_scalar(sc.s_ff, h) * w["sw1"]) + w["b1"]), sc.s_h)
+        elif stage == "o":
+            res = x.to(torch.bfloat16)
+            got = k11._gemm(a, pack, "o", k11._RESIDUAL, res=res, out_dtype=torch.float32)
+            o = k11._gemm_i8(a, w["wo"])
+            want = (res.float() + o * (k11.f32_scalar(sc.s_att, o) * w["swo"])) + w["bo"]
+        else:
+            got = k11._gemm(a, pack, "ff2", k11._RESIDUAL, res=x, out_dtype=torch.bfloat16)
+            o = k11._gemm_i8(a[..., :d_ff], w["w2"])
+            want = ((x + o * (k11.f32_scalar(sc.s_h, o) * w["sw2"])) + w["b2"]).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+# S3 against attend_heads, bit for bit, in both P.V modes: the DCP pointer's
+# heads (d_k 128) on the Q|K|V buffer, d_k 256 (the wgmma instances' widest),
+# d_k 1024 (the mma.sync instance), a ragged N, and the decoder's
+# cross-attention (q2 of stride d against K|V of stride 2d) with M != N
+@pytest.mark.parametrize("int8_pv", [True, False])
+@pytest.mark.parametrize("case,batch,n,m,d,heads", [
+    ("pointer", 2, 1024, 1024, 512, 4), ("dk256", 2, 512, 512, 512, 2), ("dk1024", 1, 256, 256, 1024, 1),
+    ("ragged", 2, 300, 300, 512, 4), ("cross", 2, 300, 777, 512, 4), ("cross_dk256", 1, 200, 1000, 512, 2)])
+def test_k11_attention_matches_plain(cuda, int8_pv, case, batch, n, m, d, heads):
+    from learning3d_tpu_torch.kernels import transformer_int8 as k11
+
+    rng = np.random.default_rng(n + m + d + heads + int8_pv)
+    d_k = d // heads
+    s_q, s_k, s_v, s_att = 0.05, 0.05, 0.04, 0.004
+    att = (s_q * s_k / d_k**0.5, s_v, s_att)
+    if case.startswith("cross"):
+        q = int8_tensor(rng, (batch, n, d), cuda, -40, 41)
+        kv = int8_tensor(rng, (batch, m, 2 * d), cuda, -40, 41)
+        qh, kh, vh = q, kv[..., :d], kv[..., d:]
+        args = (q, kv, d, 0, d)
+    else:
+        kv = int8_tensor(rng, (batch, n, 3 * d), cuda, -40, 41)
+        qh, kh, vh = kv[..., :d], kv[..., d:2 * d], kv[..., 2 * d:]
+        args = (kv, kv, d, d, 2 * d)
+    with torch.inference_mode():
+        got = k11._attention(*args, heads, att, int8_pv)
+        split = [t.reshape(batch, t.shape[1], heads, d_k).transpose(1, 2) for t in (qh, kh, vh)]
+        o = k11.attend_heads(*split, att[0], s_v, int8_pv)
+        want = k11._quant(o.transpose(1, 2).reshape(batch, n, d), s_att)
+    torch.cuda.synchronize()
+    instance = k11.attention_instance(d_k, int8_pv)
+    assert ("mma.sync" in instance) == (d_k > k11.SM90_MAX_DK), instance
+    assert got.shape == want.shape == (batch, n, d)
+    assert (want != 0).float().mean().item() > 0.2  # the attention output reaches past the quant's zero
+    assert torch.equal(got, want), (instance, (got != want).sum().item())
+
+
+def test_k11_head_map_is_the_kernels(cuda):
+    """The head map that S3 encodes (C) is the one transformer_int8.head_map
+    states and the CPU tests pin."""
+    import ctypes
+
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels import transformer_int8 as k11
+
+    for args in ((1536, 1024, 32, 4, 128, 128), (512, 300, 2, 2, 256, 64), (1024, 777, 3, 4, 128, 128)):
+        out = (ctypes.c_longlong * 11)()
+        ld, rows, batch, heads, d_k, box_rows = args
+        assert _build.library().layer_head_map(d_k, heads, rows, batch, ld, box_rows, out) == 0
+        want = k11.head_map(ld, rows, batch, heads, d_k, box_rows)
+        assert tuple(out[:4]) == want["dims"] and tuple(out[4:7]) == want["strides"]
+        assert tuple(out[7:]) == want["box"]
+
+
 @pytest.mark.parametrize("case,batch,n_pts", [("full", 2, 1024), ("ragged", 3, 1000), ("two_tiles", 2, 320)])
 def test_k5_k9_approx_match_plain(cuda, case, batch, n_pts):
     """K5 and K9 with approx_knn=True against their plain versions: the

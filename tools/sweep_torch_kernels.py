@@ -13,8 +13,9 @@ P V product), DCP(DGCNN(emb 1024))'s H=4, D=Dv=256 (two 128-wide slabs)
 and the head's H=1, D=512, Dv=3. K11 (the fused int8 pointer layers) at
 the DCP shape, B=32, N=1024, d=512, 4 heads, ff 1024: each launch of a
 layer alone (LayerNorm + quant, the four GEMMs, the attention in both P.V
-modes), on random int8 weights. Prints one JSON line of times per call
-(ms, chip_smoke.cuda_ms).
+modes, the decoder's cross-attention and its GEMMs), and the whole encoder
+and decoder layers in both modes, on random int8 weights. Prints one JSON
+line of times per call (ms, chip_smoke.cuda_ms).
 Needs a CUDA card.
 """
 
@@ -56,16 +57,31 @@ def k11_stages(rng, chip_smoke, batch=32, n=1024, d=512, heads=4, d_ff=1024) -> 
     h = torch.from_numpy(rng.integers(0, 128, (batch, n, d_ff)).astype(np.int8)).cuda()
     x2 = x.float()
     f32 = torch.float32
+    q2, kv2 = qkv[..., :d].contiguous(), qkv[..., d:].contiguous()
     stages = {
         "ln_quant": lambda: k11._ln_quant(x, pack.ln1a, pack.ln1b, sc.s_y),
+        "quant_memory": lambda: k11._ln_quant(x, None, None, sc.s_mem, do_ln=False),
         "gemm_qkv": lambda: k11._gemm(y, pack, "qkv", k11._REQUANT),
+        "gemm_xq": lambda: k11._gemm(y, pack, "xq", k11._REQUANT),
+        "gemm_xkv": lambda: k11._gemm(y, pack, "xkv", k11._REQUANT),
         "attention_int8_pv": lambda: k11._attention(qkv, qkv, d, d, 2 * d, heads, pack.att, True),
         "attention_hybrid": lambda: k11._attention(qkv, qkv, d, d, 2 * d, heads, pack.att, False),
+        "attention_cross_int8_pv": lambda: k11._attention(q2, kv2, d, 0, d, heads, pack.xatt, True),
+        "attention_cross_hybrid": lambda: k11._attention(q2, kv2, d, 0, d, heads, pack.xatt, False),
         "gemm_o_residual": lambda: k11._gemm(y, pack, "o", k11._RESIDUAL, res=x, out_dtype=f32),
         "gemm_ff1": lambda: k11._gemm(y, pack, "ff1", k11._RELU_REQUANT),
         "gemm_ff2_residual": lambda: k11._gemm(h, pack, "ff2", k11._RESIDUAL, res=x2, out_dtype=torch.bfloat16),
     }
-    return {name: chip_smoke.cuda_ms(fn) for name, fn in stages.items()}
+    times = {name: chip_smoke.cuda_ms(fn) for name, fn in stages.items()}
+    # the whole layers on the same operands, both P.V modes (bf16 x; the
+    # encoder's output as the decoder's memory)
+    enc = k11.FusedLayerWeights(w, sc, heads, decoder=False)
+    for int8_pv in (True, False):
+        mode = "int8_pv" if int8_pv else "hybrid"
+        times[f"layer_encoder_{mode}"] = chip_smoke.cuda_ms(lambda: k11.encoder_layer_int8(x, enc, int8_pv=int8_pv))
+        times[f"layer_decoder_{mode}"] = chip_smoke.cuda_ms(
+            lambda: k11.decoder_layer_int8(x, x, pack, int8_pv=int8_pv))
+    return times
 
 
 def main() -> None:
