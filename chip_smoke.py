@@ -17,9 +17,10 @@ Phases, one JSON line each with the seconds since start:
 2. build: every kernel compiled from the checkout's sources, one nvcc
    process a source, all at once, and one link, into a fresh build
    directory (seconds, ptxas register report);
-3. kernel: K1 against its plain version at B=256, N=1024, emb=1024 and on a
-   ragged B=3, N=1000 cloud; times of the kernel, the plain version, the
-   eager bf16 cuBLAS chain (the yardstick, as ``library_ms``) and the bound;
+3. kernel: K1 against its plain version at B=256, N=1024, emb=1024, on a
+   ragged B=3, N=1000 cloud and at iPCRNet's serving chunk (B=32); times of
+   the kernel, the plain version, the eager bf16 cuBLAS chain (the
+   yardstick, as ``library_ms``) and the bound, at B=256 and at B=32;
 4. serve: Classifier(PointNet(1024, use_bn=True)) in bf16 eval with
    numpy-seeded weights loaded through load_nnx_state, served through
    InferenceEngine(batch_size=256) on requests of 256, 100 and 600 clouds;
@@ -174,8 +175,9 @@ Phases, one JSON line each with the seconds since start:
    distances bit-equal, at PRNet's stage shapes (B=16; C = 3, 64, 128; the
    template's N=1024 and the source's N=768), a cross-cloud search (1024
    queries among 2048 points), a ragged one (777 among 1000, C=67), a
-   lattice cloud with exact ties and near-duplicate features whose
-   distances round below 0; times of the kernel, the plain version,
+   lattice cloud with exact ties, near-duplicate features whose
+   distances round below 0 and clouds of equal points (xyz and 64
+   channels), where the picks must be 0 .. k-1; times of the kernel, the plain version,
    torch.cdist + torch.topk (``library_ms``) and the bound at each PRNet
    shape, and their sum over a forward's 16 launches;
 25. serve_prnet: PRNet() (PRDGCNN(512, k=20), the transformer pointer, 512
@@ -276,6 +278,7 @@ import torch
 T0 = time.perf_counter()
 SEED = 0
 B, N, EMB, CLASSES = 256, 1024, 1024, 40
+K1_SMALL_B = 32  # iPCRNet's serving chunk: K1 also timed there
 REQUESTS = (256, 100, 600)
 TOL = 2e-2  # max |kernel - plain| <= TOL * max |plain|: same bf16 operands, other sum order
 # K6 on f32 q, k, v writes f32: only the sum order differs from the plain
@@ -495,11 +498,22 @@ def phase_kernel(model, rng) -> dict:
         errs[name] = check_close(got, want, f"K1 vs plain ({name})")
         if name == "full":
             x_full = x
+    # iPCRNet's serving chunk, B=32, from a generator of its own so that
+    # the later phases keep their data
+    x32 = torch.from_numpy(np.random.default_rng(SEED + 16).normal(size=(K1_SMALL_B, N, 3))
+                           .astype(np.float32)).cuda()
     with torch.inference_mode():
+        got, want = pointnet_pooled_kernel(x32, ws, bs), oracle_chain(x32, ws, bs)
+        torch.cuda.synchronize()
+        errs[f"B{K1_SMALL_B}"] = check_close(got, want, f"K1 vs plain (B={K1_SMALL_B})")
         k_ms = cuda_ms(lambda: pointnet_pooled_kernel(x_full, ws, bs))
         p_ms = cuda_ms(lambda: oracle_chain(x_full, ws, bs))
         l_ms = cuda_ms(lambda: library_chain(x_full, ws, bs))
+        small = {"kernel_ms": cuda_ms(lambda: pointnet_pooled_kernel(x32, ws, bs)),
+                 "plain_ms": cuda_ms(lambda: oracle_chain(x32, ws, bs)),
+                 "library_ms": cuda_ms(lambda: library_chain(x32, ws, bs))}
     bound, bound_by = k1_bound(B, N, ws, bs)
+    small["bound_ms"], small["bound_by"] = k1_bound(K1_SMALL_B, N, ws, bs)
     result = {
         "max_abs_err": max(a for a, _ in errs.values()),
         "max_rel_err": max(r for _, r in errs.values()),
@@ -508,7 +522,8 @@ def phase_kernel(model, rng) -> dict:
     }
     emit("kernel", name="pointnet_pooled_kernel", tolerance=f"max|k-p| <= {TOL}*max|p|",
          errors={k: {"abs": a, "rel": r} for k, (a, r) in errs.items()},
-         library="eager bf16 torch.matmul chain (cuBLAS), yardstick only", **result)
+         library="eager bf16 torch.matmul chain (cuBLAS), yardstick only", **result,
+         **{f"B{K1_SMALL_B}": small})
     return result
 
 
@@ -2444,6 +2459,17 @@ def phase_kernel_k8(rng) -> dict:
             checked[name] = {"B": q.shape[0], "S": q.shape[1], "N": p.shape[1], "C": q.shape[2], "k": k,
                              "picks_differing": picks, "min_distance": d.min().item()}
         require(checked["negative"]["min_distance"] < 0, "K8 (negative): no distance below 0")
+        # every point equal: every distance ties, so the picks are 0 .. k-1
+        for name, c in (("all_tied_xyz", 3), ("all_tied_features", 64)):
+            x = torch.full((2, 1000, c), 0.37, device="cuda")
+            d, i = knn_pallas(x, x, PRNET_K)
+            want_d, want_i = knn_reference(x, x, PRNET_K)
+            torch.cuda.synchronize()
+            first = torch.arange(PRNET_K, device="cuda", dtype=torch.int32).expand_as(i)
+            require(torch.equal(i, want_i) and torch.equal(d, want_d) and torch.equal(i, first),
+                    f"K8 vs plain ({name}): picks must be 0 .. k-1 and distances bit-equal")
+            checked[name] = {"B": 2, "S": 1000, "N": 1000, "C": c, "k": PRNET_K, "picks_differing": 0,
+                             "min_distance": d.min().item()}
         times = {}
         for name in ("C3_N1024", "C64_N1024", "C128_N1024", "C3_N768", "C64_N768", "C128_N768", "cross_cloud"):
             q, p, k = cases[name]

@@ -31,7 +31,8 @@ LINK_FLAGS = (*ARCH, "-shared")
 # cudaGetLastError().
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "pointnet_pooled_bf16": ([_P] * 12 + [_I, _I, _I, _P], ctypes.c_int),
+    "pointnet_pooled_bf16": ([_P] * 13 + [_I, _I, _I, _P], ctypes.c_int),
+    "pointnet_pack_bf16": ([_P] * 4 + [_I, _P, _P], ctypes.c_int),
     "dgcnn_encode_bf16": ([_P] * 14 + [_I] * 5 + [_P], ctypes.c_int),
     "dgcnn_knn_scale": ([_P] * 2 + [_I] * 3 + [_F, _P], ctypes.c_int),
     "attention_bf16": ([_P] * 4 + [_I] * 6 + [ctypes.c_float, _P], ctypes.c_int),

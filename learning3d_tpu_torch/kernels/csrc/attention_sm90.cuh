@@ -1,7 +1,8 @@
 // Hopper (sm_90a) pieces of the two-pass attention kernels, K6
 // (attention.cu), K10 (attention_int8.cu) and K11's attention
-// (transformer_int8.cu), and of K11's int8 GEMM: mbarriers and a ring of
-// them, 3-D and 4-D TMA tile loads and the producer that issues them, wgmma
+// (transformer_int8.cu), of K11's int8 GEMM and of K1's fused PointNet
+// chain (pointnet_fused.cu): mbarriers and a ring of them, 3-D and 4-D TMA
+// tile loads and the producer that issues them, bulk copies, wgmma
 // shared-memory descriptors and the m64n{64,128} products with their fence,
 // commit and wait, register rebalancing, K10's int8 two-pass consumers
 // (shared with K11's int8 P.V instance) and V^T in key_order, and the
@@ -209,6 +210,22 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A plain (non-tensor) bulk copy of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory, reported to `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma's operand reads), before a barrier that the readers pass.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // A box of a Q or K tile: columns `col` on, rows `row` on, of batch-head
 // `bh`. With heads == 0 the map is 3-D (columns, rows, batch-head); with
 // heads > 0 it is a head map (make_head_map: columns, head, rows, batch),
@@ -328,6 +345,42 @@ __device__ __forceinline__ void mma_bf16_ss(float (&d)[64], uint64_t da, uint64_
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " L3D_D64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"
       : L3D_ACC64("+f")
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#define L3D_D32                                                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
+  "%23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64, f32) (+)= A (64 x 16, K-major in shared memory) B (16 x 64,
+// K-major), bf16.
+__device__ __forceinline__ void mma_bf16_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " L3D_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : L3D_ACC16("+f", 0), L3D_ACC16("+f", 16)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16 bf16 from registers, the mma A-fragment
+// layout) B (16 x 64 bf16, K-major).
+__device__ __forceinline__ void mma_bf16_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " L3D_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : L3D_ACC16("+f", 0), L3D_ACC16("+f", 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16 bf16 from registers) B (16 x 128 bf16,
+// K-major).
+__device__ __forceinline__ void mma_bf16_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " L3D_D64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : L3D_ACC64("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // d (64 x 128, f32) += A (64 x 16 bf16 from registers, the mma A-fragment

@@ -48,6 +48,45 @@ def test_k1_matches_plain(cuda, batch, n_pts, emb):
     assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
 
 
+# The Hopper design's edges: B = 1 (one cloud: the most channel groups), 32
+# (groups of 256: one round of blocks) and 256 (groups of 512: four rounds);
+# N = 1, 63, 64, 65 (a warpgroup's half of a 128-point tile, one off each
+# side) and 1000 (a ragged last tile); emb = 64 (one channel block), 640 and
+# 1024.
+@pytest.mark.parametrize("batch,n_pts,emb", [(1, 1, 64), (1, 63, 640), (32, 64, 1024), (32, 65, 640),
+                                             (32, 1000, 1024), (1, 1000, 64), (256, 1024, 1024), (32, 1024, 64)])
+def test_k1_hopper_edges_match_plain(cuda, batch, n_pts, emb):
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.pointnet_fused import oracle_chain, pointnet_pooled_kernel
+
+    rng = np.random.default_rng(batch * 7 + n_pts + emb)
+    ws, bs = folded(rng, emb, cuda)
+    x = torch.from_numpy(rng.normal(size=(batch, n_pts, 3)).astype(np.float32)).to(cuda)
+    before = LAUNCHES["pointnet_pooled_kernel"]
+    got = pointnet_pooled_kernel(x, ws, bs).float()
+    want = oracle_chain(x, ws, bs).float()
+    torch.cuda.synchronize()
+    assert LAUNCHES["pointnet_pooled_kernel"] == before + 1
+    assert got.shape == (batch, emb) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("emb", [64, 640, 1024])
+def test_k1_pack_is_the_stated_layout(cuda, emb):
+    """K1's weight pack writes ``packed_weights``' bytes."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.pointnet_fused import packed_weights
+
+    ws, _ = folded(np.random.default_rng(emb), emb, cuda)
+    want = packed_weights(ws)
+    img = torch.full_like(want, 0xAB, device=cuda)
+    err = _build.library().pointnet_pack_bf16(*(w.data_ptr() for w in ws[1:]), emb, img.data_ptr(),
+                                              torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "pointnet_pack_bf16")
+    torch.cuda.synchronize()
+    assert torch.equal(img.cpu(), want)
+
+
 def test_k1_refuses_bad_arguments(cuda):
     from learning3d_tpu_torch.kernels.pointnet_fused import pointnet_pooled_kernel
 
@@ -1128,6 +1167,56 @@ def test_k8_matches_plain(cuda, name):
     assert torch.equal(d, want_d)
     if name == "negative":
         assert bool((d < 0).any())
+
+
+def k8_check(q, p, k):
+    """One K8 launch against its plain version: indices equal, distances
+    bit-equal; returns the indices."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.knn import knn_pallas, knn_reference
+
+    before = LAUNCHES["knn_pallas"]
+    d, i = knn_pallas(q, p, k)
+    want_d, want_i = knn_reference(q, p, k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["knn_pallas"] == before + 1
+    assert d.shape == i.shape == (q.shape[0], q.shape[1], k)
+    assert torch.equal(i, want_i)
+    assert torch.equal(d, want_d)
+    return i
+
+
+# The smallest lists (N = k) at every list width (k = 1, 20: one lane a
+# position; 64: two) and channel path (C = 1, 4-byte copies; 3, exact
+# differences; 4, one 16-byte copy; 67, a ragged last chunk; 256, eight
+# chunks), one query.
+@pytest.mark.parametrize("c_dim", [1, 3, 4, 67, 256])
+@pytest.mark.parametrize("k", [1, 20, 64])
+def test_k8_smallest_lists_match_plain(cuda, k, c_dim):
+    rng = np.random.default_rng(100 * k + c_dim)
+    q = torch.from_numpy(rng.normal(size=(2, 1, c_dim)).astype(np.float32)).to(cuda)
+    p = torch.from_numpy(rng.normal(size=(2, k, c_dim)).astype(np.float32)).to(cuda)
+    k8_check(q, p, k)
+
+
+# S one off the 64-row query tile, N one off the 128-point tile, C one off
+# the 32-channel chunk, each on both sides.
+@pytest.mark.parametrize("n_q,n_p,c_dim", [(63, 127, 31), (65, 129, 33), (64, 128, 32), (63, 129, 3),
+                                           (65, 127, 64), (129, 255, 33)])
+def test_k8_tile_edges_match_plain(cuda, n_q, n_p, c_dim):
+    rng = np.random.default_rng(n_q * n_p + c_dim)
+    q = torch.from_numpy(rng.normal(size=(3, n_q, c_dim)).astype(np.float32)).to(cuda)
+    p = torch.from_numpy(rng.normal(size=(3, n_p, c_dim)).astype(np.float32)).to(cuda)
+    k8_check(q, p, 20)
+    k8_check(q, p, 40)
+
+
+# Every point equal: every distance ties, so the picks are 0 .. k-1 in order.
+@pytest.mark.parametrize("c_dim,k", [(3, 20), (64, 20), (128, 64), (7, 33)])
+def test_k8_all_tied_picks_the_first_k(cuda, c_dim, k):
+    x = torch.full((2, 1000, c_dim), 0.37, device=cuda)
+    i = k8_check(x, x, k)
+    assert torch.equal(i, torch.arange(k, device=cuda, dtype=torch.int32).expand(2, 1000, k))
 
 
 def test_k8_refuses_what_it_does_not_take(cuda):

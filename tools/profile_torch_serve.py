@@ -2,7 +2,7 @@
 """Where the time of the port's serving goes, on one card.
 
     python3 tools/profile_torch_serve.py [--model pointnet|dcp|pointnet-int8|dcp-int8|dcp-int8-fused|
-                                          dcp-int8-hybrid-fused|prnet|flownet|rpmnet] [--requests 20]
+                                          dcp-int8-hybrid-fused|ipcrnet|prnet|flownet|rpmnet] [--requests 20]
 
 ``pointnet``: Classifier(PointNet(emb_dims=1024, use_bn=True)), requests of
 B=256 clouds of N=1024 points. ``dcp``: DCP(DGCNN(emb_dims=512, k=20)) with
@@ -12,8 +12,10 @@ models quantized as bench.py quantizes them (the classifier on 64 clouds,
 served through K2; DCP on 8 + 8 clouds with int8 P.V and fused_layers=False,
 served through K9, K10 and K6). ``dcp-int8-fused`` and
 ``dcp-int8-hybrid-fused``: DCP quantized with fused_layers=True (int8 and
-hybrid P.V), the pointer's layers served through K11a/K11b. All in bf16
-eval. ``prnet``: PRNet() (PRDGCNN(512, k=20), the transformer pointer, 512
+hybrid P.V), the pointer's layers served through K11a/K11b. ``ipcrnet``:
+iPCRNet(PointNet(1024, use_bn=False)) with 8 refinement steps, requests of
+B=32 (template, source) pairs of N=1024 points (K1 nine times a forward).
+All in bf16 eval. ``prnet``: PRNet() (PRDGCNN(512, k=20), the transformer pointer, 512
 keypoints, 3 iterations) in f32 eval, requests of B=32 (source, template)
 pairs of 768 and 1024 points (K8 and K6). ``flownet``: FlowNet3D() in f32
 eval, requests of B=16 SyntheticSceneflow pairs of N=2048 points (K14, K15
@@ -76,6 +78,13 @@ def build(name: str, rng):
 
         model = load_nnx_state(FlowNet3D(), chip_smoke.random_flownet_state(rng))
         return model, chip_smoke.FLOW_B, list(chip_smoke.flow_requests(chip_smoke.FLOW_B))
+    if name == "ipcrnet":
+        from learning3d_tpu_torch.models import iPCRNet
+
+        model = load_nnx_state(iPCRNet(PointNet(emb_dims=chip_smoke.IPC_EMB, dtype=bf16), dtype=bf16),
+                               chip_smoke.random_ipcrnet_state(rng))
+        B = chip_smoke.IPC_B
+        return model, B, [rng.normal(size=(B, chip_smoke.IPC_N, 3)).astype(np.float32) for _ in range(2)]
     if name == "prnet":
         from learning3d_tpu_torch.models import PRNet
 
@@ -92,7 +101,7 @@ def build(name: str, rng):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=("pointnet", "dcp", "pointnet-int8", "dcp-int8", "dcp-int8-fused",
-                                            "dcp-int8-hybrid-fused", "prnet", "flownet", "rpmnet"),
+                                            "dcp-int8-hybrid-fused", "ipcrnet", "prnet", "flownet", "rpmnet"),
                         default="pointnet")
     parser.add_argument("--requests", type=int, default=20)
     args = parser.parse_args()

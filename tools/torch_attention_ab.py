@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Times of the port's attention kernels, K6 (attention_pallas) and K10
-(attention_int8_kernel), and of the fused int8 pointer layers K11a/K11b, at
-the shapes of their main paths, from one tree.
+"""Times of the port's redesigned kernels at the shapes of their main paths,
+and of the models that run them, from one tree: the attention kernels K6
+(attention_pallas) and K10 (attention_int8_kernel), the fused int8 pointer
+layers K11a/K11b, K8 (knn_pallas) and K1 (pointnet_pooled_kernel).
 
-    python3 tools/torch_attention_ab.py [--root TREE] [--label NAME] [--parts k6,k10,k11,serve]
+    python3 tools/torch_attention_ab.py [--root TREE] [--label NAME]
+                                        [--parts k6,k10,k11,serve,k8,k1,prnet,ipcrnet]
 
 ``--root`` names the checkout whose ``learning3d_tpu_torch`` and
 ``chip_smoke.py`` are imported (default: this one), so that two versions
@@ -21,9 +23,20 @@ of V). ``k11``: each of K11's launches alone and the whole encoder and
 decoder layers in both P.V modes at the DCP shape (B=32, N=1024, d=512, 4
 heads, ff 1024; ``sweep_torch_kernels.k11_stages``). ``serve``: ``model_ms``
 of DCP quantized with fused_layers=True, int8 and hybrid P.V, on a device
-batch (``profile_torch_serve.build``). Inputs are numpy-seeded. Prints one
-JSON line of ms a call (chip_smoke.cuda_ms) with the card's name and power
-limit. Needs a CUDA card.
+batch (``profile_torch_serve.build``). ``k8``: K8 at ``chip_smoke.py``'s
+timed shapes (PRNet's stages at B=16: C = 3, 64, 128 at N = 768 and 1024,
+self searches, k=20; a cross-cloud search) and their sum over a PRNet
+forward's 16 launches, and at FlowNet3D's three_nn (16 clouds of 2048
+SyntheticSceneflow points among their 1024 farthest-point samples, k=3),
+and at a tiny shape (32 points, the fixed cost of a call).
+``k1``: K1 at B=256 and B=32 (N=1024, emb 1024) and at B=1, N=1 (the
+fixed cost of a call). ``prnet``: ``model_ms`` of
+PRNet() served at B=32. ``ipcrnet``: ``model_ms`` of bf16 iPCRNet at B=32 and
+at the multi-start batch of 256 clouds, and ``multistart_register`` on 32
+pairs from 8 starts. Inputs are numpy-seeded. Prints one JSON line of ms a
+call (chip_smoke.cuda_ms; for K8 and K1 also ``/device``, the kernels' own
+time under torch.profiler) with the card's name and power limit. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -42,7 +55,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
     parser.add_argument("--label", default="")
-    parser.add_argument("--parts", default="k6,k10,k11,serve")
+    parser.add_argument("--parts", default="k6,k10,k11,serve,k8,k1,prnet,ipcrnet")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -108,10 +121,106 @@ def main() -> None:
             dev = [torch.from_numpy(a).cuda() for a in inputs]
             with torch.inference_mode():
                 times[f"serve/{name}/model_ms"] = chip_smoke.cuda_ms(lambda: model(*dev), reps=10)
+    with torch.inference_mode():
+        if "k8" in parts:
+            times.update(k8_times(chip_smoke))
+        if "k1" in parts:
+            times.update(k1_times(chip_smoke))
+    if "prnet" in parts or "ipcrnet" in parts:
+        times.update(model_times(chip_smoke, parts))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"label": args.label, "root": str(args.root), "device": smi,
                       "ms": times}), flush=True)
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call: the kernels' time under torch.profiler over
+    ``reps`` calls (after one warm-up), divided by ``reps``; free of the
+    host's time, which ``cuda_ms`` shows where it exceeds the device's."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
+def k8_times(chip_smoke) -> dict:
+    """K8 at chip_smoke's timed shapes, the PRNet forward's 16 launches and
+    three_nn's shape."""
+    from learning3d_tpu_torch.kernels.knn import knn_pallas
+    from learning3d_tpu_torch.ops.geometry import farthest_point_sample, index_points
+
+    cases = chip_smoke.k8_cases(np.random.default_rng(chip_smoke.SEED))
+    sizes = (chip_smoke.PRNET_NT, chip_smoke.PRNET_NS)
+    times = {}
+    for name in [f"C{c}_N{n}" for n in sizes for c in (3, 64, 128)] + ["cross_cloud"]:
+        q, p, k = cases[name]
+        times[f"k8/{name}"] = chip_smoke.cuda_ms(lambda: knn_pallas(q, p, k))
+        times[f"k8/{name}/device"] = device_ms(lambda: knn_pallas(q, p, k))
+    tiny = torch.from_numpy(np.random.default_rng(1).normal(size=(1, 32, 3)).astype(np.float32)).cuda()
+    times["k8/tiny"] = chip_smoke.cuda_ms(lambda: knn_pallas(tiny, tiny, 20))
+    times["k8/prnet_forward_16"] = sum((1 if n == chip_smoke.PRNET_NT else chip_smoke.PRNET_ITERS) *
+                                       times[f"k8/C{c}_N{n}"] for c in (3, 64, 64, 128) for n in sizes)
+    pc1 = torch.from_numpy(chip_smoke.flow_requests(chip_smoke.FLOW_B)[0]).cuda()
+    known = index_points(pc1, farthest_point_sample(pc1, 1024))
+    times["k8/three_nn"] = chip_smoke.cuda_ms(lambda: knn_pallas(pc1, known, 3))
+    times["k8/three_nn/device"] = device_ms(lambda: knn_pallas(pc1, known, 3))
+    return times
+
+
+def k1_times(chip_smoke) -> dict:
+    """K1 at B=256 and B=32, N=1024, emb 1024, on numpy-seeded folded
+    weights."""
+    from learning3d_tpu_torch.kernels.pointnet_fused import pointnet_pooled_kernel
+
+    rng = np.random.default_rng(chip_smoke.SEED + 16)
+    dims = [3, 64, 64, 64, 128, 1024]
+    ws = [torch.from_numpy(rng.normal(0, i**-0.5, (i, o)).astype(np.float32)).cuda()
+          for i, o in zip(dims[:-1], dims[1:])]
+    bs = [torch.from_numpy(rng.normal(0, 0.1, o).astype(np.float32)).cuda() for o in dims[1:]]
+    times = {}
+    for b, n in ((256, 1024), (32, 1024), (1, 1)):
+        x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).cuda()
+        name = f"k1/B{b}" if n == 1024 else f"k1/B{b}_N{n}"
+        times[name] = chip_smoke.cuda_ms(lambda: pointnet_pooled_kernel(x, ws, bs))
+        times[f"{name}/device"] = device_ms(lambda: pointnet_pooled_kernel(x, ws, bs))
+    return times
+
+
+def model_times(chip_smoke, parts) -> dict:
+    """model_ms of served PRNet (B=32) and of bf16 iPCRNet (B=32, the
+    multi-start batch of 256, and multistart_register on 32 pairs)."""
+    from profile_torch_serve import build
+
+    times = {}
+    if "prnet" in parts:
+        model, _, inputs = build("prnet", np.random.default_rng(chip_smoke.SEED))
+        model.cuda().eval()
+        dev = [torch.from_numpy(a).cuda() for a in inputs]
+        with torch.inference_mode():
+            times["prnet/model_ms_B32"] = chip_smoke.cuda_ms(lambda: model(*dev), reps=5, warmup=2)
+    if "ipcrnet" in parts:
+        from learning3d_tpu_torch.serve import multistart_register, rotation_starts
+
+        rng = np.random.default_rng(chip_smoke.SEED)
+        model, _, inputs = build("ipcrnet", rng)
+        model.cuda().eval()
+        t, s = (torch.from_numpy(a).cuda() for a in inputs)
+        t256, s256 = (torch.from_numpy(rng.normal(size=(256, chip_smoke.IPC_N, 3)).astype(np.float32)).cuda()
+                      for _ in range(2))
+        rots = rotation_starts(chip_smoke.IPC_STARTS)
+        with torch.inference_mode():
+            times["ipcrnet/model_ms_B32"] = chip_smoke.cuda_ms(lambda: model(t, s), reps=10)
+            times["ipcrnet/model_ms_B256"] = chip_smoke.cuda_ms(lambda: model(t256, s256), reps=5)
+            times["ipcrnet/multistart_ms_32x8"] = chip_smoke.cuda_ms(lambda: multistart_register(model, t, s, rots),
+                                                                     reps=5)
+    return times
 
 
 if __name__ == "__main__":
