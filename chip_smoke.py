@@ -201,10 +201,14 @@ Phases, one JSON line each with the seconds since start:
    FlowNet3D's six calls (sa1 and sa2 on each cloud of 16 SyntheticSceneflow
    pairs of N=2048, sa3 and sa4 on the first: 2048 -> 1024 -> 256 -> 64 ->
    16), a ragged cloud (1000 -> 777), every point picked (1024 -> 1024), a
-   lattice with exact ties and random starts; times of the kernel, the
-   plain version and the bound at the four shapes and over a forward's six
-   launches (no PyTorch call computes FPS: ``library_ms`` null). Its data,
-   and that of the phases below, come from a generator of their own;
+   lattice with exact ties, random starts, the edges of the kernel's
+   register tiles, past them (shared memory) and past shared memory (the
+   scratch), 40 items and a cloud of equal points; times of the kernel, the
+   plain version, the bound and the chain floor (the steps' reductions and
+   barrier alone, ``fps_chain_floor``) at the four shapes and over a
+   forward's six launches (no PyTorch call computes FPS: ``library_ms``
+   null). Its data, and that of the phases below, come from generators of
+   their own;
 28. kernel_k15 (ball_query_pallas): against its plain version, indices
    equal, at FlowNet3D's six calls (the clouds and FPS samples of phase
    27), a ragged one, nsample = 128, a lattice whose neighbors lie on the
@@ -2793,9 +2797,11 @@ def k14_bound(b, n, npoint) -> tuple[float, str]:
 def phase_kernel_k14(rng, levels) -> dict:
     """K14 against its plain version, indices equal, at FlowNet3D's six
     calls (the SyntheticSceneflow clouds' own levels), a ragged cloud, every
-    point picked, a lattice with exact ties, random starts; times at the
+    point picked, a lattice with exact ties, random starts, the register
+    tiles' edges, 40 items, equal points; times and the chain floor at the
     four shapes and over a forward's six launches; npoint 1500, past the TPU
     kernel's 1024 (a limit of its VMEM the CUDA kernel does not have)."""
+    from learning3d_tpu_torch.kernels import _build
     from learning3d_tpu_torch.kernels.sampling import fps_pallas, fps_reference
 
     cases = {}
@@ -2811,6 +2817,15 @@ def phase_kernel_k14(rng, levels) -> dict:
                               torch.from_numpy(rng.integers(0, 2048, 4).astype(np.int32)).cuda())
     wide_rng = np.random.default_rng([SEED + 12, 14])  # apart from the phases' shared stream
     cases["npoint_1500"] = (dev(wide_rng.normal(size=(2, 3000, 3))), 1500, None)  # past the TPU kernel's 1024
+    # the register tiles' edges (K14's block size and points a thread change
+    # there), past the register path (shared memory) and past shared memory
+    # (the scratch); 40 items; a cloud of equal points
+    edge_rng = np.random.default_rng([SEED + 12, 17])
+    for n in (33, 257, 2049, 4097, 8193, 12289):
+        cases[f"edge_N{n}"] = (dev(edge_rng.normal(size=(2, n, 3))), min(n, 128),
+                               torch.from_numpy(edge_rng.integers(0, n, 2).astype(np.int32)).cuda())
+    cases["batch_40"] = (dev(edge_rng.normal(size=(40, 1024, 3))), 256, None)
+    cases["equal_points"] = (dev(np.full((2, 500, 3), 0.375)), 20, None)
     checked = {}
     with torch.inference_mode():
         for name, (xyz, npoint, start) in cases.items():
@@ -2818,16 +2833,27 @@ def phase_kernel_k14(rng, levels) -> dict:
             torch.cuda.synchronize()
             picks = int((got != want).sum())
             require(picks == 0, f"K14 vs plain ({name}): {picks} picks differ")
+            if name == "equal_points":  # every distance 0: after the start, the first index for ever
+                require(bool((got[:, 1:] == 0).all()), "K14 (equal_points): a pick after the start is not 0")
             checked[name] = {"B": xyz.shape[0], "N": xyz.shape[1], "npoint": npoint, "picks_differing": picks}
+        lib = _build.library()
+        stream = torch.cuda.current_stream().cuda_stream
         times = {}
         for k in range(4):
             xyz, npoint, _ = cases[f"sa{k + 1}_pc1"]
-            b_ms, b_by = k14_bound(*xyz.shape[:2], npoint)
+            b, n = xyz.shape[:2]
+            b_ms, b_by = k14_bound(b, n, npoint)
+            idx = torch.empty((b, npoint), device=xyz.device, dtype=torch.int32)
+            threads = lib.fps_default_threads(n)
             times[f"sa{k + 1}"] = {"kernel_ms": cuda_ms(lambda: fps_pallas(xyz, npoint)),
                                    "plain_ms": cuda_ms(lambda: fps_reference(xyz, npoint), reps=2, warmup=1),
-                                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+                                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "threads": threads,
+                                   # the steps' reductions and barriers alone, no point work
+                                   "chain_floor_ms": cuda_ms(lambda: _build.check(
+                                       lib.fps_chain_floor(idx.data_ptr(), b, n, npoint, stream),
+                                       "fps_chain_floor"))}
     forward = {key: sum(times[f"sa{k + 1}"][key] * (2 if k < 2 else 1) for k in range(4))
-               for key in ("kernel_ms", "plain_ms", "bound_ms")}
+               for key in ("kernel_ms", "plain_ms", "bound_ms", "chain_floor_ms")}
     result = {"max_abs_err": 0.0, "max_rel_err": 0.0, **times["sa1"]}
     emit("kernel_k14", name="fps_pallas", tolerance="indices equal", cases=checked, times=times,
          flownet_forward_6_launches=forward, main_shape="sa1 (16, 2048 -> 1024)",

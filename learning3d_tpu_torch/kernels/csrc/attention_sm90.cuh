@@ -1,7 +1,8 @@
 // Hopper (sm_90a) pieces of the two-pass attention kernels, K6
 // (attention.cu), K10 (attention_int8.cu) and K11's attention
-// (transformer_int8.cu), of K11's int8 GEMM and of K1's fused PointNet
-// chain (pointnet_fused.cu): mbarriers and a ring of them, 3-D and 4-D TMA
+// (transformer_int8.cu), of K11's int8 GEMM, of K1's fused PointNet
+// chain (pointnet_fused.cu) and of K9's int8 DGCNN chain (dgcnn_int8.cu):
+// mbarriers and a ring of them, 3-D and 4-D TMA
 // tile loads and the producer that issues them, bulk copies, wgmma
 // shared-memory descriptors and the m64n{64,128} products with their fence,
 // commit and wait, register rebalancing, K10's int8 two-pass consumers
@@ -423,6 +424,27 @@ __device__ __forceinline__ void mma_s8_rs_n128(int (&d)[64], const uint32_t (&a)
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " L3D_D64 ", {%64, %65, %66, %67}, %68, p;\n}\n"
       : L3D_ACC64("+r")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, s32) (+)= A (64 x 32 int8 from registers) B (32 x 64 int8,
+// K-major).
+__device__ __forceinline__ void mma_s8_rs_n64(int (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " L3D_D32 ", {%32, %33, %34, %35}, %36, p;\n}\n"
+      : L3D_ACC16("+r", 0), L3D_ACC16("+r", 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32, s32) (+)= A (64 x 32 int8 from registers) B (32 x 32 int8,
+// K-major).
+__device__ __forceinline__ void mma_s8_rs_n32(int (&d)[16], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : L3D_ACC16("+r", 0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 

@@ -455,21 +455,26 @@ __global__ void __launch_bounds__(kThreads, 1) dgcnn_encode_bf16_kernel(Args arg
 
 // Approx-kNN key scale of each (cloud, query tile): grid (tiles, B). maxd
 // over the tile's rows (rows past N are the origin, as the TPU kernel pads
-// them) and the N valid columns, then f32(levels) / max(maxd, 1e-20).
+// them) and the N valid columns, then f32(levels) / max(maxd, 1e-20). A
+// thread takes a row against the cloud, which the block holds in shared
+// memory (12 N bytes; every thread reads the same column at once).
 __global__ void __launch_bounds__(kThreads) knn_tile_scale_kernel(const float* x, float* scale, int n_pts,
                                                                   int tile_n, float levels) {
+  extern __shared__ float pts[];
   __shared__ float red[kWarps];
   const float* xc = x + (size_t)blockIdx.y * n_pts * 3;
-  const int r0 = blockIdx.x * tile_n;
+  for (int i = threadIdx.x; i < 3 * n_pts; i += kThreads) pts[i] = xc[i];
+  __syncthreads();
   float mx = 0.f;
-  for (int i = threadIdx.x; i < tile_n * n_pts; i += kThreads) {
-    const int r = r0 + i / n_pts, c = i - (i / n_pts) * n_pts;
+  for (int r = blockIdx.x * tile_n + threadIdx.x; r < (blockIdx.x + 1) * tile_n; r += kThreads) {
     float q[3] = {0.f, 0.f, 0.f};
     if (r < n_pts)
-      for (int e = 0; e < 3; ++e) q[e] = xc[(size_t)r * 3 + e];
-    const float d0 = __fsub_rn(q[0], xc[(size_t)c * 3]), d1 = __fsub_rn(q[1], xc[(size_t)c * 3 + 1]),
-                d2 = __fsub_rn(q[2], xc[(size_t)c * 3 + 2]);
-    mx = fmaxf(mx, __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2)));
+      for (int e = 0; e < 3; ++e) q[e] = pts[3 * r + e];
+    for (int c = 0; c < n_pts; ++c) {
+      const float d0 = __fsub_rn(q[0], pts[3 * c]), d1 = __fsub_rn(q[1], pts[3 * c + 1]),
+                  d2 = __fsub_rn(q[2], pts[3 * c + 2]);
+      mx = fmaxf(mx, __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2)));
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
@@ -488,9 +493,16 @@ __global__ void __launch_bounds__(kThreads) knn_tile_scale_kernel(const float* x
 // a float. Returns the CUDA error code of the launch (0 on success).
 extern "C" int dgcnn_knn_scale(const float* x, float* scale, int batch, int n_pts, int tile_n, float levels,
                                void* stream) {
-  if (batch <= 0 || n_pts <= 0 || tile_n <= 0) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || n_pts <= 0 || n_pts > kMaxN || tile_n <= 0) return (int)cudaErrorInvalidValue;
+  const int bytes = 12 * n_pts;
+  if (bytes + 4 * kWarps > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(knn_tile_scale_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 12 * kMaxN);
+    if (err != cudaSuccess) return (int)err;
+  }
   dim3 grid((n_pts + tile_n - 1) / tile_n, batch);
-  knn_tile_scale_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, scale, n_pts, tile_n, levels);
+  knn_tile_scale_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(x, scale, n_pts, tile_n,
+                                                                                     levels);
   return (int)cudaGetLastError();
 }
 

@@ -18,448 +18,607 @@
 // >= 0 after ReLU, so 0 starts it); conv5 int8 against W5 whose rows carry the
 // stage scales, relu(acc * s_w5 + b5) rounded to bf16. Every float product
 // and sum is written with __fmul_rn/__fadd_rn, so nvcc cannot contract it.
+// Integer products sum exactly in any order, so the kernel is bit for bit
+// the plain version.
 //
 // Bound. At B=32, N=1024, k=20, emb=512 the int8 products are 2 * 32,768
 // points * [20 * (64*64 + 64*128 + 128*256) + 512*512] MAC = 76 G int8
 // operations, about 39 us at the dense int8 tensor-core peak (1,979 TOP/s);
 // the output (33.5 MB bf16) takes 10 us at 3.35 TB/s. It is bound by
-// operations. Distances and selection add about 0.3 G f32 operations.
+// operations. Distances and selection add about 0.3 G f32 operations. What
+// sets the time is the CUDA cores' work around the products: the 448
+// requantized outputs of a row and neighbor (~9 instructions each) and the
+// selection.
 //
-// Design, K5's (csrc/dgcnn_fused.cu) with int8 operands: mma.sync m16n8k32
-// s8 -> s32 from shared memory, int8 tiles in rows padded by 16 bytes.
-// * Grid (ceil(N / 64), B): one block of 8 warps per 64 query points.
-// * Phase 1, selection, as K5: one warp per query, 64-bit (distance bits,
-//   index) keys, each lane's 8 smallest kept in registers, the warp popping
-//   heads across lanes.
-// * Phase 2, the chain, one neighbor at a time: each thread gathers 16 int8
-//   channels of its row's neighbor (one 16-byte load, the next neighbor's in
-//   flight during the stages), forms e1, and the stages run on the tensor
-//   cores. The running max of every stage stays in registers: e1's as packed
-//   int8 quadruples (__vmaxs4), the others as packed 16-bit pairs (__vmaxs2)
-//   in the accumulator layout.
-// * Phase 3, conv5: the maxes go to shared memory as the (64, 512) int8
-//   concatenation; the int8 W5 (256 KB at emb=512) streams through shared
-//   memory in slabs of 64 output channels.
-// * The int8 weights arrive transposed, (out, in), from the wrapper, which
-//   builds them once per model (DGCNNInt8Weights); xw1q and its whole-batch
-//   scale are made by the wrapper on the device, so nothing syncs the host.
-// * Ragged N: query rows past N select neighbor 0, are computed and are not
-//   written.
+// Design: two launches over the grid (ceil(N / 64), B), one warpgroup (128
+// threads) a block of 64 query points. The selection (dgcnn_select_kernel)
+// is latency-bound on warp-wide operations and wants many warps an SM; the
+// chain (dgcnn_encode_int8_kernel) wants registers: two blocks an SM, at
+// most 255 registers a thread (at three blocks, 168 registers spilled and
+// ran slower), ~71 KB of shared memory. The neighbors pass between them
+// through a (B, N, k) int32 scratch. Before them the wrapper quantizes
+// xw1 with two small kernels of this file (dgcnn_quant_xw1), which take
+// the place of torch's chain of elementwise and reduction launches.
+// * The weights arrive packed once per model (DGCNNInt8Weights) in wgmma's
+//   128-byte-swizzled K-major image: W2^T | W3^T side by side in 128-byte
+//   rows (16 KB), W4^T (32 KB), W5^T in slabs of 32 output channels (16 KB
+//   each); one bulk copy (TMA) brings W2-W4 while the block reads its
+//   neighbors and forms c1.
+// * Selection: each warp takes 16 query rows, four at a time, with 64-bit
+//   (high half: distance bits or approximate key; low half: index) keys. A
+//   warp-wide operation (shuffle, ballot) costs many ALU latencies, so a
+//   row's keys meet few of them: pass 1 keeps each lane's smallest high
+//   half (ALU only), and the k-th smallest of the 32 lanes' (one sort
+//   across the warp) bounds the high half of the row's k-th key from above;
+//   pass 2 appends the keys within the bound (a ballot a chunk of 32) to
+//   the row's buffer, and every 32 of them are sorted and merged into the
+//   row's list (warp_select.cuh), whose k-th key then tightens the bound.
+//   At the DCP shape (N = 1024, k = 20) a row meets a few tens of keys
+//   within the bound: one or two merges. The four rows' shuffles
+//   interleave. Rows past N are not selected; the chain gives them
+//   neighbor 0, computes them and does not write them.
+// * The chain, one neighbor at a time, on int8 wgmma with A from registers,
+//   no barrier at all: each thread forms its own A fragments of e1 (rows g
+//   and g + 8 of its warp's 16, four gathered 4-byte words a row, the next
+//   neighbor's in flight), stage 2 is m64n64k32 x 2, stage 3 two m64n64
+//   halves, stage 4 four m64n64 quarters. A stage's accumulators become the
+//   next stage's A fragments in the thread that holds them: the next
+//   weights' contracted index is permuted into the accumulator layout's
+//   key order (attention_sm90.cuh's s8_pack_p; position 16h + 4t + i of a
+//   16-channel group holds channel 16h + 2t + i for i < 2, 16h + 8 + 2t + i
+//   - 2 for i >= 2), so no value crosses a lane. The epilogues round
+//   to integers with the 1.5 * 2^23 trick on the FP32 pipe (adding 1.5 *
+//   2^23 leaves the integer, rounded half to even, in the low bits) instead
+//   of a float-to-int conversion; the accumulators become floats by
+//   __int2float_rn, which measured faster than the same trick backwards.
+// * The running max of every stage is packed int8 in A-fragment layout:
+//   e1, z2 and z3 in registers, z4 (32 registers' worth) in shared memory,
+//   128 bytes a thread.
+// * conv5: the maxes are the A fragments of the (64, 512) concatenation; W5
+//   streams through a 3-slab ring (cp.async.bulk into the freed weight
+//   region, mbarriers), m64n32k32 x 16 a slab, the next slabs in flight.
 // * Approximate kNN: the key of K5's approx mode (csrc/dgcnn_fused.cu), from
 //   the same per-tile scales.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
-#include <string.h>
+
+#include "attention_sm90.cuh"
+#include "warp_select.cuh"
 
 namespace {
 
+using sm90::desc_sw128;
+using sm90::fence_operands;
+using namespace warp_select;
+
 typedef __nv_bfloat16 bf16;
 typedef unsigned int u32;
-typedef unsigned long long u64;
 
-constexpr int kRows = 64;  // query points per block
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kC1 = 64, kC2 = 64, kC3 = 128, kC4 = 256, kCat = 512;
+constexpr int kRows = 64;  // query points a block: one warpgroup's m64
+constexpr int kThreads = 128;
+constexpr int kWarps = 4;
+constexpr int kRowsPerWarp = kRows / kWarps;
+constexpr int kGroup = 4;  // rows a warp selects together
+constexpr int kBuf = 160;  // a row's survivors between flushes: < 32 left and four chunks of 32
+constexpr int kC1 = 64;
+constexpr int kCat = 512;
 constexpr int kMaxK = 32;
 constexpr int kMaxN = 4096;
-constexpr int kT = 8;              // selection: sorted keys each lane keeps per scan
-constexpr u64 kNone = ~0ull;
-constexpr int kSlab = 64;          // conv5 output channels per W5 slab
-constexpr int kLd1 = kC1 + 16;     // padded int8 rows (bytes): stride = 4 mod 32 words
-constexpr int kLd2 = kC2 + 16;
-constexpr int kLd3 = kC3 + 16;
-constexpr int kLdCat = kCat + 16;
+constexpr int kW23Bytes = 16384;  // W2^T (k 0..63) | W3^T (k 64..127), 128 rows of 128 bytes
+constexpr int kW4Bytes = 32768;   // W4^T, 256 rows of 128 bytes
+constexpr int kHalf = 8192;       // 64 rows of 128 bytes: an n64 B operand
+constexpr int kSlabCols = 32;     // conv5 output channels a W5 slab
+constexpr int kSlabBytes = kSlabCols * kCat;
+constexpr int kStages = (kW23Bytes + kW4Bytes) / kSlabBytes;  // the ring in the weight region
+constexpr int kM4Chunks = 8;                                  // z4's max: 8 A-fragment chunks a thread
+constexpr int kM4Bytes = kThreads * kM4Chunks * 16;
+constexpr u32 kMagicI = 0x4B400000u;  // the bits of 1.5 * 2^23
+constexpr float kMagicF = 12582912.f;
+constexpr int kMaxDevices = 64;
 
 struct Args {
-  const float* x;       // (B, N, 3)
-  const int8_t* xw1q;   // (B, N, 64)
-  const float* s_xw1;   // device scalar
-  const float* wc1;     // (3, 64) f32, rounded to bf16 here
-  const float* b1;      // (64,)
-  const int8_t* wt[4];  // conv2..conv5 int8, (out, in)
-  const float* swb[4];  // (2, out)
-  float inv[4];         // 1 / s1 .. 1 / s4
-  bf16* out;            // (B, N, emb)
-  const float* knn_scale;  // approx-kNN key scales (csrc/dgcnn_fused.cu's pre-pass), or null
-  int n, k, emb, tile_n;
+  const float* x;        // (B, N, 3)
+  const int8_t* xw1q;    // (B, N, 64)
+  const float* s_xw1;    // device scalar
+  const float* wc1;      // (3, 64) f32, rounded to bf16 here
+  const float* b1;       // (64,)
+  const uint8_t* w23;    // the packed images (DGCNNInt8Weights)
+  const uint8_t* w4;
+  const uint8_t* w5;
+  const float* swb[4];   // (2, out): conv2..conv5
+  float inv[4];          // 1 / s1 .. 1 / s4
+  bf16* out;             // (B, N, emb)
+  const int* idx;        // (B, N, k): dgcnn_select_kernel's neighbors
+  int n, k, emb;
 };
 
 __host__ __device__ constexpr int align16(int v) { return (v + 15) / 16 * 16; }
 
-// Byte offsets inside the shared region that follows the index table.
-constexpr int kW2 = 0;
-constexpr int kW3 = kW2 + kC2 * kLd1;
-constexpr int kW4 = kW3 + kC3 * kLd2;
-constexpr int kE1 = kW4 + kC4 * kLd3;
-constexpr int kZ2 = kE1 + kRows * kLd1;
-constexpr int kZ3 = kZ2 + kRows * kLd2;
-constexpr int kSwb = kZ3 + kRows * kLd3;
-constexpr int kChainBytes = kSwb + 4 * 2 * (kC2 + kC3 + kC4);
-constexpr int kCatBytes = kRows * kLdCat;
-constexpr int kConv5Bytes = kCatBytes + kSlab * kLdCat;
-
-__host__ __device__ constexpr int max3(int a, int b, int c) {
-  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+// The main kernel's dynamic shared memory past the 1024-byte alignment: the
+// weights (then conv5's ring), z4's max, the index table and four
+// mbarriers (the weights', the ring's three).
+__host__ __device__ constexpr int smem_bytes(int k) {
+  return kW23Bytes + kW4Bytes + kM4Bytes + align16(4 * kRows * k) + 4 * 8;
 }
 
-__host__ __device__ constexpr int select_bytes(int n) { return 4 * 3 * n + 4 * kWarps * n; }
-
-__host__ __device__ constexpr int smem_bytes(int n, int k) {
-  return align16(4 * kRows * k) + max3(select_bytes(n), kChainBytes, kConv5Bytes);
+// requant(z) = round(min(relu(z) * inv, 127)), round half to even, in the
+// low byte of the result's bits (adding 1.5 * 2^23 rounds to an integer).
+__device__ __forceinline__ u32 requant_bits(float z, float inv) {
+  return __float_as_uint(__fadd_rn(fminf(__fmul_rn(fmaxf(z, 0.f), inv), 127.f), kMagicF));
 }
 
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// The low bytes of four values, in order.
+__device__ __forceinline__ u32 pack4(u32 a, u32 b, u32 c, u32 d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragments of k-step kk (16 rows from m0) of a row-major int8 operand.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const int8_t* h, int ld, int m0, int kk,
-                                       int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int8_t* p = h + (m0 + g) * ld + kk * 32 + 4 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 16);
-  a[3] = ld32(p + 8 * ld + 16);
-}
-
-__device__ __forceinline__ float epilogue(int acc, float s, float b) {
-  return __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);
-}
-
-// requantize a non-negative activation: round(v * inv) clamped to 127
-__device__ __forceinline__ u32 requant(float v, float inv) {
-  return static_cast<u32>(min(__float2int_rn(__fmul_rn(v, inv)), 127));
-}
-
-// One stage for the warp's 16 rows from m0 and NT 8-column tiles from n0:
-// acc = in[m0:m0+16, :K] @ W[:, n0:n0+8NT] with W given as wt[n][k];
-// v = requant(relu(acc * s + b)) goes to `out` (unless null) and into the
-// running max mx[j] = {row g, row g + 8} as packed 16-bit pairs.
-template <int K, int NT>
-__device__ __forceinline__ void stage(const int8_t* in, int ldi, const int8_t* wt, int ldw,
-                                      const float* swb, int cout, float inv, int8_t* out, int ldo,
-                                      uint32_t (&mx)[NT][2], int m0, int n0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t a[K / 32][4];
+// e1 for four channels of one gathered word: q1(relu(v * s + c1)). Each
+// byte v + 128 (the word xor 0x80808080) goes into the low byte of 1.5 *
+// 2^23's bits, whose float is then 1.5 * 2^23 + 128 + v exactly.
+__device__ __forceinline__ u32 e1_word(u32 w, const float* c1, float s, float inv) {
+  const u32 u = w ^ 0x80808080u;
+  u32 q[4];
 #pragma unroll
-  for (int kk = 0; kk < K / 32; ++kk) load_a(a[kk], in, ldi, m0, kk, lane);
+  for (int i = 0; i < 4; ++i) {
+    const float v = __fsub_rn(__uint_as_float(__byte_perm(u, kMagicI, 0x7650 + i)), kMagicF + 128.f);
+    q[i] = requant_bits(__fadd_rn(__fmul_rn(v, s), c1[i]), inv);
+  }
+  return pack4(q[0], q[1], q[2], q[3]);
+}
+
+// An m64n64 s32 accumulator (columns col0.. of a stage of `cout` outputs)
+// requantized and packed as the A fragments of two 32-channel chunks, in
+// key order: of chunk c, accumulators 16c + {0, 1, 4, 5}, {2, 3, 6, 7},
+// {8, 9, 12, 13}, {10, 11, 14, 15} (rows g, g + 8, g, g + 8).
+__device__ __forceinline__ void requant_pack(uint32_t (*a)[4], const int (&acc)[32], const float* __restrict__ swb,
+                                             int cout, int col0, float inv, int t) {
+  u32 q[32];
 #pragma unroll
-  for (int j0 = 0; j0 < NT; j0 += 4) {
-    int acc[4][4] = {};
+  for (int jb = 0; jb < 8; ++jb) {
+    const int c = col0 + 8 * jb + 2 * t;
+    const float2 s = __ldg(reinterpret_cast<const float2*>(swb + c));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(swb + cout + c));
 #pragma unroll
-    for (int kk = 0; kk < K / 32; ++kk) {
+    for (int e = 0; e < 4; ++e)
+      q[4 * jb + e] = requant_bits(
+          __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * jb + e]), (e & 1) ? s.y : s.x), (e & 1) ? b.y : b.x), inv);
+  }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* q = wt + (n0 + 8 * (j0 + j) + g) * ldw + kk * 32 + 4 * t;
-        mma_s8(acc[j], a[kk], ld32(q), ld32(q + 16));
+  for (int c = 0; c < 2; ++c) {
+    const int b = 16 * c;
+    a[c][0] = pack4(q[b], q[b + 1], q[b + 4], q[b + 5]);
+    a[c][1] = pack4(q[b + 2], q[b + 3], q[b + 6], q[b + 7]);
+    a[c][2] = pack4(q[b + 8], q[b + 9], q[b + 12], q[b + 13]);
+    a[c][3] = pack4(q[b + 10], q[b + 11], q[b + 14], q[b + 15]);
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void max_into(uint32_t (*m)[4], const uint32_t (*a)[4]) {
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) m[c][r] = __vmaxu4(m[c][r], a[c][r]);
+}
+
+// One n64 product of a stage: acc = A (C chunks from registers) . B (the
+// descriptor's 64 rows, k-step c at +32 bytes), waited for.
+template <int C>
+__device__ __forceinline__ void product_n64(int (&acc)[32], const uint32_t (*a)[4], uint64_t desc) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < C; ++c) sm90::mma_s8_rs_n64(acc, a[c], desc + 2 * c, c > 0);
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  fence_operands(acc);
+}
+
+// Phase 1, its own launch: the k nearest neighbors of 64 query rows a
+// block into idx (B, N, k) int32. Few registers and ~33 KB of shared memory
+// at N = 1024, so ~6 blocks an SM hide the warp-wide operations' latency.
+// Shared memory: the cloud's coordinates (12 N bytes), the warps' survivor
+// buffers.
+__global__ void __launch_bounds__(kThreads) dgcnn_select_kernel(const float* __restrict__ x,
+                                                                const float* __restrict__ knn_scale,
+                                                                int* __restrict__ idx, int n_pts, int k, int tile_n) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int cloud = blockIdx.y;
+  const int q0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float* xc = x + (size_t)cloud * n_pts * 3;
+  float* px = reinterpret_cast<float*>(smem);
+  float* py = px + n_pts;
+  float* pz = py + n_pts;
+  u64* buf = reinterpret_cast<u64*>(smem + align16(12 * n_pts)) + warp * kGroup * kBuf;  // this warp's rows' survivors
+  for (int i = tid; i < n_pts * 3; i += kThreads) {
+    const int p = i / 3, d = i - 3 * p;
+    (d == 0 ? px : d == 1 ? py : pz)[p] = xc[i];
+  }
+  __syncthreads();
+  const int tiles = (n_pts + tile_n - 1) / tile_n;
+  const u32 below = (1u << lane) - 1u;
+  for (int r0 = warp * kRowsPerWarp; r0 < (warp + 1) * kRowsPerWarp; r0 += kGroup) {
+    float qx[kGroup], qy[kGroup], qz[kGroup], ks[kGroup];
+    bool live[kGroup];
+#pragma unroll
+    for (int rr = 0; rr < kGroup; ++rr) {
+      const int q = q0 + r0 + rr, qi = q < n_pts ? q : 0;
+      live[rr] = q < n_pts;
+      qx[rr] = px[qi];
+      qy[rr] = py[qi];
+      qz[rr] = pz[qi];
+      ks[rr] = knn_scale == nullptr ? 0.f : knn_scale[(size_t)cloud * tiles + qi / tile_n];
+    }
+    // the high half of row rr's key of a point at (x, y, z): the distance
+    // bits, or the approximate key (both order as the distances)
+    auto hi_of = [&](int rr, float x, float y, float z) -> u32 {
+      const float d0 = __fsub_rn(qx[rr], x), d1 = __fsub_rn(qy[rr], y), d2 = __fsub_rn(qz[rr], z);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
+      return ks[rr] > 0.f ? static_cast<u32>(__float2int_rz(__fmul_rn(d, ks[rr]))) : __float_as_uint(d);
+    };
+    // pass 1: each lane's smallest high half; the k-th smallest of the 32
+    // lanes' (k distinct points) bounds the high half of the row's k-th key
+    // from above (inclusive: keys that tie on it go to the smaller index)
+    u32 bound[kGroup];
+    u64 lst[kGroup];
+    int cnt[kGroup];
+#pragma unroll
+    for (int rr = 0; rr < kGroup; ++rr) bound[rr] = 0xffffffffu;
+    for (int i = lane; i < n_pts; i += 32) {
+      const float x = px[i], y = py[i], z = pz[i];
+#pragma unroll
+      for (int rr = 0; rr < kGroup; ++rr) bound[rr] = min(bound[rr], hi_of(rr, x, y, z));
+    }
+    sort32_rows<kGroup>(bound, lane);
+#pragma unroll
+    for (int rr = 0; rr < kGroup; ++rr) {
+      bound[rr] = __shfl_sync(kFull, bound[rr], k - 1);
+      lst[rr] = kNone;
+      cnt[rr] = 0;
+    }
+    // up to 32 survivors of every row sorted and merged into its list (the
+    // row's smallest keys, lane j the j-th), the rest moved to the front;
+    // the list's k-th key tightens the bound
+    auto flush = [&]() {
+      __syncwarp();
+      u64 c[kGroup];
+#pragma unroll
+      for (int rr = 0; rr < kGroup; ++rr) c[rr] = lane < cnt[rr] ? buf[rr * kBuf + lane] : kNone;
+      __syncwarp();
+#pragma unroll
+      for (int rr = 0; rr < kGroup; ++rr) {
+        for (int b = lane; b < cnt[rr] - 32; b += 32) buf[rr * kBuf + b] = buf[rr * kBuf + 32 + b];
+        cnt[rr] = max(cnt[rr] - 32, 0);
       }
-    }
+      sort32_rows<kGroup>(c, lane);
+      merge32_rows<kGroup>(lst, c, lane);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + 8 * (j0 + j) + 2 * t;
-      const float s0 = swb[c], s1 = swb[c + 1], b0 = swb[cout + c], b1 = swb[cout + c + 1];
-      const u32 q00 = requant(fmaxf(epilogue(acc[j][0], s0, b0), 0.f), inv);
-      const u32 q01 = requant(fmaxf(epilogue(acc[j][1], s1, b1), 0.f), inv);
-      const u32 q10 = requant(fmaxf(epilogue(acc[j][2], s0, b0), 0.f), inv);
-      const u32 q11 = requant(fmaxf(epilogue(acc[j][3], s1, b1), 0.f), inv);
-      if (out != nullptr) {
-        *reinterpret_cast<uint16_t*>(out + (m0 + g) * ldo + c) = static_cast<uint16_t>(q00 | (q01 << 8));
-        *reinterpret_cast<uint16_t*>(out + (m0 + g + 8) * ldo + c) = static_cast<uint16_t>(q10 | (q11 << 8));
+      for (int rr = 0; rr < kGroup; ++rr)
+        bound[rr] = min(bound[rr], static_cast<u32>(__shfl_sync(kFull, lst[rr], k - 1) >> 32));
+    };
+    auto most = [&]() {
+      int m = 0;
+#pragma unroll
+      for (int rr = 0; rr < kGroup; ++rr) m = max(m, cnt[rr]);
+      return m;
+    };
+    // pass 2: the keys within the bound, four chunks of 32 between flushes
+    for (int p0 = 0; p0 < n_pts; p0 += 128) {
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        const int i = p0 + 32 * ch + lane;
+        const bool ok = i < n_pts;
+        const float x = ok ? px[i] : 0.f, y = ok ? py[i] : 0.f, z = ok ? pz[i] : 0.f;
+#pragma unroll
+        for (int rr = 0; rr < kGroup; ++rr) {
+          const u32 hi = hi_of(rr, x, y, z);
+          const bool in = ok && live[rr] && hi <= bound[rr];
+          const u32 m = __ballot_sync(kFull, in);
+          if (in) buf[rr * kBuf + cnt[rr] + __popc(m & below)] = (static_cast<u64>(hi) << 32) | static_cast<u32>(i);
+          cnt[rr] += __popc(m);
+        }
       }
-      mx[j0 + j][0] = __vmaxs2(mx[j0 + j][0], q00 | (q01 << 16));
-      mx[j0 + j][1] = __vmaxs2(mx[j0 + j][1], q10 | (q11 << 16));
+      while (most() >= 32) flush();
+    }
+    while (most() > 0) flush();
+#pragma unroll
+    for (int rr = 0; rr < kGroup; ++rr) {
+      const int q = q0 + r0 + rr;
+      if (live[rr] && lane < k)
+        idx[((size_t)cloud * n_pts + q) * k + lane] = lst[rr] == kNone ? q : static_cast<int>(lst[rr] & 0xffffffffu);
     }
   }
+
 }
 
-// Copy `rows` rows of `cols` int8 (cols % 16 == 0) from global to padded
-// shared rows, 16 bytes at a time.
-__device__ __forceinline__ void copy_rows(int8_t* dst, int ld, const int8_t* src, int rows, int cols) {
-  const int chunks = cols / 16;
-  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i - r * chunks) * 16;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = *reinterpret_cast<const uint4*>(src + (size_t)r * cols + c);
-  }
-}
+__host__ __device__ constexpr int select_smem_bytes(int n) { return align16(12 * n) + kWarps * kGroup * kBuf * 8; }
 
-// Store the running max of one stage (accumulator layout, 16-bit pairs) into
-// `cat` as int8.
-template <int NT>
-__device__ __forceinline__ void store_max(int8_t* cat, const uint32_t (&mx)[NT][2], int col0, int m0,
-                                          int n0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int c = col0 + n0 + 8 * j + 2 * t;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const u32 v = mx[j][h];
-      *reinterpret_cast<uint16_t*>(cat + (m0 + g + 8 * h) * kLdCat + c) =
-          static_cast<uint16_t>((v & 0xffu) | ((v >> 8) & 0xff00u));
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1) dgcnn_encode_int8_kernel(Args args) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__global__ void __launch_bounds__(kThreads, 2) dgcnn_encode_int8_kernel(Args args) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
   const int n_pts = args.n, k = args.k, emb = args.emb;
   const int cloud = blockIdx.y;
   const int q0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  int* idx = reinterpret_cast<int*>(smem);
-  unsigned char* region = smem + align16(4 * kRows * k);
+
+  uint8_t* wts = smem;                                   // W2|W3, W4; then conv5's ring
+  uint4* m4s = reinterpret_cast<uint4*>(smem + kW23Bytes + kW4Bytes);  // z4's max: chunk c of thread tid at c * kThreads + tid
+  int* idx = reinterpret_cast<int*>(smem + kW23Bytes + kW4Bytes + kM4Bytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(idx) + align16(4 * kRows * k));  // the weights', the ring's three
   const float* xc = args.x + (size_t)cloud * n_pts * 3;
 
-  // The center half of stage 1 for this thread's gather elements: row gr,
-  // channels gc..gc+15: c1 = bf16(center) . bf16(Wc1) + b1 in f32.
-  const int gr = threadIdx.x >> 2, gc = (threadIdx.x & 3) * 16;
-  float c1[16];
-  {
-    float cen[3] = {0.f, 0.f, 0.f};
-    if (q0 + gr < n_pts)
-      for (int d = 0; d < 3; ++d)
-        cen[d] = __bfloat162float(__float2bfloat16_rn(xc[(size_t)(q0 + gr) * 3 + d]));
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) sm90::bar_init(bars + i, 1);
+    sm90::bar_fence_init();
+  }
+  // the block's rows of the index table (rows past N: neighbor 0)
+  for (int i = tid; i < kRows * k; i += kThreads) {
+    const int q = q0 + i / k;
+    idx[i] = q < n_pts ? args.idx[((size_t)cloud * n_pts + q0) * k + i] : 0;
+  }
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+  for (int c = 0; c < kM4Chunks; ++c) m4s[c * kThreads + tid] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  if (tid == 0) {
+    sm90::bar_expect_tx(bars, kW23Bytes + kW4Bytes);
+    sm90::bulk_load(wts, args.w23, kW23Bytes, bars);
+    sm90::bulk_load(wts + kW23Bytes, args.w4, kW4Bytes, bars);
+  }
+
+  // the center half of stage 1 for this thread's A-fragment elements: rows
+  // 16 warp + g + 8h, channels 32c + 16e + 4t + i: c1 = bf16(center) .
+  // bf16(Wc1) + b1 in f32, at c1v[h][8c + 4e + i]
+  const int row = kRowsPerWarp * warp + g;
+  float c1v[2][16];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float cen[3] = {0.f, 0.f, 0.f};
+    if (q0 + row + 8 * h < n_pts)
+      for (int d = 0; d < 3; ++d)
+        cen[d] = __bfloat162float(__float2bfloat16_rn(xc[(size_t)(q0 + row + 8 * h) * 3 + d]));
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int ch = 32 * (j >> 3) + 16 * ((j >> 2) & 1) + 4 * t + (j & 3);
       float w[3];
-      for (int d = 0; d < 3; ++d) w[d] = __bfloat162float(__float2bfloat16_rn(args.wc1[d * kC1 + gc + i]));
+      for (int d = 0; d < 3; ++d) w[d] = __bfloat162float(__float2bfloat16_rn(args.wc1[d * kC1 + ch]));
       const float z = __fadd_rn(__fadd_rn(__fmul_rn(cen[0], w[0]), __fmul_rn(cen[1], w[1])),
                                 __fmul_rn(cen[2], w[2]));
-      c1[i] = __fadd_rn(z, args.b1[gc + i]);
+      c1v[h][j] = __fadd_rn(z, args.b1[ch]);
     }
   }
-
-  // ---- phase 1: exact kNN, one warp per query row (as K5) ----
-  {
-    float* px = reinterpret_cast<float*>(region);
-    float* py = px + n_pts;
-    float* pz = py + n_pts;
-    float* dist = pz + n_pts + warp * n_pts;
-    for (int i = threadIdx.x; i < n_pts * 3; i += kThreads) {
-      const int p = i / 3, d = i - 3 * p;
-      (d == 0 ? px : d == 1 ? py : pz)[p] = xc[i];
-    }
-    __syncthreads();
-    for (int r = warp; r < kRows; r += kWarps) {
-      const int q = q0 + r;
-      if (q >= n_pts) {
-        if (lane < k) idx[r * k + lane] = 0;
-        continue;
-      }
-      const float qx = px[q], qy = py[q], qz = pz[q];
-      const float kscale =
-          args.knn_scale == nullptr ? 0.f : args.knn_scale[(size_t)cloud * ((n_pts + args.tile_n - 1) / args.tile_n) +
-                                                           q / args.tile_n];
-      for (int i = lane; i < n_pts; i += 32) {
-        const float d0 = __fsub_rn(qx, px[i]), d1 = __fsub_rn(qy, py[i]), d2 = __fsub_rn(qz, pz[i]);
-        dist[i] = __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
-      }
-      __syncwarp();
-      u64 last = 0;
-      int j = 0;
-      while (j < k) {
-        u64 l[kT];
-#pragma unroll
-        for (int p = 0; p < kT; ++p) l[p] = kNone;
-        for (int i = lane; i < n_pts; i += 32) {
-          const u32 hi = kscale > 0.f ? static_cast<u32>(__float2int_rz(__fmul_rn(dist[i], kscale)))
-                                      : __float_as_uint(dist[i]);
-          const u64 key = (static_cast<u64>(hi) << 32) | static_cast<u32>(i);
-          if ((j == 0 || key > last) && key < l[kT - 1]) {
-#pragma unroll
-            for (int p = kT - 1; p > 0; --p) l[p] = key < l[p - 1] ? l[p - 1] : (key < l[p] ? key : l[p]);
-            l[0] = key < l[0] ? key : l[0];
-          }
-        }
-        int popped = 0;
-        while (j < k) {
-          u64 w = l[0];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            const u64 o = __shfl_xor_sync(0xffffffffu, w, off);
-            w = o < w ? o : w;
-          }
-          if (lane == 0) idx[r * k + j] = w == kNone ? q : static_cast<int>(w & 0xffffffffu);
-          ++j;
-          last = w;
-          if (w != kNone && l[0] == w) {
-#pragma unroll
-            for (int p = 0; p < kT - 1; ++p) l[p] = l[p + 1];
-            l[kT - 1] = kNone;
-            ++popped;
-          }
-          if (__any_sync(0xffffffffu, popped == kT)) break;
-        }
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();  // phase 1's region is reused from here on
-
   // ---- phase 2: the chain, one neighbor at a time ----
-  int8_t* w2t = reinterpret_cast<int8_t*>(region + kW2);
-  int8_t* w3t = reinterpret_cast<int8_t*>(region + kW3);
-  int8_t* w4t = reinterpret_cast<int8_t*>(region + kW4);
-  int8_t* e1 = reinterpret_cast<int8_t*>(region + kE1);
-  int8_t* z2 = reinterpret_cast<int8_t*>(region + kZ2);
-  int8_t* z3 = reinterpret_cast<int8_t*>(region + kZ3);
-  float* s2 = reinterpret_cast<float*>(region + kSwb);
-  float* s3 = s2 + 2 * kC2;
-  float* s4 = s3 + 2 * kC3;
-  copy_rows(w2t, kLd1, args.wt[0], kC2, kC1);
-  copy_rows(w3t, kLd2, args.wt[1], kC3, kC2);
-  copy_rows(w4t, kLd3, args.wt[2], kC4, kC3);
-  for (int i = threadIdx.x; i < 2 * kC2; i += kThreads) s2[i] = args.swb[0][i];
-  for (int i = threadIdx.x; i < 2 * kC3; i += kThreads) s3[i] = args.swb[1][i];
-  for (int i = threadIdx.x; i < 2 * kC4; i += kThreads) s4[i] = args.swb[2][i];
-
-  const float s_xw1 = *args.s_xw1;
-  const float inv1 = args.inv[0], inv2 = args.inv[1], inv3 = args.inv[2], inv4 = args.inv[3];
-  const int8_t* xw1q = args.xw1q + (size_t)cloud * n_pts * kC1;
-  uint32_t m1[4], m2[4][2], m3[8][2], m4[16][2];
+  uint32_t m1[2][4], m2[2][4], m3[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) m1[i] = 0u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m2[i][0] = m2[i][1] = 0u;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) m3[i][0] = m3[i][1] = 0u;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) m4[i][0] = m4[i][1] = 0u;
-
-  const int m0 = (warp >> 1) * 16;
-  uint4 nxt = *reinterpret_cast<const uint4*>(xw1q + (size_t)idx[gr * k] * kC1 + gc);
-  for (int j = 0; j < k; ++j) {
-    // e1 = q1(relu(xw1q[nbr] * s_xw1 + c1)) for row gr, channels gc..gc+15
-    {
-      const uint32_t w[4] = {nxt.x, nxt.y, nxt.z, nxt.w};
-      uint32_t e[4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        u32 packed = 0u;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int v = static_cast<int8_t>((w[p] >> (8 * b)) & 0xffu);
-          const float z = __fadd_rn(__fmul_rn(__int2float_rn(v), s_xw1), c1[4 * p + b]);
-          packed |= requant(fmaxf(z, 0.f), inv1) << (8 * b);
-        }
-        e[p] = packed;
-        m1[p] = __vmaxs4(m1[p], packed);
-      }
-      *reinterpret_cast<uint4*>(e1 + gr * kLd1 + gc) = make_uint4(e[0], e[1], e[2], e[3]);
-      if (j + 1 < k)  // the next neighbor's row, in flight during the stages
-        nxt = *reinterpret_cast<const uint4*>(xw1q + (size_t)idx[gr * k + j + 1] * kC1 + gc);
-    }
-    __syncthreads();
-    stage<kC1, 4>(e1, kLd1, w2t, kLd1, s2, kC2, inv2, z2, kLd2, m2, m0, (warp & 1) * 32, lane);
-    __syncthreads();
-    stage<kC2, 8>(z2, kLd2, w3t, kLd2, s3, kC3, inv3, z3, kLd3, m3, m0, (warp & 1) * 64, lane);
-    __syncthreads();
-    stage<kC3, 16>(z3, kLd3, w4t, kLd3, s4, kC4, inv4, nullptr, 0, m4, m0, (warp & 1) * 128, lane);
+  for (int r = 0; r < 4; ++r) {
+    m1[0][r] = m1[1][r] = m2[0][r] = m2[1][r] = 0u;
+    m3[0][r] = m3[1][r] = m3[2][r] = m3[3][r] = 0u;
   }
-  __syncthreads();  // phase 2's region is reused from here on
+  const float s_xw1 = *args.s_xw1;
+  const int8_t* xw1q = args.xw1q + (size_t)cloud * n_pts * kC1 + 4 * t;
+  const int* nbr0 = idx + row * k;
+  const int* nbr1 = idx + (row + 8) * k;
+  // gathered words [h][c][e]: row + 8h's neighbor, channels 32c + 16e + 4t..
+  u32 nxt[2][2][2];
+  auto gather = [&](int j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int8_t* src = xw1q + (size_t)(h ? nbr1 : nbr0)[j] * kC1;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) nxt[h][c][e] = __ldg(reinterpret_cast<const u32*>(src + 32 * c + 16 * e));
+    }
+  };
+  gather(0);
+  sm90::bar_wait(bars, 0);
+  const uint64_t d_w23 = desc_sw128(wts, 16), d_w4 = desc_sw128(wts + kW23Bytes, 16);
+  const float inv1 = args.inv[0], inv2 = args.inv[1], inv3 = args.inv[2], inv4 = args.inv[3];
+  for (int j = 0; j < k; ++j) {
+    uint32_t a2[2][4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) a2[c][h + 2 * e] = e1_word(nxt[h][c][e], &c1v[h][8 * c + 4 * e], s_xw1, inv1);
+    max_into<2>(m1, a2);
+    if (j + 1 < k) gather(j + 1);  // in flight during the stages
+
+    int acc[32];
+    uint32_t a3[2][4], a4[4][4];
+    product_n64<2>(acc, a2, d_w23);  // stage 2: k bytes 0..63 of rows 0..63
+    requant_pack(a3, acc, args.swb[0], 64, 0, inv2, t);
+    max_into<2>(m2, a3);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {  // stage 3: k bytes 64..127 of rows 64 hf..
+      product_n64<2>(acc, a3, d_w23 + hf * (kHalf >> 4) + 4);
+      requant_pack(a4 + 2 * hf, acc, args.swb[1], 128, 64 * hf, inv3, t);
+    }
+    max_into<4>(m3, a4);
+#pragma unroll
+    for (int qr = 0; qr < 4; ++qr) {  // stage 4: rows 64 qr.. of W4^T
+      product_n64<4>(acc, a4, d_w4 + qr * (kHalf >> 4));
+      uint32_t z4[2][4];
+      requant_pack(z4, acc, args.swb[2], 256, 64 * qr, inv4, t);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        uint4 m = m4s[(2 * qr + c) * kThreads + tid];
+        m.x = __vmaxu4(m.x, z4[c][0]);
+        m.y = __vmaxu4(m.y, z4[c][1]);
+        m.z = __vmaxu4(m.z, z4[c][2]);
+        m.w = __vmaxu4(m.w, z4[c][3]);
+        m4s[(2 * qr + c) * kThreads + tid] = m;
+      }
+    }
+  }
 
   // ---- phase 3: conv5 on the (64, 512) int8 concatenation of the maxes ----
-  int8_t* cat = reinterpret_cast<int8_t*>(region);
-  int8_t* w5s = reinterpret_cast<int8_t*>(region + kCatBytes);
-  *reinterpret_cast<uint4*>(cat + gr * kLdCat + gc) = make_uint4(m1[0], m1[1], m1[2], m1[3]);
-  store_max<4>(cat, m2, kC1, m0, (warp & 1) * 32, lane);
-  store_max<8>(cat, m3, kC1 + kC2, m0, (warp & 1) * 64, lane);
-  store_max<16>(cat, m4, kC1 + kC2 + kC3, m0, (warp & 1) * 128, lane);
-
+  __syncthreads();  // every warp's products are done with the weight region
+  const int nslabs = emb / kSlabCols;
+  uint64_t* full = bars + 1;
+  if (tid == 0)
+    for (int s = 0; s < kStages && s < nslabs; ++s) {
+      sm90::bar_expect_tx(full + s, kSlabBytes);
+      sm90::bulk_load(wts + s * kSlabBytes, args.w5 + (size_t)s * kSlabBytes, kSlabBytes, full + s);
+    }
+  uint32_t cat[16][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    cat[0][r] = m1[0][r];
+    cat[1][r] = m1[1][r];
+    cat[2][r] = m2[0][r];
+    cat[3][r] = m2[1][r];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) cat[4 + c][r] = m3[c][r];
+  }
+#pragma unroll
+  for (int c = 0; c < kM4Chunks; ++c) {
+    const uint4 m = m4s[c * kThreads + tid];
+    cat[8 + c][0] = m.x;
+    cat[8 + c][1] = m.y;
+    cat[8 + c][2] = m.z;
+    cat[8 + c][3] = m.w;
+  }
   const float* swb5 = args.swb[3];
   bf16* out = args.out + (size_t)cloud * n_pts * emb;
-  const int n0 = (warp & 1) * 32;
-  const int row_top = q0 + m0 + g, row_bot = row_top + 8;
-  for (int s0 = 0; s0 < emb; s0 += kSlab) {
-    __syncthreads();  // cat is complete; the previous slab is consumed
-    copy_rows(w5s, kLdCat, args.wt[3] + (size_t)s0 * kCat, kSlab, kCat);
-    __syncthreads();
-    int acc[4][4] = {};
-#pragma unroll 4
-    for (int kk = 0; kk < kCat / 32; ++kk) {
-      uint32_t a[4];
-      load_a(a, cat, kLdCat, m0, kk, lane);
+  const int row_top = q0 + row, row_bot = row_top + 8;
+  for (int s = 0; s < nslabs; ++s) {
+    const int st = s % kStages;
+    sm90::bar_wait(full + st, (s / kStages) & 1);
+    int acc[16];
+    sm90::wgmma_fence();
+    const uint64_t d_w5 = desc_sw128(wts + st * kSlabBytes, 16);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* q = w5s + (n0 + 8 * j + g) * kLdCat + kk * 32 + 4 * t;
-        mma_s8(acc[j], a, ld32(q), ld32(q + 16));
-      }
+    for (int c = 0; c < 16; ++c) sm90::mma_s8_rs_n32(acc, cat[c], d_w5 + (c >> 2) * (4096 >> 4) + 2 * (c & 3), c > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_operands(acc);
+    __syncthreads();  // every warp is done reading stage st
+    if (tid == 0 && s + kStages < nslabs) {
+      sm90::bar_expect_tx(full + st, kSlabBytes);
+      sm90::bulk_load(wts + st * kSlabBytes, args.w5 + (size_t)(s + kStages) * kSlabBytes, kSlabBytes, full + st);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = s0 + n0 + 8 * j + 2 * t;
-      const float sa = swb5[c], sb = swb5[c + 1], ba = swb5[emb + c], bb = swb5[emb + c + 1];
+    for (int jb = 0; jb < 4; ++jb) {
+      const int c = s * kSlabCols + 8 * jb + 2 * t;
+      const float2 sc = __ldg(reinterpret_cast<const float2*>(swb5 + c));
+      const float2 bc = __ldg(reinterpret_cast<const float2*>(swb5 + emb + c));
+      auto value = [&](int e) {
+        return fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * jb + e]), (e & 1) ? sc.y : sc.x),
+                               (e & 1) ? bc.y : bc.x), 0.f);
+      };
       if (row_top < n_pts)
-        *reinterpret_cast<uint32_t*>(out + (size_t)row_top * emb + c) =
-            pack_bf16(fmaxf(epilogue(acc[j][0], sa, ba), 0.f), fmaxf(epilogue(acc[j][1], sb, bb), 0.f));
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_top * emb + c) = sm90::pack_bf16(value(0), value(1));
       if (row_bot < n_pts)
-        *reinterpret_cast<uint32_t*>(out + (size_t)row_bot * emb + c) =
-            pack_bf16(fmaxf(epilogue(acc[j][2], sa, ba), 0.f), fmaxf(epilogue(acc[j][3], sb, bb), 0.f));
+        *reinterpret_cast<uint32_t*>(out + (size_t)row_bot * emb + c) = sm90::pack_bf16(value(2), value(3));
     }
+  }
+}
+
+// The wrapper's quantization of xw1 (the plain version's `_xw1_int8` after
+// its product) in two passes instead of torch's chain of launches: |xw1|'s max
+// (an atomic max of the bits, which order as the non-negative floats), then
+// s = max(amax, 1e-6) / 127 and q = round(xw1 / s) clamped to 127, each a
+// true division and round half to even, as torch computes them.
+__global__ void __launch_bounds__(256) xw1_amax_kernel(const float4* __restrict__ v, size_t n4,
+                                                       u32* __restrict__ amax) {
+  u32 m = 0;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4; i += (size_t)gridDim.x * blockDim.x) {
+    const float4 f = v[i];
+    m = max(m, max(max(__float_as_uint(fabsf(f.x)), __float_as_uint(fabsf(f.y))),
+                   max(__float_as_uint(fabsf(f.z)), __float_as_uint(fabsf(f.w)))));
+  }
+  m = __reduce_max_sync(kFull, m);
+  if ((threadIdx.x & 31) == 0) atomicMax(amax, m);
+}
+
+__global__ void __launch_bounds__(256) xw1_quant_kernel(const float4* __restrict__ v, size_t n4,
+                                                        const u32* __restrict__ amax, char4* __restrict__ q,
+                                                        float* __restrict__ scale) {
+  const float s = __fdiv_rn(fmaxf(__uint_as_float(*amax), 1e-6f), 127.f);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *scale = s;
+  auto one = [&](float x) { return static_cast<signed char>(fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f)); };
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4; i += (size_t)gridDim.x * blockDim.x) {
+    const float4 f = v[i];
+    q[i] = make_char4(one(f.x), one(f.y), one(f.z), one(f.w));
   }
 }
 
 }  // namespace
 
+// C entry: xw1 (n floats, n % 4 == 0) f32 -> q (n) int8 and scale (a f32
+// device scalar); amax is a device scratch of one u32. Three launches (a
+// memset, the max, the quantization). Returns the CUDA error code.
+extern "C" int dgcnn_quant_xw1(const float* xw1, void* q, float* scale, void* amax, long long n, void* stream) {
+  if (n <= 0 || n % 4 != 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(amax, 0, 4, s);
+  if (err != cudaSuccess) return (int)err;
+  const size_t n4 = (size_t)n / 4;
+  const int blocks = (int)((n4 + 255) / 256 < 1024 ? (n4 + 255) / 256 : 1024);
+  xw1_amax_kernel<<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(xw1), n4, static_cast<u32*>(amax));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  xw1_quant_kernel<<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(xw1), n4, static_cast<const u32*>(amax),
+                                          static_cast<char4*>(q), scale);
+  return (int)cudaGetLastError();
+}
+
 // C entry, bound with ctypes. All pointers are device pointers to contiguous
 // tensors: x (B, N, 3) f32; xw1q (B, N, 64) int8; s_xw1 a f32 device scalar;
-// wc1 (3, 64) f32; b1 (64,) f32; w2t..w5t int8 (out, in) of widths 64x64,
-// 128x64, 256x128, emb x 512; swb2..swb5 (2, out) f32; inv1..inv4 the
-// reciprocals of the stage scales; out (B, N, emb) bf16; knn_scale null
-// (exact kNN) or the scales of dgcnn_knn_scale at tile_n (approximate). Needs
-// 1 <= k <= 32, k <= N <= 4096 and emb % 64 == 0. Returns the CUDA error code
-// of the launch (0 on success).
-extern "C" int dgcnn_encode_int8(const float* x, const void* xw1q, const float* s_xw1,
-                                 const float* wc1, const float* b1, const void* w2t,
-                                 const float* swb2, const void* w3t, const float* swb3,
-                                 const void* w4t, const float* swb4, const void* w5t,
-                                 const float* swb5, float inv1, float inv2, float inv3, float inv4,
-                                 void* out, const float* knn_scale, int batch, int n_pts, int k, int emb,
-                                 int tile_n, void* stream) {
-  if (batch <= 0 || k < 1 || k > kMaxK || n_pts < k || n_pts > kMaxN || emb <= 0 ||
-      emb % kSlab != 0 || tile_n <= 0)
+// wc1 (3, 64) f32; b1 (64,) f32; w23, w4, w5 the packed images of
+// DGCNNInt8Weights (16384, 32768 and 512 emb bytes); swb2..swb5 (2, out)
+// f32; inv1..inv4 the reciprocals of the stage scales; out (B, N, emb)
+// bf16; knn_scale null (exact kNN) or the scales of dgcnn_knn_scale at
+// tile_n (approximate); idx a scratch of B * N * k int32 for the neighbors.
+// Needs 1 <= k <= 32, k <= N <= 4096 and emb % 64 == 0. Two launches, the
+// selection and the chain. Returns the CUDA error code (0 on success).
+extern "C" int dgcnn_encode_int8(const float* x, const void* xw1q, const float* s_xw1, const float* wc1,
+                                 const float* b1, const void* w23, const void* w4, const void* w5, const float* swb2,
+                                 const float* swb3, const float* swb4, const float* swb5, float inv1, float inv2,
+                                 float inv3, float inv4, void* out, const float* knn_scale, void* idx, int batch,
+                                 int n_pts, int k, int emb, int tile_n, void* stream) {
+  if (batch <= 0 || k < 1 || k > kMaxK || n_pts < k || n_pts > kMaxN || emb <= 0 || emb % 64 != 0 || tile_n <= 0)
     return (int)cudaErrorInvalidValue;
-  const int bytes = smem_bytes(n_pts, k);
-  cudaError_t err = cudaFuncSetAttribute(dgcnn_encode_int8_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  // the shared-memory limits (the largest shapes'), once a device
+  static bool ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(dgcnn_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               select_smem_bytes(kMaxN));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dgcnn_encode_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 1024 + smem_bytes(kMaxK));
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n_pts + kRows - 1) / kRows, batch);
+  dgcnn_select_kernel<<<grid, kThreads, select_smem_bytes(n_pts), s>>>(x, knn_scale, static_cast<int*>(idx), n_pts,
+                                                                      k, tile_n);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   Args args{x,
             static_cast<const int8_t*>(xw1q),
             s_xw1,
             wc1,
             b1,
-            {static_cast<const int8_t*>(w2t), static_cast<const int8_t*>(w3t),
-             static_cast<const int8_t*>(w4t), static_cast<const int8_t*>(w5t)},
+            static_cast<const uint8_t*>(w23),
+            static_cast<const uint8_t*>(w4),
+            static_cast<const uint8_t*>(w5),
             {swb2, swb3, swb4, swb5},
             {inv1, inv2, inv3, inv4},
             static_cast<bf16*>(out),
-            knn_scale,
+            static_cast<const int*>(idx),
             n_pts,
             k,
-            emb,
-            tile_n};
-  dim3 grid((n_pts + kRows - 1) / kRows, batch);
-  dgcnn_encode_int8_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(args);
+            emb};
+  dgcnn_encode_int8_kernel<<<grid, kThreads, 1024 + smem_bytes(k), s>>>(args);
   return (int)cudaGetLastError();
 }

@@ -71,7 +71,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_select.cuh"
+
 namespace {
+
+using namespace warp_select;
 
 typedef unsigned int u32;
 typedef unsigned long long u64;
@@ -88,8 +92,6 @@ constexpr int kMaxK = 64;
 constexpr int kMaxC = 256;
 constexpr int kRankMax = 8;               // new keys a round merged by rank, not by sort
 constexpr int kMaxDevices = 64;
-constexpr u64 kNone = ~0ull;
-constexpr u32 kFull = 0xffffffffu;
 
 struct Smem {
   float q[2][kRows * kLd];   // two stages of a query chunk, row-major
@@ -110,10 +112,6 @@ __device__ __forceinline__ u32 order_bits(float d) {
 __device__ __forceinline__ float from_order_bits(u32 o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
-
-// One side of a compare-exchange: the smaller of c and o where `keep_min`,
-// else the larger (keys are distinct, or both kNone).
-__device__ __forceinline__ u64 keep(u64 c, u64 o, bool keep_min) { return (c < o) == keep_min ? c : o; }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
@@ -159,15 +157,9 @@ __device__ __forceinline__ void load_chunk(float* qs, float* ps, const float* qc
 
 // Bitonic sort of one key a lane, ascending across the warp.
 __device__ __forceinline__ u64 sort32(u64 c, int lane) {
-#pragma unroll
-  for (int size = 2; size <= 32; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const u64 o = __shfl_xor_sync(kFull, c, stride);
-      c = keep(c, o, ((lane & size) == 0) == ((lane & stride) == 0));
-    }
-  }
-  return c;
+  u64 r[1] = {c};
+  sort32_rows<1>(r, lane);
+  return r[0];
 }
 
 // Merge a sorted batch `c` (one key a lane) into a warp's sorted list of 32
@@ -176,21 +168,18 @@ __device__ __forceinline__ u64 sort32(u64 c, int lane) {
 // then a bitonic clean.
 template <bool K64>
 __device__ __forceinline__ void merge(u64& lo, u64& hi, u64 c, int lane) {
-  const u64 rev = __shfl_sync(kFull, c, 31 - lane);
-  if (K64) {
-    hi = keep(hi, rev, true);
+  if constexpr (K64) {
+    hi = keep(hi, __shfl_sync(kFull, c, 31 - lane), true);
     const bool lo_first = lo < hi;
-    const u64 a = lo_first ? lo : hi, b = lo_first ? hi : lo;
-    lo = a;
-    hi = b;
+    u64 l[2] = {lo_first ? lo : hi, lo_first ? hi : lo};
+    clean32_rows<2>(l, lane);
+    lo = l[0];
+    hi = l[1];
   } else {
-    lo = keep(lo, rev, true);
-  }
-#pragma unroll
-  for (int stride = 16; stride > 0; stride >>= 1) {
-    const bool lower = (lane & stride) == 0;
-    lo = keep(lo, __shfl_xor_sync(kFull, lo, stride), lower);
-    if (K64) hi = keep(hi, __shfl_xor_sync(kFull, hi, stride), lower);
+    u64 l[1] = {lo};
+    const u64 b[1] = {c};
+    merge32_rows<1>(l, b, lane);
+    lo = l[0];
   }
 }
 

@@ -251,13 +251,61 @@ def dgcnn_fused_ok(x, convs, bns, k):
 # ``csrc/dgcnn_int8.cu``.
 
 
+def key_order(width):
+    """The contracted-index order in which an int8 wgmma accumulator becomes
+    the next product's A fragments in place (``csrc/attention_sm90.cuh``'s
+    ``s8_pack_p``): position p of ``width`` (a multiple of 16) holds channel
+    ``key_order(width)[p]``; in each 16-channel group, position 4t + i holds
+    channel 2t + i for i < 2 and 8 + 2t + i - 2 for i >= 2."""
+    p = torch.arange(width)
+    grp, t, i = p // 16, p % 16 // 4, p % 4
+    return 16 * grp + torch.where(i < 2, 2 * t + i, 6 + 2 * t + i)
+
+
+def swizzle128(rows):
+    """(R, 128) uint8 rows, R % 8 == 0 -> the R * 128 bytes of wgmma's
+    128-byte-swizzled K-major image: 16-byte chunk c of row r at chunk
+    c ^ (r % 8) of the row's 128 bytes, the rows in order (8-row atoms of
+    1024 bytes)."""
+    r = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    c = torch.arange(128, device=rows.device)[None, :]
+    out = torch.empty(rows.numel(), dtype=torch.uint8, device=rows.device)
+    out[(r * 128 + (c // 16 ^ r % 8) * 16 + c % 16).reshape(-1)] = rows.reshape(-1)
+    return out
+
+
+def k9_images(wts):
+    """K9's weight images from the int8 (out, in) weights of conv2..conv5:
+    ``w23`` (16384 bytes): 128 rows, bytes 0..63 W2^T (rows < 64, natural
+    order: e1's fragments are formed in it), bytes 64..127 W3^T with its
+    contracted index in ``key_order``; ``w4`` (32768): W4^T in
+    ``key_order``; ``w5`` (512 emb): W5^T with the concatenation's index
+    natural for e1 (0..63) and in ``key_order`` past it, in slabs of 32
+    output channels, each four 128-byte boxes of k (4096 bytes). Each
+    swizzled by ``swizzle128``."""
+    w2t, w3t, w4t, w5t = (w.view(torch.uint8) for w in wts)
+    dev = w2t.device
+    rows = torch.zeros((128, 128), dtype=torch.uint8, device=dev)
+    rows[:64, :64] = w2t
+    rows[:, 64:] = w3t[:, key_order(64).to(dev)]
+    emb = w5t.shape[0]
+    cat = torch.where(torch.arange(512) < 64, torch.arange(512), key_order(512)).to(dev)
+    slabs = w5t[:, cat].reshape(emb // 32, 32, 4, 128).permute(0, 2, 1, 3).reshape(-1, 128)
+    return swizzle128(rows), swizzle128(w4t[:, key_order(128).to(dev)]), swizzle128(slabs)
+
+
 class DGCNNInt8Weights(nn.Module):
     """K9's operands, built once from the BN-folded convs and the static
     scales (s1..s4) of ``calibrate_dgcnn_int8``: Wn1, Wc1, b1 f32; the int8
     weights of conv2..conv5 (conv5's rows pre-scaled by the stage scales of
-    the concatenation they multiply) transposed to (out, in), the layout the
-    kernel reads (the plain version multiplies by its transpose);
-    swb = [s_in * s_w; b] (conv5: [s_w5; b5]); 1 / s_i as Python floats."""
+    the concatenation they multiply) transposed to (out, in) (the plain
+    version multiplies by their transpose); swb = [s_in * s_w; b] (conv5:
+    [s_w5; b5]); 1 / s_i as Python floats. The kernel also reads buffers
+    derived from these, kept out of the state dict: Wn1 rounded to bf16
+    (``wn1_bf16``) and the swizzled images (``k9_images``: ``img23``,
+    ``img4``, ``img5``). ``derive`` builds them at construction and again
+    after every ``load_state_dict``; an in-place edit of ``wn1`` or ``wt*``
+    must call it too."""
 
     def __init__(self, ws, bs, scales):
         super().__init__()
@@ -275,6 +323,16 @@ class DGCNNInt8Weights(nn.Module):
             swb = torch.stack([torch.full_like(b, self.scales[i]) * s_w, b]) if i < 3 else torch.stack([s_w, b])
             self.register_buffer(f"wt{i}", w_q.t().contiguous())
             self.register_buffer(f"swb{i}", swb.contiguous())
+        for name in ("wn1_bf16", "img23", "img4", "img5"):
+            self.register_buffer(name, None, persistent=False)
+        self.derive()
+        self.register_load_state_dict_post_hook(lambda module, _keys: module.derive())
+
+    @torch.no_grad()
+    def derive(self):
+        """Rebuild ``wn1_bf16`` and the images from ``wn1`` and ``wt*``."""
+        self.wn1_bf16 = self.wn1.to(torch.bfloat16).to(torch.float32).contiguous()
+        self.img23, self.img4, self.img5 = k9_images([wt for wt, _ in self.stages()])
 
     def stages(self):
         """[(w_q^T (out, in), swb)] for conv2..conv5."""
@@ -336,17 +394,25 @@ def dgcnn_encode_int8_kernel(x, pack, k, approx_knn=False):
     if widths != [*DIMS[1:], (512, emb)] or pack.wn1.device != x.device:
         raise ValueError(f"int8 weights must be {[*DIMS[1:], (512, emb)]} on x's device, got {widths}")
     B, N, _ = x.shape
-    xw1q, s_xw1 = _xw1_int8(x, pack.wn1)
-    out = torch.empty((B, N, emb), device=x.device, dtype=torch.bfloat16)
-    ptrs = [t.data_ptr() for s in stages for t in s]
-    inv = [ctypes.c_float(s) for s in pack.inv_s]
     lib = _build.library()
+    # the plain version's xw1 product, its quantization in two kernels
+    xw1 = torch.matmul(x.to(torch.bfloat16).to(torch.float32), pack.wn1_bf16)
+    xw1q = torch.empty(xw1.shape, device=x.device, dtype=torch.int8)
+    s_xw1 = torch.empty((), device=x.device, dtype=torch.float32)
+    amax = torch.empty((), device=x.device, dtype=torch.int32)
+    out = torch.empty((B, N, emb), device=x.device, dtype=torch.bfloat16)
+    nbrs = torch.empty((B, N, k), device=x.device, dtype=torch.int32)  # the selection's output, the chain's input
+    ptrs = [t.data_ptr() for t in (pack.img23, pack.img4, pack.img5)] + [swb.data_ptr() for _, swb in stages]
+    inv = [ctypes.c_float(s) for s in pack.inv_s]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        _build.check(lib.dgcnn_quant_xw1(xw1.data_ptr(), xw1q.data_ptr(), s_xw1.data_ptr(), amax.data_ptr(),
+                                         xw1.numel(), stream), "dgcnn_quant_xw1")
         scale, tile_n = _knn_scale_kernel(x, lib, stream, approx_knn)
         err = lib.dgcnn_encode_int8(x.data_ptr(), xw1q.data_ptr(), s_xw1.data_ptr(), pack.wc1.data_ptr(),
                                     pack.b1.data_ptr(), *ptrs, *inv, out.data_ptr(),
-                                    0 if scale is None else scale.data_ptr(), B, N, k, emb, tile_n, stream)
+                                    0 if scale is None else scale.data_ptr(), nbrs.data_ptr(), B, N, k, emb, tile_n,
+                                    stream)
     _build.check(err, "dgcnn_encode_int8")
     LAUNCHES["dgcnn_encode_fused_int8"] += 1
     return out

@@ -176,15 +176,15 @@ def fps_pallas(xyz, npoint, start=None):
         raise NotImplementedError(limit)
     x = xyz.detach().float().contiguous()
     B, N, _ = x.shape
-    st = _start(x, start).contiguous()
+    st = None if start is None else _start(x, start).contiguous()  # None: the kernel starts at point 0
     idx = torch.empty((B, npoint), device=x.device, dtype=torch.int32)
     if B == 0:
         return idx
     lib = _build.library()
-    scratch = None if N <= lib.fps_smem_points() else torch.empty((B, 4, N), device=x.device, dtype=torch.float32)
+    scratch = torch.empty((B, 4, N), device=x.device, dtype=torch.float32) if lib.fps_scratch_needed(N) else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fps_sample(x.data_ptr(), st.data_ptr(), idx.data_ptr(),
+        err = lib.fps_sample(x.data_ptr(), None if st is None else st.data_ptr(), idx.data_ptr(),
                              None if scratch is None else scratch.data_ptr(), B, N, npoint, stream)
     _build.check(err, "fps_sample")
     LAUNCHES["fps_pallas"] += 1

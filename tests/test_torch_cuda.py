@@ -472,6 +472,87 @@ def test_k9_matches_plain(cuda, case, batch, n_pts, k, emb):
     assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
 
 
+def k9_case(rng, batch, n_pts, emb, lattice=False):
+    ws, bs = dgcnn_weights(rng, emb, torch.device("cuda"))
+    from learning3d_tpu_torch.kernels.dgcnn_fused import DGCNNInt8Weights
+
+    pack = DGCNNInt8Weights(ws, bs, (0.02, 0.03, 0.03, 0.04))
+    x = lattice_cloud(rng, batch, n_pts) if lattice else rng.normal(size=(batch, n_pts, 3))
+    return torch.from_numpy(x.astype(np.float32)).cuda(), pack
+
+
+def k9_check(x, pack, k, approx=False):
+    """K9 against its plain version: one launch, within 2e-2 of max, and
+    bit for bit (the same neighbors, exact integer products, the same
+    epilogue roundings)."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.dgcnn_fused import dgcnn_encode_int8_kernel, dgcnn_int8_reference
+
+    before = LAUNCHES["dgcnn_encode_fused_int8"]
+    got = dgcnn_encode_int8_kernel(x, pack, k, approx_knn=approx)
+    want = dgcnn_int8_reference(x, pack, k, approx_knn=approx)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dgcnn_encode_fused_int8"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
+    assert torch.equal(got, want)
+    return got
+
+
+# the Hopper design's edges: k = 1, 20, 32 (the selection's list of 32);
+# N = k, 63, 64, 65 (one 64-row block and a ragged second), 1000 and 4096
+# (the largest cloud, its coordinates filling the shared region); emb 64
+# (two W5 slabs) and 512
+@pytest.mark.parametrize("k,n_pts,emb", [(1, 1, 64), (1, 63, 64), (20, 20, 512), (20, 63, 64), (20, 64, 512),
+                                         (20, 65, 512), (20, 1000, 64), (20, 4096, 512), (32, 32, 64),
+                                         (32, 65, 512), (32, 1000, 512), (32, 4096, 64)])
+def test_k9_hopper_edges_match_plain(cuda, k, n_pts, emb):
+    rng = np.random.default_rng(1000 * k + n_pts + emb)
+    x, pack = k9_case(rng, 1 if n_pts == 4096 else 2, n_pts, emb)
+    k9_check(x, pack, k)
+
+
+# a lattice's exact distance ties at k = 20 and 32, exact and approximate
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("k", [20, 32])
+def test_k9_lattice_matches_plain(cuda, k, approx):
+    x, pack = k9_case(np.random.default_rng(k + approx), 2, 1000, 512, lattice=True)
+    k9_check(x, pack, k, approx)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-9])
+def test_k9_xw1_quantization_matches_plain(cuda, scale):
+    """The wrapper's two-kernel quantization of xw1 against the plain
+    version's torch chain (`_xw1_int8`): int8 rows and scale equal, the
+    scale's floor of 1e-6 / 127 included (scale 1e-9)."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.dgcnn_fused import _xw1_int8
+
+    rng = np.random.default_rng(int(1 / scale) % 1000)
+    x = torch.from_numpy((scale * rng.normal(size=(3, 1000, 3))).astype(np.float32)).to(cuda)
+    wn1 = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32)).to(cuda)
+    want_q, want_s = _xw1_int8(x, wn1)
+    xw1 = torch.matmul(x.to(torch.bfloat16).to(torch.float32), wn1.to(torch.bfloat16).to(torch.float32))
+    q = torch.empty(xw1.shape, device=cuda, dtype=torch.int8)
+    s = torch.empty((), device=cuda, dtype=torch.float32)
+    amax = torch.empty((), device=cuda, dtype=torch.int32)
+    _build.check(_build.library().dgcnn_quant_xw1(xw1.data_ptr(), q.data_ptr(), s.data_ptr(), amax.data_ptr(),
+                                                   xw1.numel(), torch.cuda.current_stream().cuda_stream),
+                 "dgcnn_quant_xw1")
+    torch.cuda.synchronize()
+    assert torch.equal(s, want_s) and torch.equal(q, want_q)
+
+
+def test_k9_two_calls_give_equal_bits(cuda):
+    from learning3d_tpu_torch.kernels.dgcnn_fused import dgcnn_encode_int8_kernel
+
+    x, pack = k9_case(np.random.default_rng(5), 4, 1024, 512)
+    a = dgcnn_encode_int8_kernel(x, pack, 20)
+    b = dgcnn_encode_int8_kernel(x, pack, 20)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 # the pointer's shape, ragged N and M, D = 256; the edges of the 128-key
 # tiles (M = 768 and 1000 with N = 768 and 100), and D = 512, where the
 # Q tile and a K stage take 64 KB each and the rings are shallower
@@ -1332,6 +1413,74 @@ def test_k14_matches_plain(cuda, name):
     assert LAUNCHES["fps_pallas"] == before + 1
     assert got.dtype == torch.int32 and got.shape == (x.shape[0], npoint)
     assert torch.equal(got, want)
+
+
+def k14_check(x, npoint, start=None):
+    """K14 against its plain version through the wrapper: indices equal, one
+    launch."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.sampling import fps_pallas, fps_reference
+
+    before = LAUNCHES["fps_pallas"]
+    got = fps_pallas(x, npoint, start)
+    want = fps_reference(x, npoint, start)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fps_pallas"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (x.shape[0], npoint)
+    assert torch.equal(got, want)
+    return got
+
+
+# The edges of the register tiles at each N's own block size
+# (fps_default_threads): 1 and 2 points a thread at 32 threads (32/33, up to
+# 64); 1, 2 and 4 at 128 (65, 128/129, 256/257, up to 512); 4 at 256
+# (513-1024); 16 at 128 (1025-2048) and at 256 (2049-4096); 8 at 1024
+# (4097-8192); then shared memory (8193-12288) and past it the global scratch
+# (12289).
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257, 511, 512, 513, 1023, 1024,
+                               1025, 2047, 2048, 2049, 4095, 4096, 4097, 8191, 8192, 8193, 12288, 12289])
+def test_k14_register_tile_edges_match_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(size=(2, n, 3)).astype(np.float32)).to(cuda)
+    k14_check(x, min(n, 96), torch.from_numpy(rng.integers(0, n, 2).astype(np.int32)).to(cuda))
+
+
+# every point picked (npoint = N), and past it: the picks then repeat the
+# first index whose distance is 0
+@pytest.mark.parametrize("n", [1, 33, 257])
+@pytest.mark.parametrize("extra", [0, 7])
+def test_k14_every_point_matches_plain(cuda, n, extra):
+    x = torch.from_numpy(np.random.default_rng(n + extra).normal(size=(3, n, 3)).astype(np.float32)).to(cuda)
+    got = k14_check(x, n + extra)
+    assert (got[:, :n].sort(-1).values == torch.arange(n, device=cuda, dtype=torch.int32)).all()
+
+
+@pytest.mark.parametrize("batch", [1, 40])
+def test_k14_batch_sizes_match_plain(cuda, batch):
+    rng = np.random.default_rng(batch)
+    x = torch.from_numpy(rng.normal(size=(batch, 1024, 3)).astype(np.float32)).to(cuda)
+    k14_check(x, 256, torch.from_numpy(rng.integers(0, 1024, batch).astype(np.int32)).to(cuda))
+
+
+# a lattice with exact ties at a one-warp and a 256-thread size, a cloud of
+# equal points (start, then index 0 for ever: every distance is 0), random
+# starts
+@pytest.mark.parametrize("name", ["lattice_64", "lattice_2048", "equal_points", "random_starts"])
+def test_k14_degenerate_clouds_match_plain(cuda, name):
+    rng = np.random.default_rng(len(name))
+    start = None
+    if name.startswith("lattice"):
+        n = int(name.split("_")[1])
+        x, npoint = lattice_cloud(rng, 2, n), n // 2
+    elif name == "equal_points":
+        x, npoint = np.full((2, 500, 3), 0.375, np.float32), 20
+        start = torch.tensor([7, 499], dtype=torch.int32, device=cuda)
+    else:
+        x, npoint = rng.normal(size=(8, 2048, 3)).astype(np.float32), 1024
+        start = torch.from_numpy(rng.integers(0, 2048, 8).astype(np.int32)).to(cuda)
+    got = k14_check(torch.from_numpy(x).to(cuda), npoint, start)
+    if name == "equal_points":
+        assert got[:, 0].tolist() == [7, 499] and (got[:, 1:] == 0).all()
 
 
 def k15_case(name, rng):

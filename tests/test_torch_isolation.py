@@ -24,7 +24,8 @@ def port_files(*suffixes):
                   ROOT / "tools" / "profile_torch_train.py", ROOT / "tools" / "torch_dcp_step_gaps.py",
                   ROOT / "tools" / "torch_cls_step_gaps.py", ROOT / "tools" / "torch_prnet_step_gaps.py",
                   ROOT / "tools" / "torch_flownet_step_gaps.py", ROOT / "tools" / "torch_square_distance_ab.py",
-                  ROOT / "tools" / "torch_rpmnet_step_gaps.py", ROOT / "tools" / "torch_attention_ab.py"]
+                  ROOT / "tools" / "torch_rpmnet_step_gaps.py", ROOT / "tools" / "torch_attention_ab.py",
+                  ROOT / "tools" / "torch_kernel_ab.py"]
     return files
 
 

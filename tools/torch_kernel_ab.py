@@ -1,0 +1,308 @@
+#!/usr/bin/env python3
+"""Times of the port's redesigned kernels at the shapes of their main paths,
+and of the models that run them, from one tree: the attention kernels K6
+(attention_pallas) and K10 (attention_int8_kernel), the fused int8 pointer
+layers K11a/K11b, K8 (knn_pallas), K1 (pointnet_pooled_kernel), K14
+(fps_pallas) and K9 (dgcnn_encode_int8_kernel).
+
+    python3 tools/torch_kernel_ab.py [--root TREE] [--label NAME]
+        [--parts k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8]
+
+(``tools/torch_attention_ab.py`` is the same script under its former name.)
+``--root`` names the checkout whose ``learning3d_tpu_torch`` and
+``chip_smoke.py`` are imported (default: this one), so that two versions
+of the kernels are timed in one call on one card by running the script once
+from each tree, in turns (a, b, b, a): the Python entries are the same in
+both.
+
+Shapes: K6 at the DCP pointer (B=32, H=4, N=M=1024, D=Dv=128) in bf16 and
+f32, the SVD head (H=1, D=512, Dv=3), DCP(DGCNN(emb 1024))'s pointer
+(D=Dv=256) and PRNet's f32 pointer (B=16, 768 queries against 1024 keys,
+and back); K10 at the int8 pointer in both P.V modes; each at a tiny shape
+(one block: B=H=1, N=M=128), which the host's work a call sets; and the
+wrappers' preparation alone (K6's casts of f32 operands to bf16, K10's copy
+of V). ``k11``: each of K11's launches alone and the whole encoder and
+decoder layers in both P.V modes at the DCP shape (B=32, N=1024, d=512, 4
+heads, ff 1024; ``sweep_torch_kernels.k11_stages``). ``serve``: ``model_ms``
+of DCP quantized with fused_layers=True, int8 and hybrid P.V, on a device
+batch (``profile_torch_serve.build``). ``k8``: K8 at ``chip_smoke.py``'s
+timed shapes (PRNet's stages at B=16: C = 3, 64, 128 at N = 768 and 1024,
+self searches, k=20; a cross-cloud search) and their sum over a PRNet
+forward's 16 launches, and at FlowNet3D's three_nn (16 clouds of 2048
+SyntheticSceneflow points among their 1024 farthest-point samples, k=3),
+and at a tiny shape (32 points, the fixed cost of a call).
+``k1``: K1 at B=256 and B=32 (N=1024, emb 1024) and at B=1, N=1 (the
+fixed cost of a call). ``prnet``: ``model_ms`` of
+PRNet() served at B=32. ``ipcrnet``: ``model_ms`` of bf16 iPCRNet at B=32 and
+at the multi-start batch of 256 clouds, and ``multistart_register`` on 32
+pairs from 8 starts. ``k14``: K14 at FlowNet3D's four shapes (sa1 (16, 2048
+-> 1024), sa2 (16, 1024 -> 256), sa3 (16, 256 -> 64), sa4 (16, 64 -> 16) on
+the SyntheticSceneflow clouds' own levels) and their sum over a forward's
+six launches; where the tree has it, the chain floor at each shape (the
+steps' reductions and barriers with no point work, ``fps_chain_floor``).
+``k9``: K9 at the DCP shape (B=32, N=1024, k=20, emb 512,
+numpy-seeded weights and scales), exact and approximate kNN. ``flownet``:
+``model_ms`` of FlowNet3D() served at B=16. ``dcp_int8``: ``model_ms`` of DCP
+quantized with fused_layers=False (unfused) and True (fused, int8 P.V) at
+B=32. Inputs are numpy-seeded. Prints one JSON line of ms a
+call (chip_smoke.cuda_ms; for K8, K1, K14 and K9 also ``/device``, the kernels'
+own time under torch.profiler) with the card's name and power limit. Needs a
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
+    parser.add_argument("--label", default="")
+    parser.add_argument("--parts", default="k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8")
+    args = parser.parse_args()
+    parts = set(args.parts.split(","))
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: needs a CUDA card")
+    sys.path.insert(0, str(args.root.resolve()))
+    sys.path.insert(1, str(Path(__file__).resolve().parent))  # this tree's tools, run on the root's package
+    import chip_smoke
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.attention import attention_int8_kernel, attention_pallas
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(chip_smoke.SEED)
+
+    def normal(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(dtype)
+
+    f32 = torch.float32
+    k6_shapes = {
+        "pointer": ((32, 4, 1024, 128), (32, 4, 1024, 128), (32, 4, 1024, 128), torch.bfloat16),
+        "pointer_f32": ((32, 4, 1024, 128), (32, 4, 1024, 128), (32, 4, 1024, 128), f32),
+        "head": ((32, 1, 1024, 512), (32, 1, 1024, 512), (32, 1, 1024, 3), torch.bfloat16),
+        "dv256": ((32, 4, 1024, 256), (32, 4, 1024, 256), (32, 4, 1024, 256), torch.bfloat16),
+        "prnet_f32": ((16, 4, 768, 128), (16, 4, 1024, 128), (16, 4, 1024, 128), f32),
+        "prnet_back_f32": ((16, 4, 1024, 128), (16, 4, 768, 128), (16, 4, 768, 128), f32),
+        "tiny": ((1, 1, 128, 128), (1, 1, 128, 128), (1, 1, 128, 128), torch.bfloat16),
+    }
+    times = {}
+    with torch.inference_mode():
+        for name, (sq, sk, sv, dtype) in k6_shapes.items() if "k6" in parts else ():
+            q, k, v = normal(*sq, dtype=dtype), normal(*sk, dtype=dtype), normal(*sv, dtype=dtype)
+            times[f"k6/{name}"] = chip_smoke.cuda_ms(lambda: attention_pallas(q, k, v))
+            if name == "pointer_f32":  # the wrapper's casts to bf16 alone
+                times["k6/prep_f32"] = chip_smoke.cuda_ms(lambda: [t.to(torch.bfloat16) for t in (q, k, v)])
+        for shape in ((32, 4, 1024, 128), (1, 1, 128, 128)) if "k10" in parts else ():
+            q, k, v = (torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).cuda() for _ in range(3))
+            for int8_pv in (True, False):
+                name = f"k10/{'int8_pv' if int8_pv else 'hybrid'}" + ("" if shape[0] > 1 else "/tiny")
+                times[name] = chip_smoke.cuda_ms(lambda: attention_int8_kernel(q, k, v, 0.004, 0.005, 0.03, int8_pv))
+        # the wrappers' copies of V alone, at the pointer's shape: torch's
+        # transpose and widening, and the port's attention_int8_values
+        v3 = torch.from_numpy(rng.integers(-127, 128, (128, 1024, 128)).astype(np.int8)).cuda()
+        if "k10" in parts:
+            times["k10/prep_transpose"] = chip_smoke.cuda_ms(lambda: v3.transpose(1, 2).contiguous())
+            times["k10/prep_hybrid"] = chip_smoke.cuda_ms(lambda: v3.to(torch.bfloat16))
+        lib = _build.library()
+        if "k10" in parts and hasattr(lib, "attention_int8_values"):
+            stream = torch.cuda.current_stream().cuda_stream
+            for int8_pv, dtype in ((1, torch.int8), (0, torch.bfloat16)):
+                out = torch.empty(128 * 1024 * 128, device=v3.device, dtype=dtype)
+                times[f"k10/values_{'int8_pv' if int8_pv else 'hybrid'}"] = chip_smoke.cuda_ms(
+                    lambda: lib.attention_int8_values(v3.data_ptr(), out.data_ptr(), 128, 1024, 1024, 128, int8_pv,
+                                                      stream))
+        if "k11" in parts:
+            from sweep_torch_kernels import k11_stages
+
+            times.update({f"k11/{k}": v for k, v in k11_stages(np.random.default_rng(chip_smoke.SEED), chip_smoke)
+                          .items()})
+    if "serve" in parts:
+        from profile_torch_serve import build
+
+        for name in ("dcp-int8-fused", "dcp-int8-hybrid-fused"):
+            model, _, inputs = build(name, np.random.default_rng(chip_smoke.SEED))
+            dev = [torch.from_numpy(a).cuda() for a in inputs]
+            with torch.inference_mode():
+                times[f"serve/{name}/model_ms"] = chip_smoke.cuda_ms(lambda: model(*dev), reps=10)
+    with torch.inference_mode():
+        if "k8" in parts:
+            times.update(k8_times(chip_smoke))
+        if "k1" in parts:
+            times.update(k1_times(chip_smoke))
+        if "k14" in parts:
+            times.update(k14_times(chip_smoke))
+        if "k9" in parts:
+            times.update(k9_times(chip_smoke))
+    if parts & {"prnet", "ipcrnet", "flownet", "dcp_int8"}:
+        times.update(model_times(chip_smoke, parts))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"label": args.label, "root": str(args.root), "device": smi,
+                      "ms": times}), flush=True)
+
+
+def device_ms(fn, reps: int = 10, by_kernel: bool = False):
+    """Device time of one call: the kernels' time under torch.profiler over
+    ``reps`` calls (after one warm-up), divided by ``reps``; free of the
+    host's time, which ``cuda_ms`` shows where it exceeds the device's. With
+    ``by_kernel``, a dict of ms a call by kernel name instead."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 / reps for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and getattr(e, "self_device_time_total", 0.0) > 0}
+    return times if by_kernel else sum(times.values())
+
+
+def k8_times(chip_smoke) -> dict:
+    """K8 at chip_smoke's timed shapes, the PRNet forward's 16 launches and
+    three_nn's shape."""
+    from learning3d_tpu_torch.kernels.knn import knn_pallas
+    from learning3d_tpu_torch.ops.geometry import farthest_point_sample, index_points
+
+    cases = chip_smoke.k8_cases(np.random.default_rng(chip_smoke.SEED))
+    sizes = (chip_smoke.PRNET_NT, chip_smoke.PRNET_NS)
+    times = {}
+    for name in [f"C{c}_N{n}" for n in sizes for c in (3, 64, 128)] + ["cross_cloud"]:
+        q, p, k = cases[name]
+        times[f"k8/{name}"] = chip_smoke.cuda_ms(lambda: knn_pallas(q, p, k))
+        times[f"k8/{name}/device"] = device_ms(lambda: knn_pallas(q, p, k))
+    tiny = torch.from_numpy(np.random.default_rng(1).normal(size=(1, 32, 3)).astype(np.float32)).cuda()
+    times["k8/tiny"] = chip_smoke.cuda_ms(lambda: knn_pallas(tiny, tiny, 20))
+    times["k8/prnet_forward_16"] = sum((1 if n == chip_smoke.PRNET_NT else chip_smoke.PRNET_ITERS) *
+                                       times[f"k8/C{c}_N{n}"] for c in (3, 64, 64, 128) for n in sizes)
+    pc1 = torch.from_numpy(chip_smoke.flow_requests(chip_smoke.FLOW_B)[0]).cuda()
+    known = index_points(pc1, farthest_point_sample(pc1, 1024))
+    times["k8/three_nn"] = chip_smoke.cuda_ms(lambda: knn_pallas(pc1, known, 3))
+    times["k8/three_nn/device"] = device_ms(lambda: knn_pallas(pc1, known, 3))
+    return times
+
+
+def k1_times(chip_smoke) -> dict:
+    """K1 at B=256 and B=32, N=1024, emb 1024, on numpy-seeded folded
+    weights."""
+    from learning3d_tpu_torch.kernels.pointnet_fused import pointnet_pooled_kernel
+
+    rng = np.random.default_rng(chip_smoke.SEED + 16)
+    dims = [3, 64, 64, 64, 128, 1024]
+    ws = [torch.from_numpy(rng.normal(0, i**-0.5, (i, o)).astype(np.float32)).cuda()
+          for i, o in zip(dims[:-1], dims[1:])]
+    bs = [torch.from_numpy(rng.normal(0, 0.1, o).astype(np.float32)).cuda() for o in dims[1:]]
+    times = {}
+    for b, n in ((256, 1024), (32, 1024), (1, 1)):
+        x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).cuda()
+        name = f"k1/B{b}" if n == 1024 else f"k1/B{b}_N{n}"
+        times[name] = chip_smoke.cuda_ms(lambda: pointnet_pooled_kernel(x, ws, bs))
+        times[f"{name}/device"] = device_ms(lambda: pointnet_pooled_kernel(x, ws, bs))
+    return times
+
+
+def k14_times(chip_smoke) -> dict:
+    """K14 at FlowNet3D's four shapes, their sum over a forward's six
+    launches, and (where the tree has it) the chain floor."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.sampling import fps_pallas
+
+    pc1 = torch.from_numpy(chip_smoke.flow_requests(chip_smoke.FLOW_B)[0]).cuda()
+    levels = chip_smoke.flow_levels(pc1)
+    lib = _build.library()
+    new = "fps_chain_floor" in _build.SIGNATURES
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for k, (xyz, _, npoint, _, _) in enumerate(levels):
+        name = f"k14/sa{k + 1}"
+        times[name] = chip_smoke.cuda_ms(lambda: fps_pallas(xyz, npoint))
+        times[f"{name}/device"] = device_ms(lambda: fps_pallas(xyz, npoint))
+        if not new:
+            continue
+        B, N = xyz.shape[:2]
+        idx = torch.empty((B, npoint), device=xyz.device, dtype=torch.int32)
+        times[f"{name}/threads"] = lib.fps_default_threads(N)
+        times[f"{name}/chain_floor"] = chip_smoke.cuda_ms(
+            lambda: _build.check(lib.fps_chain_floor(idx.data_ptr(), B, N, npoint, stream), "fps_chain_floor"))
+    for key in ("", "/device") + (("/chain_floor",) if new else ()):
+        times[f"k14/flownet_forward_6{key}"] = sum(times[f"k14/sa{k + 1}{key}"] * (2 if k < 2 else 1)
+                                                   for k in range(4))
+    return times
+
+
+def k9_times(chip_smoke) -> dict:
+    """K9 at the DCP shape, exact and approximate kNN, on numpy-seeded
+    weights and scales."""
+    from learning3d_tpu_torch.kernels.dgcnn_fused import DGCNNInt8Weights, dgcnn_encode_int8_kernel
+
+    rng = np.random.default_rng(chip_smoke.SEED + 17)
+    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, chip_smoke.DCP_EMB)]
+    ws = [torch.from_numpy(rng.normal(0, i**-0.5, (i, o)).astype(np.float32)).cuda() for i, o in dims]
+    bs = [torch.from_numpy(rng.normal(0, 0.1, o).astype(np.float32)).cuda() for _, o in dims]
+    pack = DGCNNInt8Weights(ws, bs, (0.02, 0.03, 0.03, 0.04))
+    x = torch.from_numpy(rng.normal(size=(chip_smoke.DCP_B, chip_smoke.DCP_N, 3)).astype(np.float32)).cuda()
+    times = {}
+    for name, approx in (("exact", False), ("approx", True)):
+        fn = lambda: dgcnn_encode_int8_kernel(x, pack, chip_smoke.DCP_K, approx_knn=approx)  # noqa: E731
+        times[f"k9/{name}"] = chip_smoke.cuda_ms(fn)
+        kernels = device_ms(fn, by_kernel=True)
+        times[f"k9/{name}/device"] = sum(kernels.values())
+        # the K9 launches by name (the selection, the chain), the wrapper's
+        # preparation (xw1q, its scale, approx kNN's scales) as the rest
+        for key, ms in kernels.items():
+            if "dgcnn" in key:
+                times[f"k9/{name}/device/{re.search(r'dgcnn_[a-z0-9_]+', key).group(0)}"] = ms
+        times[f"k9/{name}/device/prep"] = sum(ms for key, ms in kernels.items() if "dgcnn" not in key)
+    return times
+
+
+def model_times(chip_smoke, parts) -> dict:
+    """model_ms of served PRNet (B=32), of bf16 iPCRNet (B=32, the
+    multi-start batch of 256, and multistart_register on 32 pairs), of
+    FlowNet3D (B=16) and of int8 DCP, unfused and fused (B=32)."""
+    from profile_torch_serve import build
+
+    times = {}
+    for part, names in (("flownet", ("flownet",)), ("dcp_int8", ("dcp-int8", "dcp-int8-fused"))):
+        for name in names if part in parts else ():
+            model, _, inputs = build(name, np.random.default_rng(chip_smoke.SEED))
+            if isinstance(model, torch.nn.Module):
+                model.cuda().eval()
+            dev = [torch.from_numpy(a).cuda() for a in inputs]
+            with torch.inference_mode():
+                times[f"{name}/model_ms"] = chip_smoke.cuda_ms(lambda: model(*dev), reps=10)
+    if "prnet" in parts:
+        model, _, inputs = build("prnet", np.random.default_rng(chip_smoke.SEED))
+        model.cuda().eval()
+        dev = [torch.from_numpy(a).cuda() for a in inputs]
+        with torch.inference_mode():
+            times["prnet/model_ms_B32"] = chip_smoke.cuda_ms(lambda: model(*dev), reps=5, warmup=2)
+    if "ipcrnet" in parts:
+        from learning3d_tpu_torch.serve import multistart_register, rotation_starts
+
+        rng = np.random.default_rng(chip_smoke.SEED)
+        model, _, inputs = build("ipcrnet", rng)
+        model.cuda().eval()
+        t, s = (torch.from_numpy(a).cuda() for a in inputs)
+        t256, s256 = (torch.from_numpy(rng.normal(size=(256, chip_smoke.IPC_N, 3)).astype(np.float32)).cuda()
+                      for _ in range(2))
+        rots = rotation_starts(chip_smoke.IPC_STARTS)
+        with torch.inference_mode():
+            times["ipcrnet/model_ms_B32"] = chip_smoke.cuda_ms(lambda: model(t, s), reps=10)
+            times["ipcrnet/model_ms_B256"] = chip_smoke.cuda_ms(lambda: model(t256, s256), reps=5)
+            times["ipcrnet/multistart_ms_32x8"] = chip_smoke.cuda_ms(lambda: multistart_register(model, t, s, rots),
+                                                                     reps=5)
+    return times
+
+
+if __name__ == "__main__":
+    main()
