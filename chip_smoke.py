@@ -651,7 +651,8 @@ def folded_dgcnn(model):
 
 
 def phase_kernel_k5(model, rng) -> dict:
-    from learning3d_tpu_torch.kernels.dgcnn_fused import dgcnn_encode_kernel, dgcnn_encode_reference
+    from learning3d_tpu_torch.kernels.dgcnn_fused import (
+        DGCNNBf16Weights, dgcnn_encode_kernel, dgcnn_encode_packed, dgcnn_encode_reference)
 
     ws, bs = folded_dgcnn(model)
     cases = {
@@ -668,7 +669,8 @@ def phase_kernel_k5(model, rng) -> dict:
             torch.cuda.synchronize()
             errs[name] = check_close(got, want, f"K5 vs plain ({name})")
         x = torch.from_numpy(cases["full"]).cuda()
-        k_ms = cuda_ms(lambda: dgcnn_encode_kernel(x, ws, bs, DCP_K))
+        pack = DGCNNBf16Weights(ws, bs)  # the model's pack, built once
+        k_ms = cuda_ms(lambda: dgcnn_encode_packed(x, pack, DCP_K))
         p_ms = cuda_ms(lambda: dgcnn_encode_reference(x, ws, bs, DCP_K), reps=3, warmup=1)
         l_ms = cuda_ms(lambda: library_dgcnn(x, ws, bs, DCP_K))
     macs = DCP_K * (64 * 64 + 64 * 128 + 128 * 256) + 512 * DCP_EMB + 2 * 3 * 64  # a point
@@ -871,10 +873,8 @@ def plain_versions():
     from learning3d_tpu_torch.kernels import sampling, sinkhorn, transformer_int8
     from learning3d_tpu_torch.models import dgcnn
 
-    def encoder(x, convs, bns, k, approx_knn=False):
-        folded = [dgcnn_fused.fold_bn(c, bn) for c, bn in zip(convs, bns)]
-        return dgcnn_fused.dgcnn_encode_reference(x.float(), [w for w, _ in folded], [b for _, b in folded], k,
-                                                  approx_knn=approx_knn)
+    def encoder(x, pack, k, approx_knn=False):
+        return dgcnn_fused.dgcnn_encode_reference(x.float(), pack.ws, pack.bs, k, approx_knn=approx_knn)
 
     def fused_layer(layer, x, *memory):
         if not (layer._on_gate(x) and all(m.shape[1] == x.shape[1] for m in memory)):
@@ -885,7 +885,7 @@ def plain_versions():
     # K6's plain version goes inside attention_fused's autograd Function, so
     # that a train step on the plain versions keeps the kernel path's
     # backward (the oracle's)
-    patches = [(dgcnn, "dgcnn_encode_fused", encoder), (edgeconv, "edge_features", edgeconv.edge_features_reference),
+    patches = [(dgcnn, "dgcnn_encode_packed", encoder), (edgeconv, "edge_features", edgeconv.edge_features_reference),
                (attention, "attention_pallas", attention.attention_reference),
                (dgcnn, "dgcnn_encode_int8_kernel", dgcnn_fused.dgcnn_int8_reference),
                (quant, "attention_int8", attention.attention_int8_reference),
@@ -1374,10 +1374,12 @@ def phase_approx_kernels(dcp, qdcp, rng) -> dict:
     """K5 and K9 with approx_knn=True against their plain versions on the
     full and a two-tile (N=320) cloud."""
     from learning3d_tpu_torch.kernels.dgcnn_fused import (
-        dgcnn_encode_int8_kernel, dgcnn_encode_kernel, dgcnn_encode_reference, dgcnn_int8_reference)
+        dgcnn_encode_int8_kernel, dgcnn_encode_kernel, dgcnn_encode_packed, dgcnn_encode_reference,
+        dgcnn_int8_reference)
 
     ws, bs = folded_dgcnn(dcp)
     pack = qdcp.emb_nn.int8_weights
+    pack5 = dcp.emb_nn.bf16_weights()
     errs = {}
     with torch.inference_mode():
         for name, shape in (("full", (DCP_B, DCP_N, 3)), ("two_tiles", (3, 320, 3))):
@@ -1392,7 +1394,7 @@ def phase_approx_kernels(dcp, qdcp, rng) -> dict:
                 errs[f"{kname}/{name}"] = {"abs": a, "rel": r}
             if name == "full":
                 share = approx_pick_share(x, DCP_K)
-                k5_ms = cuda_ms(lambda: dgcnn_encode_kernel(x, ws, bs, DCP_K, approx_knn=True))
+                k5_ms = cuda_ms(lambda: dgcnn_encode_packed(x, pack5, DCP_K, approx_knn=True))
                 k9_ms = cuda_ms(lambda: dgcnn_encode_int8_kernel(x, pack, DCP_K, approx_knn=True))
     emit("kernel_approx_knn", tolerance=f"max|k-p| <= {TOL}*max|p|", errors=errs, k5_ms=k5_ms, k9_ms=k9_ms,
          picks_differing_from_exact=share)

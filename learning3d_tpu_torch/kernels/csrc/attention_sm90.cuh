@@ -1,7 +1,8 @@
 // Hopper (sm_90a) pieces of the two-pass attention kernels, K6
 // (attention.cu), K10 (attention_int8.cu) and K11's attention
 // (transformer_int8.cu), of K11's int8 GEMM, of K1's fused PointNet
-// chain (pointnet_fused.cu) and of K9's int8 DGCNN chain (dgcnn_int8.cu):
+// chain (pointnet_fused.cu) and of the DGCNN chains, K5's bf16
+// (dgcnn_fused.cu) and K9's int8 (dgcnn_int8.cu):
 // mbarriers and a ring of them, 3-D and 4-D TMA
 // tile loads and the producer that issues them, bulk copies, wgmma
 // shared-memory descriptors and the m64n{64,128} products with their fence,

@@ -7,9 +7,9 @@
 //
 // Replaces the TPU kernel learning3d_tpu/kernels/dgcnn_fused.py::
 // dgcnn_encode_fused_int8 (body `_fused_kernel_int8`). Same math as the
-// port's plain version `dgcnn_int8_reference`: K5's neighbor selection
-// (exact per-coordinate differences (d0*d0 + d1*d1) + d2*d2 by
-// __fmul_rn/__fadd_rn, nearest first, ties to the smaller index); the
+// port's plain version `dgcnn_int8_reference`: the neighbor selection shared
+// with K5 (dgcnn_select.cu: exact per-coordinate differences (d0*d0 + d1*d1)
+// + d2*d2 by __fmul_rn/__fadd_rn, nearest first, ties to the smaller index); the
 // neighbor's int8 row of xw1q gathered as it is (the TPU's one-hot matmul
 // returns it exactly); e1 = q1(relu(xw1q * s_xw1 + c1)) with c1 = bf16(center)
 // . bf16(Wc1) + b1 in f32; stages 2-4 int8 x int8 -> int32 with the epilogue
@@ -31,8 +31,9 @@
 // selection.
 //
 // Design: two launches over the grid (ceil(N / 64), B), one warpgroup (128
-// threads) a block of 64 query points. The selection (dgcnn_select_kernel)
-// is latency-bound on warp-wide operations and wants many warps an SM; the
+// threads) a block of 64 query points. The selection (dgcnn_select.cu,
+// shared with K5) is latency-bound on warp-wide operations and wants many
+// warps an SM; the
 // chain (dgcnn_encode_int8_kernel) wants registers: two blocks an SM, at
 // most 255 registers a thread (at three blocks, 168 registers spilled and
 // ran slower), ~71 KB of shared memory. The neighbors pass between them
@@ -44,19 +45,6 @@
 //   rows (16 KB), W4^T (32 KB), W5^T in slabs of 32 output channels (16 KB
 //   each); one bulk copy (TMA) brings W2-W4 while the block reads its
 //   neighbors and forms c1.
-// * Selection: each warp takes 16 query rows, four at a time, with 64-bit
-//   (high half: distance bits or approximate key; low half: index) keys. A
-//   warp-wide operation (shuffle, ballot) costs many ALU latencies, so a
-//   row's keys meet few of them: pass 1 keeps each lane's smallest high
-//   half (ALU only), and the k-th smallest of the 32 lanes' (one sort
-//   across the warp) bounds the high half of the row's k-th key from above;
-//   pass 2 appends the keys within the bound (a ballot a chunk of 32) to
-//   the row's buffer, and every 32 of them are sorted and merged into the
-//   row's list (warp_select.cuh), whose k-th key then tightens the bound.
-//   At the DCP shape (N = 1024, k = 20) a row meets a few tens of keys
-//   within the bound: one or two merges. The four rows' shuffles
-//   interleave. Rows past N are not selected; the chain gives them
-//   neighbor 0, computes them and does not write them.
 // * The chain, one neighbor at a time, on int8 wgmma with A from registers,
 //   no barrier at all: each thread forms its own A fragments of e1 (rows g
 //   and g + 8 of its warp's 16, four gathered 4-byte words a row, the next
@@ -85,13 +73,12 @@
 #include <stdint.h>
 
 #include "attention_sm90.cuh"
-#include "warp_select.cuh"
+#include "dgcnn_select.cuh"
 
 namespace {
 
 using sm90::desc_sw128;
 using sm90::fence_operands;
-using namespace warp_select;
 
 typedef __nv_bfloat16 bf16;
 typedef unsigned int u32;
@@ -100,8 +87,6 @@ constexpr int kRows = 64;  // query points a block: one warpgroup's m64
 constexpr int kThreads = 128;
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = kRows / kWarps;
-constexpr int kGroup = 4;  // rows a warp selects together
-constexpr int kBuf = 160;  // a row's survivors between flushes: < 32 left and four chunks of 32
 constexpr int kC1 = 64;
 constexpr int kCat = 512;
 constexpr int kMaxK = 32;
@@ -130,7 +115,7 @@ struct Args {
   const float* swb[4];   // (2, out): conv2..conv5
   float inv[4];          // 1 / s1 .. 1 / s4
   bf16* out;             // (B, N, emb)
-  const int* idx;        // (B, N, k): dgcnn_select_kernel's neighbors
+  const int* idx;        // (B, N, k): dgcnn_select's neighbors
   int n, k, emb;
 };
 
@@ -214,126 +199,6 @@ __device__ __forceinline__ void product_n64(int (&acc)[32], const uint32_t (*a)[
   sm90::wgmma_wait<0>();
   fence_operands(acc);
 }
-
-// Phase 1, its own launch: the k nearest neighbors of 64 query rows a
-// block into idx (B, N, k) int32. Few registers and ~33 KB of shared memory
-// at N = 1024, so ~6 blocks an SM hide the warp-wide operations' latency.
-// Shared memory: the cloud's coordinates (12 N bytes), the warps' survivor
-// buffers.
-__global__ void __launch_bounds__(kThreads) dgcnn_select_kernel(const float* __restrict__ x,
-                                                                const float* __restrict__ knn_scale,
-                                                                int* __restrict__ idx, int n_pts, int k, int tile_n) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int cloud = blockIdx.y;
-  const int q0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* xc = x + (size_t)cloud * n_pts * 3;
-  float* px = reinterpret_cast<float*>(smem);
-  float* py = px + n_pts;
-  float* pz = py + n_pts;
-  u64* buf = reinterpret_cast<u64*>(smem + align16(12 * n_pts)) + warp * kGroup * kBuf;  // this warp's rows' survivors
-  for (int i = tid; i < n_pts * 3; i += kThreads) {
-    const int p = i / 3, d = i - 3 * p;
-    (d == 0 ? px : d == 1 ? py : pz)[p] = xc[i];
-  }
-  __syncthreads();
-  const int tiles = (n_pts + tile_n - 1) / tile_n;
-  const u32 below = (1u << lane) - 1u;
-  for (int r0 = warp * kRowsPerWarp; r0 < (warp + 1) * kRowsPerWarp; r0 += kGroup) {
-    float qx[kGroup], qy[kGroup], qz[kGroup], ks[kGroup];
-    bool live[kGroup];
-#pragma unroll
-    for (int rr = 0; rr < kGroup; ++rr) {
-      const int q = q0 + r0 + rr, qi = q < n_pts ? q : 0;
-      live[rr] = q < n_pts;
-      qx[rr] = px[qi];
-      qy[rr] = py[qi];
-      qz[rr] = pz[qi];
-      ks[rr] = knn_scale == nullptr ? 0.f : knn_scale[(size_t)cloud * tiles + qi / tile_n];
-    }
-    // the high half of row rr's key of a point at (x, y, z): the distance
-    // bits, or the approximate key (both order as the distances)
-    auto hi_of = [&](int rr, float x, float y, float z) -> u32 {
-      const float d0 = __fsub_rn(qx[rr], x), d1 = __fsub_rn(qy[rr], y), d2 = __fsub_rn(qz[rr], z);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)), __fmul_rn(d2, d2));
-      return ks[rr] > 0.f ? static_cast<u32>(__float2int_rz(__fmul_rn(d, ks[rr]))) : __float_as_uint(d);
-    };
-    // pass 1: each lane's smallest high half; the k-th smallest of the 32
-    // lanes' (k distinct points) bounds the high half of the row's k-th key
-    // from above (inclusive: keys that tie on it go to the smaller index)
-    u32 bound[kGroup];
-    u64 lst[kGroup];
-    int cnt[kGroup];
-#pragma unroll
-    for (int rr = 0; rr < kGroup; ++rr) bound[rr] = 0xffffffffu;
-    for (int i = lane; i < n_pts; i += 32) {
-      const float x = px[i], y = py[i], z = pz[i];
-#pragma unroll
-      for (int rr = 0; rr < kGroup; ++rr) bound[rr] = min(bound[rr], hi_of(rr, x, y, z));
-    }
-    sort32_rows<kGroup>(bound, lane);
-#pragma unroll
-    for (int rr = 0; rr < kGroup; ++rr) {
-      bound[rr] = __shfl_sync(kFull, bound[rr], k - 1);
-      lst[rr] = kNone;
-      cnt[rr] = 0;
-    }
-    // up to 32 survivors of every row sorted and merged into its list (the
-    // row's smallest keys, lane j the j-th), the rest moved to the front;
-    // the list's k-th key tightens the bound
-    auto flush = [&]() {
-      __syncwarp();
-      u64 c[kGroup];
-#pragma unroll
-      for (int rr = 0; rr < kGroup; ++rr) c[rr] = lane < cnt[rr] ? buf[rr * kBuf + lane] : kNone;
-      __syncwarp();
-#pragma unroll
-      for (int rr = 0; rr < kGroup; ++rr) {
-        for (int b = lane; b < cnt[rr] - 32; b += 32) buf[rr * kBuf + b] = buf[rr * kBuf + 32 + b];
-        cnt[rr] = max(cnt[rr] - 32, 0);
-      }
-      sort32_rows<kGroup>(c, lane);
-      merge32_rows<kGroup>(lst, c, lane);
-#pragma unroll
-      for (int rr = 0; rr < kGroup; ++rr)
-        bound[rr] = min(bound[rr], static_cast<u32>(__shfl_sync(kFull, lst[rr], k - 1) >> 32));
-    };
-    auto most = [&]() {
-      int m = 0;
-#pragma unroll
-      for (int rr = 0; rr < kGroup; ++rr) m = max(m, cnt[rr]);
-      return m;
-    };
-    // pass 2: the keys within the bound, four chunks of 32 between flushes
-    for (int p0 = 0; p0 < n_pts; p0 += 128) {
-#pragma unroll
-      for (int ch = 0; ch < 4; ++ch) {
-        const int i = p0 + 32 * ch + lane;
-        const bool ok = i < n_pts;
-        const float x = ok ? px[i] : 0.f, y = ok ? py[i] : 0.f, z = ok ? pz[i] : 0.f;
-#pragma unroll
-        for (int rr = 0; rr < kGroup; ++rr) {
-          const u32 hi = hi_of(rr, x, y, z);
-          const bool in = ok && live[rr] && hi <= bound[rr];
-          const u32 m = __ballot_sync(kFull, in);
-          if (in) buf[rr * kBuf + cnt[rr] + __popc(m & below)] = (static_cast<u64>(hi) << 32) | static_cast<u32>(i);
-          cnt[rr] += __popc(m);
-        }
-      }
-      while (most() >= 32) flush();
-    }
-    while (most() > 0) flush();
-#pragma unroll
-    for (int rr = 0; rr < kGroup; ++rr) {
-      const int q = q0 + r0 + rr;
-      if (live[rr] && lane < k)
-        idx[((size_t)cloud * n_pts + q) * k + lane] = lst[rr] == kNone ? q : static_cast<int>(lst[rr] & 0xffffffffu);
-    }
-  }
-
-}
-
-__host__ __device__ constexpr int select_smem_bytes(int n) { return align16(12 * n) + kWarps * kGroup * kBuf * 8; }
 
 __global__ void __launch_bounds__(kThreads, 2) dgcnn_encode_int8_kernel(Args args) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -531,7 +396,7 @@ __global__ void __launch_bounds__(256) xw1_amax_kernel(const float4* __restrict_
     m = max(m, max(max(__float_as_uint(fabsf(f.x)), __float_as_uint(fabsf(f.y))),
                    max(__float_as_uint(fabsf(f.z)), __float_as_uint(fabsf(f.w)))));
   }
-  m = __reduce_max_sync(kFull, m);
+  m = __reduce_max_sync(0xffffffffu, m);
   if ((threadIdx.x & 31) == 0) atomicMax(amax, m);
 }
 
@@ -583,26 +448,21 @@ extern "C" int dgcnn_encode_int8(const float* x, const void* xw1q, const float* 
                                  int n_pts, int k, int emb, int tile_n, void* stream) {
   if (batch <= 0 || k < 1 || k > kMaxK || n_pts < k || n_pts > kMaxN || emb <= 0 || emb % 64 != 0 || tile_n <= 0)
     return (int)cudaErrorInvalidValue;
-  // the shared-memory limits (the largest shapes'), once a device
+  // the shared-memory limit (the largest k's), once a device
   static bool ready[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(dgcnn_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               select_smem_bytes(kMaxN));
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(dgcnn_encode_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 1024 + smem_bytes(kMaxK));
+    err = cudaFuncSetAttribute(dgcnn_encode_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               1024 + smem_bytes(kMaxK));
     if (err != cudaSuccess) return (int)err;
     ready[dev] = true;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((n_pts + kRows - 1) / kRows, batch);
-  dgcnn_select_kernel<<<grid, kThreads, select_smem_bytes(n_pts), s>>>(x, knn_scale, static_cast<int*>(idx), n_pts,
-                                                                      k, tile_n);
-  err = cudaGetLastError();
+  err = static_cast<cudaError_t>(dgcnn_select(x, knn_scale, static_cast<int*>(idx), batch, n_pts, k, tile_n, stream));
   if (err != cudaSuccess) return (int)err;
   Args args{x,
             static_cast<const int8_t*>(xw1q),

@@ -1,7 +1,7 @@
 """Fused eval-mode DGCNN encoder: exact kNN, the edge gather, all five
-BN-folded conv stages and the per-stage max over neighbors in one CUDA
-kernel (``csrc/dgcnn_fused.cu``), counterpart of
-``learning3d_tpu/kernels/dgcnn_fused.py::dgcnn_encode_fused``.
+BN-folded conv stages and the per-stage max over neighbors in CUDA
+(``csrc/dgcnn_fused.cu``, the selection in ``csrc/dgcnn_select.cu``),
+counterpart of ``learning3d_tpu/kernels/dgcnn_fused.py::dgcnn_encode_fused``.
 
 The unfused path materializes every (B, N, k, C) edge tensor in device
 memory; the kernel keeps them on the SM and writes only the (B, N, emb)
@@ -13,11 +13,16 @@ result. Two tricks carry over from the TPU kernel:
 * eval-mode BatchNorm is folded into every conv outside the kernel
   (``fold_bn``), so the chain inside is matmul, bias and ReLU.
 
+The folded weights go to the kernel as a pack (``DGCNNBf16Weights``: the
+bf16 images wgmma reads, Wn1 with its columns in ``xw1_order``), built once
+a model (``models.dgcnn.DGCNN.bf16_weights``, rebuilt when a conv or
+BatchNorm tensor changes) and once a call by the functional entries.
+
 Rounding, shared by the kernel and its plain version: kNN over exact f32
 squared differences ``(d0*d0 + d1*d1) + d2*d2`` (no FMA), nearest first,
 ties to the smaller index; bf16 operands with f32 sums; f32 bias; every
-stage output rounded to bf16; conv5 on the bf16 concatenation of the
-four k-maxes.
+stage output rounded to bf16; conv5 on the bf16 concatenation of the four
+k-maxes.
 
 ``approx_knn=True`` (K5 and K9) selects by the TPU kernel's quantized keys
 instead (``approx_knn_indices``): key = int32(trunc(d * scale)) * Np + col, with one
@@ -167,45 +172,117 @@ def _knn_scale_kernel(x, lib, stream, approx):
     return scale, tile_n
 
 
-def dgcnn_encode_kernel(x, ws, bs, k, *, dot_dtype=torch.bfloat16, approx_knn=False):
-    """x (B, N, 3), folded weights (in, out) and biases f32 -> (B, N, emb).
-    A CUDA tensor runs the CUDA kernel (bf16 only); a CPU tensor runs the
-    plain version ``dgcnn_encode_reference``."""
+def xw1_order():
+    """The order of xw1's 64 columns as K5 gathers them: position p holds
+    channel ``xw1_order()[p]``. A quad's thread t reads positions 16t..16t+15
+    (32 bytes) of a neighbor's row; its words w = 0..7 (positions 16t + 2w,
+    + 1) hold channels 16 (w // 2) + 8 (w % 2) + 2t and + 1, which are its
+    bf16 A-fragment pairs of the four k-steps of 16 channels."""
+    p = torch.arange(64)
+    t, r = p // 16, p % 16
+    return 16 * (r // 4) + 8 * (r % 4 // 2) + 2 * t + r % 2
+
+
+def bf16_image(wt, block_rows):
+    """(R, K) bf16 rows (out, in), K % 64 == 0, R a multiple of block_rows,
+    block_rows % 8 == 0 -> the uint8 bytes of wgmma's 128-byte-swizzled
+    K-major image: blocks of ``block_rows`` rows one after the other, each
+    as K / 64 boxes (64 contracted values, 128 bytes, a row), each box
+    swizzled by ``swizzle128``."""
+    R, K = wt.shape
+    rows = wt.contiguous().view(torch.uint8)  # (R, 2K)
+    boxes = rows.reshape(R // block_rows, block_rows, K // 64, 128).permute(0, 2, 1, 3).reshape(-1, 128)
+    return swizzle128(boxes)
+
+
+class DGCNNBf16Weights:
+    """K5's operands, built once from the BN-folded convs (``fold_bn``): the
+    folded weights (in, out) and biases f32 as the plain version takes them
+    (``ws``, ``bs``); Wn1 with its columns in ``xw1_order`` (``wn1``), Wc1
+    (``wc1``); the bf16 images (``bf16_image``) of W2^T, W3^T and W4^T one
+    after the other (``img``: 8192 + 16384 + 65536 bytes, W4^T as two boxes
+    of 256 rows) and of W5^T in slabs of 64 output channels (``img5``: 1024
+    emb bytes). A plain object, not a module: the model keeps it beside its
+    state (``models.dgcnn.DGCNN.bf16_weights``)."""
+
+    def __init__(self, ws, bs):
+        with torch.no_grad():
+            bf16 = torch.bfloat16
+            self.ws = [w.float().contiguous() for w in ws]
+            self.bs = [b.float().contiguous() for b in bs]
+            self.wn1 = self.ws[0][:3][:, xw1_order().to(self.ws[0].device)].contiguous()
+            self.wc1 = self.ws[0][3:].contiguous()
+            self.img = torch.cat([bf16_image(w.t().to(bf16), w.shape[1]) for w in self.ws[1:4]])
+            self.img5 = bf16_image(self.ws[4].t().to(bf16), 64)
+
+    @classmethod
+    def from_modules(cls, convs, bns):
+        with torch.no_grad():
+            folded = [fold_bn(c, bn) for c, bn in zip(convs, bns)]
+            return cls([w for w, _ in folded], [b for _, b in folded])
+
+
+def pack_key(convs, bns):
+    """What a ``DGCNNBf16Weights`` of these modules was built from: each
+    conv weight's and BatchNorm tensor's identity, storage and version
+    counter (an in-place update, an optimizer step and ``load_state_dict``
+    bump it) and the BatchNorms' eps; None where a tensor is an inference
+    tensor, which keeps no version counter (build the pack anew)."""
+    tensors = [c.weight for c in convs] + [t for bn in bns
+                                          for t in (bn.weight, bn.bias, bn.running_mean, bn.running_var)]
+    if any(t.is_inference() for t in tensors):
+        return None
+    return tuple((id(t), t.data_ptr(), t._version) for t in tensors) + tuple(float(bn.eps) for bn in bns)
+
+
+def dgcnn_encode_packed(x, pack, k, *, dot_dtype=torch.bfloat16, approx_knn=False):
+    """x (B, N, 3) f32 and a ``DGCNNBf16Weights`` -> (B, N, emb). A CUDA
+    tensor runs K5 (bf16 only): the selection and the chain, two launches of
+    one C call; a CPU tensor runs the plain version
+    ``dgcnn_encode_reference``."""
     if x.device.type == "cpu":
-        return dgcnn_encode_reference(x, ws, bs, k, dot_dtype, approx_knn)
+        return dgcnn_encode_reference(x, pack.ws, pack.bs, k, dot_dtype, approx_knn)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     x = x.contiguous()
-    _check_kernel_args(x, ws, bs, k, dot_dtype)
+    _check_kernel_args(x, pack.ws, pack.bs, k, dot_dtype)
     B, N, _ = x.shape
-    emb = ws[-1].shape[1]
-    bf16 = torch.bfloat16
-    xw1 = _xw1(x, ws[0][:3], bf16).contiguous()
-    wc1 = ws[0][3:].contiguous()
-    # stages 2-5 as bf16 (out, in): the rows the kernel copies to shared memory
-    wts = [w.t().to(bf16).contiguous() for w in ws[1:]]
-    biases = [b.contiguous() for b in bs]
-    out = torch.empty((B, N, emb), device=x.device, dtype=bf16)
-    ptrs = [x, xw1, wc1, biases[0]] + [t for pair in zip(wts, biases[1:]) for t in pair]
+    emb = pack.ws[-1].shape[1]
+    xw1 = _xw1(x, pack.wn1, torch.bfloat16).contiguous()  # columns in xw1_order
+    out = torch.empty((B, N, emb), device=x.device, dtype=torch.bfloat16)
+    nbrs = torch.empty((B, N, k), device=x.device, dtype=torch.int32)  # the selection's output, the chain's input
+    ptrs = [x, xw1, pack.wc1, pack.bs[0], pack.img, pack.img5, *pack.bs[1:], out]
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         scale, tile_n = _knn_scale_kernel(x, lib, stream, approx_knn)
-        err = lib.dgcnn_encode_bf16(*(t.data_ptr() for t in ptrs), out.data_ptr(),
-                                    0 if scale is None else scale.data_ptr(), B, N, k, emb, tile_n, stream)
+        err = lib.dgcnn_encode_bf16(*(t.data_ptr() for t in ptrs), 0 if scale is None else scale.data_ptr(),
+                                    nbrs.data_ptr(), B, N, k, emb, tile_n, stream)
     _build.check(err, "dgcnn_encode_bf16")
     LAUNCHES["dgcnn_encode_fused"] += 1
     return out
+
+
+def dgcnn_encode_kernel(x, ws, bs, k, *, dot_dtype=torch.bfloat16, approx_knn=False):
+    """x (B, N, 3), folded weights (in, out) and biases f32 -> (B, N, emb).
+    A CUDA tensor runs the CUDA kernel (bf16 only) on a pack built on this
+    call; a CPU tensor runs the plain version ``dgcnn_encode_reference``."""
+    if x.device.type == "cpu":
+        return dgcnn_encode_reference(x, ws, bs, k, dot_dtype, approx_knn)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    _check_kernel_args(x.contiguous(), ws, bs, k, dot_dtype)
+    return dgcnn_encode_packed(x, DGCNNBf16Weights(ws, bs), k, dot_dtype=dot_dtype, approx_knn=approx_knn)
 
 
 def dgcnn_encode_fused(x, convs, bns, k, *, dot_dtype=torch.bfloat16, approx_knn=False):
     """Eval-mode DGCNN encoder forward: x (B, N, 3) -> (B, N, emb).
     ``convs``/``bns`` are the module's bias-free Linear and BatchNorm
     stacks, BN under running statistics. ``approx_knn`` selects neighbors
-    by quantized keys (the module docstring)."""
-    folded = [fold_bn(c, bn) for c, bn in zip(convs, bns)]
-    return dgcnn_encode_kernel(x.float(), [w for w, _ in folded], [b for _, b in folded], k,
-                               dot_dtype=dot_dtype, approx_knn=approx_knn)
+    by quantized keys (the module docstring). The pack is built on this
+    call (a module builds it once, ``DGCNN.bf16_weights``)."""
+    return dgcnn_encode_packed(x.float(), DGCNNBf16Weights.from_modules(convs, bns), k, dot_dtype=dot_dtype,
+                               approx_knn=approx_knn)
 
 
 def kernel_limit(n_pts, k, emb):

@@ -13,8 +13,13 @@ package sends to its TPU kernel only what fits VMEM ((J+1)(K+1)·4 <= 5
 MiB). A CPU tensor runs the plain version ``sinkhorn_slack_reference``,
 the twin of the JAX package's XLA oracle ``utils/rigid._sinkhorn_slack_xla``
 (the matrix rewritten pass after pass). The kernel keeps row and column
-potentials instead and rounds fewer times; the two agree to a few 1e-6
-(absolute, on log values of -10 and below) at RPMNet's shapes.
+potentials instead, in f64, and rounds its output once; the two agree to a
+few 1e-6 (absolute, on log values of -10 and below) at RPMNet's shapes. An
+iteration is one sweep over the matrix (each block of ``SWEEP_ROWS`` rows
+forms its rows' u from the last v, then each column's partial (m, s) over
+those rows) and a merge of the partials into v, so a call reads the matrix
+n_iters + 1 times (``tests/test_torch_k17_layout.py`` states that schedule
+in torch).
 
 The gradient, on the card as in the JAX package's custom VJP
 (``learning3d_tpu/utils/rigid.py:34-54``), recomputes the forward through
@@ -31,6 +36,7 @@ from learning3d_tpu_torch.kernels import LAUNCHES
 from learning3d_tpu_torch.kernels import _build
 
 INT32_MAX = 2**31 - 1
+SWEEP_ROWS = 16  # rows a sweep block takes (csrc/sinkhorn.cu's kRows; the C entry checks it)
 
 
 def sinkhorn_kernel_limit(b, j, k):
@@ -62,12 +68,14 @@ def _launch(log_alpha, n_iters):
     out = torch.empty_like(a)
     if B == 0 or J == 0 or K == 0:
         return out
-    u = torch.empty((B, J), device=a.device, dtype=torch.float32)
-    v = torch.empty((B, K), device=a.device, dtype=torch.float32)
+    u = torch.empty((B, J), device=a.device, dtype=torch.float64)  # the potentials, kept in f64
+    v = torch.empty((B, K), device=a.device, dtype=torch.float64)
+    part = torch.empty((2, B, -(-J // SWEEP_ROWS), K), device=a.device, dtype=torch.float64)  # the sweeps' (m, s)
     lib = _build.library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.sinkhorn_slack(a.data_ptr(), out.data_ptr(), u.data_ptr(), v.data_ptr(), B, J, K, n_iters, stream)
+        err = lib.sinkhorn_slack(a.data_ptr(), out.data_ptr(), u.data_ptr(), v.data_ptr(), part.data_ptr(), B, J, K,
+                                 n_iters, SWEEP_ROWS, stream)
     _build.check(err, "sinkhorn_slack")
     LAUNCHES["sinkhorn_log_pallas"] += 1
     return out

@@ -4,7 +4,9 @@ Edge features come from kNN (k=20) with (neighbor, center) concatenation;
 four 1x1-conv stages, each max-pooled over the neighbors, are concatenated
 (64+64+128+256=512) into the final embedding conv. Convs are bias-free with
 BatchNorm. In eval mode with bf16 convs the whole encoder is one CUDA
-kernel, K5 (``kernels.dgcnn_fused``); once ``int8_scales`` is set
+kernel call, K5 (``kernels.dgcnn_fused``), on a weight pack the module
+builds once and rebuilds whenever a conv or BatchNorm tensor changes
+(``bf16_weights``); once ``int8_scales`` is set
 (``quant.quantize_dcp``) it is the int8 kernel K9 instead. Everywhere else
 (train mode, f32, shapes past K5's limit) the encoder is the unfused chain,
 whose edge features come from K7 (``kernels.edgeconv``). On a CPU tensor
@@ -24,10 +26,12 @@ from torch import nn
 
 from learning3d_tpu_torch import DEFAULT_DEVICE
 from learning3d_tpu_torch.kernels.dgcnn_fused import (
+    DGCNNBf16Weights,
     DGCNNInt8Weights,
-    dgcnn_encode_fused,
     dgcnn_encode_int8_kernel,
+    dgcnn_encode_packed,
     dgcnn_fused_ok,
+    pack_key,
 )
 from learning3d_tpu_torch.kernels.edgeconv import get_graph_feature_fused
 from learning3d_tpu_torch.utils.layers import BatchNorm, Linear, to_bnc, validate_input_shape
@@ -48,6 +52,20 @@ class DGCNN(nn.Module):
         self.bns = nn.ModuleList(BatchNorm(o, dtype=dtype, device=device) for _, o in dims)
         self._int8_scales = None
         self.int8_weights = None
+        self._bf16_pack, self._bf16_key = None, None  # bf16_weights(): kept beside the state, not in it
+
+    def bf16_weights(self) -> DGCNNBf16Weights:
+        """K5's weight pack of the current BN-folded convs, built on first
+        use and again whenever a conv weight or a BatchNorm parameter,
+        buffer or eps differs from what it was built from (``pack_key``:
+        in-place edits, optimizer steps and ``load_state_dict`` bump the
+        tensors' version counters; a moved or replaced tensor changes
+        storage)."""
+        key = pack_key(self.convs, self.bns)
+        if self._bf16_pack is None or key is None or key != self._bf16_key:
+            self._bf16_pack = DGCNNBf16Weights.from_modules(self.convs, self.bns)
+            self._bf16_key = key
+        return self._bf16_pack
 
     @property
     def int8_scales(self):
@@ -71,7 +89,7 @@ class DGCNN(nn.Module):
         if dgcnn_fused_ok(x, self.convs, self.bns, self.k):
             if self.int8_scales is not None:
                 return dgcnn_encode_int8_kernel(x.float(), self.int8_weights, self.k, approx_knn=self.approx_knn)
-            return dgcnn_encode_fused(x, list(self.convs), list(self.bns), self.k, approx_knn=self.approx_knn)
+            return dgcnn_encode_packed(x.float(), self.bf16_weights(), self.k, approx_knn=self.approx_knn)
         e = get_graph_feature_fused(x, k=self.k)  # (B, N, k, 6); K7 on the card
         stage_outputs = []
         for conv, bn in zip(self.convs[:4], self.bns[:4]):

@@ -136,6 +136,74 @@ def test_k5_matches_plain(cuda, case, batch, n_pts, k, emb):
     assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
 
 
+def k5_check(x, ws, bs, k, approx=False):
+    """K5 against its plain version: one launch, finite, within 2e-2 of max
+    (the same neighbors and bf16 operands; f32 sums in another order)."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.dgcnn_fused import dgcnn_encode_kernel, dgcnn_encode_reference
+
+    before = LAUNCHES["dgcnn_encode_fused"]
+    got = dgcnn_encode_kernel(x, ws, bs, k, approx_knn=approx).float()
+    want = dgcnn_encode_reference(x, ws, bs, k, approx_knn=approx).float()
+    torch.cuda.synchronize()
+    assert LAUNCHES["dgcnn_encode_fused"] == before + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+# the Hopper design's edges: k = 1, 20, 32 (the selection's list of 32);
+# N = k, 127, 128, 129 (one 128-row block of two warpgroups and a ragged
+# second), 1000 and 4096 (the largest cloud); emb 64 (one W5 slab), 128 (a
+# full turn of the 2-slab ring) and 1024 (sixteen slabs); exact and approx
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("k,n_pts,emb", [(1, 1, 64), (1, 127, 1024), (20, 20, 64), (20, 128, 128), (20, 129, 1024),
+                                         (20, 1000, 64), (20, 1000, 1024), (32, 32, 1024), (32, 1000, 64),
+                                         (32, 4096, 128)])
+def test_k5_hopper_edges_match_plain(cuda, k, n_pts, emb, approx):
+    rng = np.random.default_rng(1000 * k + n_pts + emb + approx)
+    ws, bs = dgcnn_weights(rng, emb, cuda)
+    x = torch.from_numpy(rng.normal(size=(1 if n_pts == 4096 else 2, n_pts, 3)).astype(np.float32)).to(cuda)
+    k5_check(x, ws, bs, k, approx)
+
+
+# a lattice's exact distance ties at k = 20 and 32, exact and approximate
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("k", [20, 32])
+def test_k5_lattice_matches_plain(cuda, k, approx):
+    rng = np.random.default_rng(50 + k + approx)
+    ws, bs = dgcnn_weights(rng, 512, cuda)
+    k5_check(torch.from_numpy(lattice_cloud(rng, 2, 1000)).to(cuda), ws, bs, k, approx)
+
+
+def test_dgcnn_pack_follows_weights_on_card(cuda):
+    """The bf16 eval DGCNN runs K5 on its pack, built once: an in-place edit
+    of a conv weight and of a BatchNorm statistic rebuild it, and the output
+    follows the plain version on the edited weights."""
+    from learning3d_tpu_torch.kernels.dgcnn_fused import dgcnn_encode_reference, fold_bn
+    from learning3d_tpu_torch.models import DGCNN
+
+    torch.manual_seed(0)
+    net = DGCNN(emb_dims=128, k=20, dtype=torch.bfloat16, device=cuda).eval()
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(2, 300, 3)).astype(np.float32)).to(cuda)
+
+    def plain():
+        folded = [fold_bn(c, bn) for c, bn in zip(net.convs, net.bns)]
+        return dgcnn_encode_reference(x, [w for w, _ in folded], [b for _, b in folded], 20).float()
+
+    with torch.no_grad():
+        first, want_first = net(x).float(), plain()
+        pack = net.bf16_weights()
+        assert net.bf16_weights() is pack
+        net.convs[1].weight.mul_(-1.5)
+        net.bns[3].running_mean.add_(0.2)
+        second, want_second = net(x).float(), plain()
+    torch.cuda.synchronize()
+    assert net.bf16_weights() is not pack
+    for got, want in ((first, want_first), (second, want_second)):
+        assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+    assert not torch.equal(first, second)
+
+
 # the pointer's shape, the SVD head's (D=512, Dv=3), ragged N and M, small
 # odd shapes, and the pointer's and head's in f32 (f32 DCP's calls). The
 # edges of the wgmma instance's tiles: key counts that are no multiple of
@@ -1685,7 +1753,10 @@ def k17_case(name, rng, device):
     with d the squared distance of unit features, or a wide random range."""
     b, j, k, n_iters, beta = {"rpmnet": (2, 1024, 1024, 5, 1.0), "j_ne_k": (3, 300, 517, 5, 3.0),
                               "small": (2, 5, 7, 5, 1.0), "one_iter": (2, 64, 96, 1, 1.0),
-                              "no_iter": (2, 33, 40, 0, 1.0), "wide": (2, 257, 255, 5, 10.0)}[name]
+                              "no_iter": (2, 33, 40, 0, 1.0), "wide": (2, 257, 255, 5, 10.0),
+                              "one_row": (1, 1, 45, 5, 1.0), "ragged": (1, 47, 83, 5, 1.0),
+                              "ragged_one_iter": (1, 47, 83, 1, 1.0), "ragged_no_iter": (1, 47, 83, 0, 1.0),
+                              "wide_rows": (1, 20, 1500, 5, 1.0), "wide_rows_odd": (2, 19, 1027, 5, 3.0)}[name]
     f = rng.normal(size=(b, j, 32))
     g = rng.normal(size=(b, k, 32))
     f /= np.linalg.norm(f, axis=-1, keepdims=True)
@@ -1702,7 +1773,12 @@ def k17_case(name, rng, device):
 K17_ATOL = 1e-5
 
 
-@pytest.mark.parametrize("name", ["rpmnet", "j_ne_k", "small", "one_iter", "no_iter", "wide"])
+# RPMNet's shape; J != K; tiny; one and no iteration; a wide range; the
+# sweep's edges: B = 1 with one row, J and K no multiple of 16 or 32 with 5,
+# 1 and 0 iterations, and K past the 1024 columns a sweep block stages (K %
+# 4 == 0: 16-byte copies; K % 4 != 0: 4-byte copies)
+@pytest.mark.parametrize("name", ["rpmnet", "j_ne_k", "small", "one_iter", "no_iter", "wide", "one_row", "ragged",
+                                  "ragged_one_iter", "ragged_no_iter", "wide_rows", "wide_rows_odd"])
 def test_k17_matches_plain(cuda, name):
     from learning3d_tpu_torch.kernels import LAUNCHES
     from learning3d_tpu_torch.kernels.sinkhorn import sinkhorn_log_pallas, sinkhorn_slack_reference
@@ -1736,6 +1812,24 @@ def test_k17_backward_recomputes_through_plain(cuda):
     (torch.exp(sinkhorn_slack_reference(y, 5)) * w).sum().backward()
     # the same recompute; only exp(out) differs by the forward's 1e-5
     torch.testing.assert_close(x.grad, y.grad, rtol=1e-4, atol=1e-4 * y.grad.abs().max().item())
+
+
+def test_k17_entry_refuses_another_sweep_height(cuda):
+    """The C entry checks that the caller sized the partials for its sweep
+    blocks' rows (``SWEEP_ROWS``)."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.sinkhorn import SWEEP_ROWS
+
+    a = torch.zeros((1, 40, 40), device=cuda)
+    out = torch.empty_like(a)
+    u, v = (torch.empty((1, 40), device=cuda, dtype=torch.float64) for _ in range(2))
+    part = torch.empty((2, 1, 40, 40), device=cuda, dtype=torch.float64)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.library()
+    args = [t.data_ptr() for t in (a, out, u, v, part)] + [1, 40, 40, 5]
+    assert lib.sinkhorn_slack(*args, SWEEP_ROWS // 2, stream) != 0
+    assert lib.sinkhorn_slack(*args, SWEEP_ROWS, stream) == 0
+    torch.cuda.synchronize()
 
 
 def test_k17_refuses_bad_arguments(cuda):

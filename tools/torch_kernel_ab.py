@@ -3,10 +3,11 @@
 and of the models that run them, from one tree: the attention kernels K6
 (attention_pallas) and K10 (attention_int8_kernel), the fused int8 pointer
 layers K11a/K11b, K8 (knn_pallas), K1 (pointnet_pooled_kernel), K14
-(fps_pallas) and K9 (dgcnn_encode_int8_kernel).
+(fps_pallas), K9 (dgcnn_encode_int8_kernel), K5 (dgcnn_encode_fused) and
+K17 (sinkhorn_log_pallas).
 
     python3 tools/torch_kernel_ab.py [--root TREE] [--label NAME]
-        [--parts k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8]
+        [--parts k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8,k5,k17,dcp_bf16,rpmnet]
 
 (``tools/torch_attention_ab.py`` is the same script under its former name.)
 ``--root`` names the checkout whose ``learning3d_tpu_torch`` and
@@ -44,10 +45,18 @@ steps' reductions and barriers with no point work, ``fps_chain_floor``).
 numpy-seeded weights and scales), exact and approximate kNN. ``flownet``:
 ``model_ms`` of FlowNet3D() served at B=16. ``dcp_int8``: ``model_ms`` of DCP
 quantized with fused_layers=False (unfused) and True (fused, int8 P.V) at
-B=32. Inputs are numpy-seeded. Prints one JSON line of ms a
-call (chip_smoke.cuda_ms; for K8, K1, K14 and K9 also ``/device``, the kernels'
-own time under torch.profiler) with the card's name and power limit. Needs a
-CUDA card.
+B=32. ``k5``: K5 at the DCP shape (B=32, N=1024, k=20, emb 512,
+numpy-seeded folded weights), exact and approximate kNN, as the model calls
+it (with the weight pack built once where the tree has one, else the
+wrapper on folded weights), its device time by launch. ``k17``: K17 at
+RPMNet's shape (J=K=1024, 5 iterations) at B = 1, 4 and 16 (the batch's
+matrices in and past the 50 MB L2) and at B=16 with 0 and 1 iterations,
+its device time and launches by kernel (the passes over the matrix).
+``dcp_bf16``: ``model_ms`` of bf16 DCP at B=32. ``rpmnet``: ``model_ms`` of
+served RPMNet() at B=16. Inputs are numpy-seeded. Prints one JSON line of
+ms a call (chip_smoke.cuda_ms; for K8, K1, K14, K9, K5 and K17 also
+``/device``, the kernels' own time under torch.profiler) with the card's
+name and power limit. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -67,7 +76,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
     parser.add_argument("--label", default="")
-    parser.add_argument("--parts", default="k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8")
+    parser.add_argument("--parts", default="k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8,"
+                        "k5,k17,dcp_bf16,rpmnet")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -142,7 +152,11 @@ def main() -> None:
             times.update(k14_times(chip_smoke))
         if "k9" in parts:
             times.update(k9_times(chip_smoke))
-    if parts & {"prnet", "ipcrnet", "flownet", "dcp_int8"}:
+        if "k5" in parts:
+            times.update(k5_times(chip_smoke))
+        if "k17" in parts:
+            times.update(k17_times(chip_smoke))
+    if parts & {"prnet", "ipcrnet", "flownet", "dcp_int8", "dcp_bf16", "rpmnet"}:
         times.update(model_times(chip_smoke, parts))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -150,11 +164,12 @@ def main() -> None:
                       "ms": times}), flush=True)
 
 
-def device_ms(fn, reps: int = 10, by_kernel: bool = False):
+def device_ms(fn, reps: int = 10, by_kernel: bool = False, counts: bool = False):
     """Device time of one call: the kernels' time under torch.profiler over
     ``reps`` calls (after one warm-up), divided by ``reps``; free of the
     host's time, which ``cuda_ms`` shows where it exceeds the device's. With
-    ``by_kernel``, a dict of ms a call by kernel name instead."""
+    ``by_kernel``, a dict of ms a call by kernel name instead; with
+    ``counts`` also a dict of launches a call by kernel name."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -162,9 +177,19 @@ def device_ms(fn, reps: int = 10, by_kernel: bool = False):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    times = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 / reps for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and getattr(e, "self_device_time_total", 0.0) > 0}
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and getattr(e, "self_device_time_total", 0.0) > 0]
+    times = {e.key: e.self_device_time_total / 1e3 / reps for e in events}
+    if counts:
+        return times, {e.key: e.count / reps for e in events}
     return times if by_kernel else sum(times.values())
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's function name ("(anonymous namespace)::row_pass(float
+    const*, ...)" -> "row_pass"), or the key itself (a memset)."""
+    found = re.search(r"(\w+)(?:<[^()]*>)?\(", key)
+    return found.group(1) if found else key
 
 
 def k8_times(chip_smoke) -> dict:
@@ -265,14 +290,70 @@ def k9_times(chip_smoke) -> dict:
     return times
 
 
+def k5_times(chip_smoke) -> dict:
+    """K5 at the DCP shape, exact and approximate kNN, on numpy-seeded folded
+    weights, as the model calls it: on the weight pack, built once, where
+    the tree has one (``DGCNNBf16Weights``), else on the folded weights;
+    device time by launch (the selection, the chain), the wrapper's
+    preparation (xw1; the parent's weight casts; approx kNN's scales) as the
+    rest."""
+    from learning3d_tpu_torch.kernels import dgcnn_fused
+
+    rng = np.random.default_rng(chip_smoke.SEED + 5)
+    dims = [(6, 64), (64, 64), (64, 128), (128, 256), (512, chip_smoke.DCP_EMB)]
+    ws = [torch.from_numpy(rng.normal(0, i**-0.5, (i, o)).astype(np.float32)).cuda() for i, o in dims]
+    bs = [torch.from_numpy(rng.normal(0, 0.1, o).astype(np.float32)).cuda() for _, o in dims]
+    x = torch.from_numpy(rng.normal(size=(chip_smoke.DCP_B, chip_smoke.DCP_N, 3)).astype(np.float32)).cuda()
+    k = chip_smoke.DCP_K
+    if hasattr(dgcnn_fused, "DGCNNBf16Weights"):
+        pack = dgcnn_fused.DGCNNBf16Weights(ws, bs)
+        run = lambda approx: dgcnn_fused.dgcnn_encode_packed(x, pack, k, approx_knn=approx)  # noqa: E731
+    else:
+        run = lambda approx: dgcnn_fused.dgcnn_encode_kernel(x, ws, bs, k, approx_knn=approx)  # noqa: E731
+    times = {}
+    for name, approx in (("exact", False), ("approx", True)):
+        fn = lambda: run(approx)  # noqa: E731
+        times[f"k5/{name}"] = chip_smoke.cuda_ms(fn)
+        kernels = device_ms(fn, by_kernel=True)
+        times[f"k5/{name}/device"] = sum(kernels.values())
+        for key, ms in kernels.items():
+            if "dgcnn" in key:
+                times[f"k5/{name}/device/{kernel_name(key)}"] = ms
+        times[f"k5/{name}/device/prep"] = sum(ms for key, ms in kernels.items() if "dgcnn" not in key)
+    return times
+
+
+def k17_times(chip_smoke) -> dict:
+    """K17 at RPMNet's shape (J=K=1024) with 5 iterations at B = 1, 4 and 16,
+    and at B=16 with 0 and 1 iterations: ms a call, device time, and device
+    time and launches a call by kernel."""
+    from learning3d_tpu_torch.kernels.sinkhorn import sinkhorn_log_pallas
+
+    rng = np.random.default_rng(chip_smoke.SEED + 17)
+    times = {}
+    for b, n_iters in ((1, 5), (4, 5), (16, 5), (16, 1), (16, 0)):
+        la = chip_smoke.rpm_affinity(rng, b, chip_smoke.RPM_N, chip_smoke.RPM_N)
+        name = f"k17/B{b}" + ("" if n_iters == 5 else f"_it{n_iters}")
+        fn = lambda: sinkhorn_log_pallas(la, n_iters)  # noqa: E731
+        times[name] = chip_smoke.cuda_ms(fn)
+        kernels, launches = device_ms(fn, counts=True)
+        times[f"{name}/device"] = sum(kernels.values())
+        for key, ms in kernels.items():
+            times[f"{name}/device/{kernel_name(key)}"] = ms
+            times[f"{name}/launches/{kernel_name(key)}"] = launches[key]
+    return times
+
+
 def model_times(chip_smoke, parts) -> dict:
     """model_ms of served PRNet (B=32), of bf16 iPCRNet (B=32, the
     multi-start batch of 256, and multistart_register on 32 pairs), of
-    FlowNet3D (B=16) and of int8 DCP, unfused and fused (B=32)."""
+    FlowNet3D (B=16), of int8 DCP, unfused and fused (B=32), of bf16 DCP
+    (B=32) and of RPMNet (B=16)."""
     from profile_torch_serve import build
 
     times = {}
-    for part, names in (("flownet", ("flownet",)), ("dcp_int8", ("dcp-int8", "dcp-int8-fused"))):
+    for part, names in (("flownet", ("flownet",)), ("dcp_int8", ("dcp-int8", "dcp-int8-fused")),
+                        ("dcp_bf16", ("dcp",)), ("rpmnet", ("rpmnet",))):
         for name in names if part in parts else ():
             model, _, inputs = build(name, np.random.default_rng(chip_smoke.SEED))
             if isinstance(model, torch.nn.Module):
