@@ -305,7 +305,11 @@ DCP_TOL = 5e-2
 ROT_TOL = 1e-3  # max |R R^T - I| and |det R - 1| of every est_R
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
-PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, an FMA counted as two flops
+# H100 SXM: one f32 instruction a lane and clock, 128 lanes on each of 132
+# SMs at 1.98 GHz; the rate of counts of instructions (a difference, a
+# product, a sum, a comparison: each one instruction)
+PEAK_F32_OPS = 132 * 128 * 1.98e9
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SFU_EXP_PER_S = 16 * 132 * 1.98e9  # H100 SXM: 16 exponentials a clock on each of 132 SMs at 1.98 GHz
 CALIB_CLOUDS, DCP_CALIB_PAIRS = 64, 8  # bench.py's calibration batches
@@ -376,13 +380,17 @@ def check_close(got, want, what: str, tol: float = TOL) -> tuple[float, float]:
     return abs_err, rel_err
 
 
-def bound(flops: float, nbytes: float, *, int8_ops: float = 0.0, f32_flops: float = 0.0) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, *, int8_ops: float = 0.0, f32_flops: float = 0.0,
+          f32_ops: float = 0.0) -> tuple[float, str]:
     """Least time (ms) and what sets it: the operations or the bytes over the
     memory rate. The tensor cores run the bf16 ``flops`` and the
-    ``int8_ops`` one after the other, each type at its peak; the ``f32_flops``
-    run on the CUDA cores beside them, so the operations take the longer of
-    the two."""
-    ops_s = max(flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS, f32_flops / PEAK_F32_FLOPS)
+    ``int8_ops`` one after the other, each type at its peak; the CUDA cores
+    run beside them the ``f32_flops`` (counts that credit an FMA as two
+    flops, at PEAK_F32_FLOPS) and the ``f32_ops`` (counts of f32
+    instructions, at PEAK_F32_OPS), so the operations take the longer of the
+    two."""
+    cuda_s = f32_flops / PEAK_F32_FLOPS + f32_ops / PEAK_F32_OPS
+    ops_s = max(flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS, cuda_s)
     bytes_s = nbytes / PEAK_BYTES
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
@@ -1114,9 +1122,10 @@ def phase_kernel_k9(qdcp, rng) -> dict:
     # x and xw1q read once, the weights once, the output written once
     nbytes = 4 * DCP_B * DCP_N * 3 + DCP_B * DCP_N * 64 + sum(wt.numel() + 4 * swb.numel() for wt, swb in stages) \
         + 2 * DCP_B * DCP_N * DCP_EMB
-    # distances: 3 differences, 3 products and 2 sums a pair; the center half of stage 1
-    f32_flops = 8.0 * DCP_B * DCP_N * DCP_N + 2.0 * DCP_B * DCP_N * 3 * 64
-    bound_ms, bound_by = bound(0.0, nbytes, int8_ops=2.0 * DCP_B * DCP_N * macs, f32_flops=f32_flops)
+    # distances: 3 differences, 3 products and 2 sums a pair (instructions,
+    # none fused); the center half of stage 1 (FMAs)
+    bound_ms, bound_by = bound(0.0, nbytes, int8_ops=2.0 * DCP_B * DCP_N * macs,
+                               f32_flops=2.0 * DCP_B * DCP_N * 3 * 64, f32_ops=8.0 * DCP_B * DCP_N * DCP_N)
     result = {
         "max_abs_err": max(a for a, _ in errs.values()), "max_rel_err": max(r for _, r in errs.values()),
         "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1788,11 +1797,11 @@ def library_edges(x, k):
 
 
 def k7_bound(x, k) -> tuple[float, str]:
-    """K7's bound: B N^2 distances of 8 f32 operations each and one
-    comparison a distance to select (on the CUDA cores); x read once, the
-    (B, N, k, 6) edge tensor written once."""
+    """K7's bound: B N^2 distances of 8 f32 instructions each (none fused)
+    and one comparison a distance to select (on the CUDA cores); x read
+    once, the (B, N, k, 6) edge tensor written once."""
     B, n, _ = x.shape
-    return bound(0.0, 4 * B * n * 3 + 4 * B * n * k * 6, f32_flops=9.0 * B * n * n)
+    return bound(0.0, 4 * B * n * 3 + 4 * B * n * k * 6, f32_ops=9.0 * B * n * n)
 
 
 def phase_kernel_k7(rng) -> dict:
@@ -1804,6 +1813,11 @@ def phase_kernel_k7(rng) -> dict:
         "ragged": (rng.normal(size=(3, 1000, 3)).astype(np.float32), DCP_K),
         "k40": (rng.normal(size=(4, DCP_N, 3)).astype(np.float32), 40),
     }
+    # past 32 the selection keeps a list of 64 keys a row: lattices with
+    # exact ties at the k-th neighbor there, drawn from a generator of their
+    # own so that the later phases keep their data
+    own = np.random.default_rng(SEED + 7)
+    cases.update({"ties_k33": (lattice_cloud(own, 2, 1000), 33), "ties_k64": (lattice_cloud(own, 2, 1000), 64)})
     checked = {}
     with torch.inference_mode():
         for name, (x_np, k) in cases.items():
@@ -1901,7 +1915,12 @@ IPC_REQUESTS = (32, 10, 70)
 IPC_TRAIN_B, IPC_TRAIN_STEPS = 20, 4  # examples/train_pcrnet.py's batch
 PCN_B, PCN_N, PCN_EMB, PCN_COARSE, PCN_TRAIN_STEPS = 32, 1024, 1024, 1024, 4
 SFU_BOUND_EXPS_PER_PAIR_LEVEL = 2  # the TPU kernel's two passes a level, one exponential a pair each
-EMD_F32_OPS_PER_PAIR_LEVEL = 43  # 11 in phase A, 32 in phase B/C (csrc/emd.cu's note)
+# csrc/emd.cu's note counts 43 f32 operations a pair and level (11 in phase
+# A, 32 in phase B/C), each product and each sum on its own: the two squared
+# distances are 16 instructions that cannot fuse (written __fsub_rn,
+# __fmul_rn, __fadd_rn); the other 27 are counted as flops, an FMA as two
+EMD_F32_INSTRUCTIONS_PER_PAIR_LEVEL = 16
+EMD_F32_FLOPS_PER_PAIR_LEVEL = 27
 EMD_LEVELS = 10
 # bf16 iPCRNet on the kernels against the same model on the plain versions
 # (K1's oracle, K12's plain version) at one refinement step, where K1 runs
@@ -1985,10 +2004,10 @@ def library_nn(x, y):
 
 
 def k12_bound(b, n, m) -> tuple[float, str]:
-    """K12's bound: B N M distances of 8 f32 operations each and one
-    comparison a distance (on the CUDA cores); x and y read once, the
-    (B, N) distances and indices written once."""
-    return bound(0.0, 4 * b * (n + m) * 3 + 8 * b * n, f32_flops=9.0 * b * n * m)
+    """K12's bound: B N M distances of 8 f32 instructions each (none fused)
+    and one comparison a distance (on the CUDA cores); x and y read once,
+    the (B, N) distances and indices written once."""
+    return bound(0.0, 4 * b * (n + m) * 3 + 8 * b * n, f32_ops=9.0 * b * n * m)
 
 
 def phase_kernel_k12(rng) -> dict:
@@ -2035,12 +2054,12 @@ def phase_kernel_k12(rng) -> dict:
 
 def k13_bound(b, n, m) -> tuple[float, str]:
     """K13's bound: 2 * 10 * B N M exponentials on the SFU (the TPU
-    kernel's two passes a level) or 43 f32 operations a pair and level on
-    the CUDA cores, whichever takes longer; x and y read once, cost, g1
-    and g2 written once."""
+    kernel's two passes a level) or the f32 arithmetic a pair and level on
+    the CUDA cores (16 instructions and 27 flops), whichever takes longer;
+    x and y read once, cost, g1 and g2 written once."""
     pairs = float(b) * n * m * EMD_LEVELS
     exp_s = SFU_BOUND_EXPS_PER_PAIR_LEVEL * pairs / SFU_EXP_PER_S
-    f32_s = EMD_F32_OPS_PER_PAIR_LEVEL * pairs / PEAK_F32_FLOPS
+    f32_s = pairs * (EMD_F32_INSTRUCTIONS_PER_PAIR_LEVEL / PEAK_F32_OPS + EMD_F32_FLOPS_PER_PAIR_LEVEL / PEAK_F32_FLOPS)
     bytes_s = (4 * b * (n + m) * 3 * 2 + 4 * b) / PEAK_BYTES
     return 1e3 * max(exp_s, f32_s, bytes_s), "operations" if max(exp_s, f32_s) >= bytes_s else "bytes"
 
@@ -2412,16 +2431,17 @@ def library_knn(q, p, k):
 
 
 def k8_bound(q, p, k, same: bool) -> tuple[float, str]:
-    """K8's bound: at C == 3, B S N distances of 8 f32 operations and one
-    comparison each; else 2 C operations a pair for the cross term and one
-    comparison (the squared norms are B (S + N) C more); on the CUDA cores.
+    """K8's bound: at C == 3, B S N distances of 8 f32 instructions and one
+    comparison each; else 2 C instructions a pair for the cross term (a
+    product and a sum a channel, none fused) and one comparison (the
+    squared norms are 2 B (S + N) C more); on the CUDA cores.
     Bytes: the queries and the points read once (once for a self search),
     the (B, S, k) distances and indices written once."""
     B, S, C = q.shape
     n = p.shape[1]
     ops = 9.0 * B * S * n if C == 3 else (2.0 * C + 1.0) * B * S * n + 2.0 * C * B * (S + n)
     nbytes = 4 * (q.numel() + (0 if same else p.numel())) + 8 * B * S * k
-    return bound(0.0, nbytes, f32_flops=ops)
+    return bound(0.0, nbytes, f32_ops=ops)
 
 
 def k8_cases(rng) -> dict:
@@ -2789,11 +2809,11 @@ def flow_levels(xyz):
 
 
 def k14_bound(b, n, npoint) -> tuple[float, str]:
-    """K14's bound: npoint - 1 steps over every point, 10 f32 operations a
-    point and step (3 differences, 3 products, 2 sums, the min, the
-    comparison), on the CUDA cores; the points read once and the indices
-    written once."""
-    return bound(0.0, 12 * b * n + 4 * b + 4 * b * npoint, f32_flops=10.0 * b * n * max(npoint - 1, 0))
+    """K14's bound: npoint - 1 steps over every point, 10 f32 instructions
+    a point and step (3 differences, 3 products, 2 sums, none fused, the
+    min, the comparison), on the CUDA cores; the points read once and the
+    indices written once."""
+    return bound(0.0, 12 * b * n + 4 * b + 4 * b * npoint, f32_ops=10.0 * b * n * max(npoint - 1, 0))
 
 
 def phase_kernel_k14(rng, levels) -> dict:
@@ -2880,14 +2900,14 @@ def in_ball_scan(radius, nsample, xyz, new_xyz) -> int:
 
 
 def k15_bound(radius, nsample, xyz, new_xyz) -> tuple[float, str]:
-    """K15's bound: 9 f32 operations for each point a query reads (three
-    differences, three products, two sums, the comparison), on the CUDA
-    cores; the clouds read once and the (B, S, nsample) indices written
-    once."""
+    """K15's bound: 9 f32 instructions for each point a query reads (three
+    differences, three products, two sums, none fused, the comparison), on
+    the CUDA cores; the clouds read once and the (B, S, nsample) indices
+    written once."""
     b, n, _ = xyz.shape
     s = new_xyz.shape[1]
     scanned = in_ball_scan(radius, nsample, xyz, new_xyz)
-    return bound(0.0, 12 * b * (n + s) + 4 * b * s * nsample, f32_flops=9.0 * scanned)
+    return bound(0.0, 12 * b * (n + s) + 4 * b * s * nsample, f32_ops=9.0 * scanned)
 
 
 def library_ball_query(radius, nsample, xyz, new_xyz):
@@ -3199,14 +3219,14 @@ def ball_group_scan(radius, nsample, xyz, new_xyz, itself) -> int:
 
 
 def k16_bound(radius, nsample, xyz, new_xyz, itself, values) -> tuple[float, str]:
-    """K16's bound: 9 f32 operations for each point a query reads, on the
-    CUDA cores; the clouds, the center indices and the values read once and
-    the (B, S, nsample, C) values written once."""
+    """K16's bound: 9 f32 instructions for each point a query reads (as
+    K15's), on the CUDA cores; the clouds, the center indices and the values
+    read once and the (B, S, nsample, C) values written once."""
     b, n, _ = xyz.shape
     s, c = new_xyz.shape[1], values.shape[-1]
     scanned = ball_group_scan(radius, nsample, xyz, new_xyz, itself)
     nbytes = 12 * b * (n + s) + 4 * b * s + 4 * b * n * c + 4 * b * s * nsample * c
-    return bound(0.0, nbytes, f32_flops=9.0 * scanned)
+    return bound(0.0, nbytes, f32_ops=9.0 * scanned)
 
 
 def library_ball_group(radius, nsample, xyz, new_xyz, itself, values):
@@ -3598,7 +3618,7 @@ def main() -> None:
                      train["launches"]["pool_stats_pallas"], k3),
         kernel_entry("pool_bwd_pallas", csrc + "poolgrad.cu", "learning3d_tpu/kernels/poolgrad.py:203",
                      train["launches"]["pool_bwd_pallas"], k4),
-        kernel_entry("knn_neighbors_pallas", csrc + "edgeconv.cu", "learning3d_tpu/kernels/edgeconv.py:73",
+        kernel_entry("knn_neighbors_pallas", csrc + "dgcnn_select.cu", "learning3d_tpu/kernels/edgeconv.py:73",
                      train_dcp["launches"]["knn_neighbors_pallas"], k7),
         kernel_entry("_nn_oneway_pallas", csrc + "chamfer.cu", "learning3d_tpu/kernels/chamfer.py:65", k12_launches,
                      k12),

@@ -47,7 +47,8 @@ SIGNATURES = {
     "layer_attention_s8": ([_P] * 5 + [_I] * 9 + [_F] * 3 + [_I, _P], ctypes.c_int),
     "layer_attention_instance": ([_I, _I], ctypes.c_char_p),
     "layer_head_map": ([_I] * 6 + [_P], ctypes.c_int),
-    "pool_stats": ([_P] * 3 + [_I] + [_P] * 8 + [_I] * 3 + [_P], ctypes.c_int),
+    "pool_stats": ([_P] * 3 + [_I] + [_P] * 10 + [_I] * 3 + [_P], ctypes.c_int),
+    "pool_stats_pack": ([_P, _I, _I, _P, _P], ctypes.c_int),
     "pool_bwd": ([_P] * 4 + [_I] + [_P] * 2 + [_I] * 3 + [_P], ctypes.c_int),
     "knn_neighbors": ([_P] * 2 + [_I] * 3 + [_P], ctypes.c_int),
     "nn_oneway": ([_P] * 4 + [_I] * 3 + [_P], ctypes.c_int),

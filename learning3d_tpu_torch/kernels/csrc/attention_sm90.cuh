@@ -1,8 +1,9 @@
 // Hopper (sm_90a) pieces of the two-pass attention kernels, K6
 // (attention.cu), K10 (attention_int8.cu) and K11's attention
 // (transformer_int8.cu), of K11's int8 GEMM, of K1's fused PointNet
-// chain (pointnet_fused.cu) and of the DGCNN chains, K5's bf16
-// (dgcnn_fused.cu) and K9's int8 (dgcnn_int8.cu):
+// chain (pointnet_fused.cu), of the DGCNN chains, K5's bf16
+// (dgcnn_fused.cu) and K9's int8 (dgcnn_int8.cu), and of K3's pooled
+// statistics (poolgrad.cu):
 // mbarriers and a ring of them, 3-D and 4-D TMA
 // tile loads and the producer that issues them, bulk copies, wgmma
 // shared-memory descriptors and the m64n{64,128} products with their fence,
@@ -359,6 +360,18 @@ __device__ __forceinline__ void mma_bf16_ss_n64(float (&d)[32], uint64_t da, uin
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " L3D_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : L3D_ACC16("+f", 0), L3D_ACC16("+f", 16)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, M-major in shared memory: the transpose
+// bit) B (16 x 64, N-major: the transpose bit), bf16: both operands stored
+// with the contracted index along rows of 128 bytes (K3's Gram matrix of an
+// x tile, x^T x).
+__device__ __forceinline__ void mma_bf16_ss_n64_tt(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " L3D_D32 ", %32, %33, p, 1, 1, 1, 1;\n}\n"
       : L3D_ACC16("+f", 0), L3D_ACC16("+f", 16)
       : "l"(da), "l"(db), "r"(accumulate));
 }

@@ -24,41 +24,76 @@
 // Bound (bench.py's training step: B=256, N=1024, K=128, E=1024, bf16).
 // K3: z is 2 * 262,144 * 128 * 1024 = 68.7 GFLOP and G 8.6 GFLOP, 78 us at
 // the dense bf16 tensor-core peak (989 TFLOP/s); x is 64 MiB, 20 us at
-// 3.35 TB/s. Bound by operations. K4: dx_sp is 128 MiB written and at most
-// 64 MiB of x is read, 60 us; its operations are 2 * B * E * 128 * 2 =
-// 0.13 GFLOP. Bound by bytes.
+// 3.35 TB/s. Bound by operations. Beside the products, the running max,
+// min and their indices take some 7 CUDA-core instructions a z element
+// (1.9 G at this shape, 56 us at one instruction a lane and clock), which
+// have to hide under them. K4: dx_sp is 128 MiB written and at most 64 MiB
+// of x is read, 60 us; its operations are 2 * B * E * 128 * 2 = 0.13 GFLOP.
+// Bound by bytes.
 //
-// K3 design (simple: mma.sync from shared memory; wgmma and TMA later).
-// * The TPU walks a cloud's point tiles in order and carries the running
-//   max and the Gram sum across grid steps. Here each block walks its
-//   cloud's points itself, in tiles of 64 rows, and keeps the running
-//   max/min/argmax/argmin in registers. Grid (E / 128 + 1, B): blocks
-//   0..E/128-1 of a cloud each own 128 output channels (their W slice
-//   stays in shared memory as W^T); the last block of a cloud computes the
-//   cloud's Gram matrix and column sum. The Gram block does 128 x 128 x N
-//   multiply-adds, as many as a channel block, so the blocks are even. The
-//   channel index varies fastest, so the nine blocks of a cloud run
-//   together and read x once from device memory, eight more times from L2.
-// * z: warp w takes rows 32 (w / 4) .. +31 of the tile and channels
-//   32 (w % 4) .. +31: mma.sync.m16n8k16 bf16 -> f32, A fragments read
-//   once per tile, each B fragment feeding two m-tiles. The epilogue adds
-//   c and folds each value into the running max/min with its point index;
-//   a thread sees its points in increasing order, so a strict > keeps the
-//   first index. At the end the lanes and the two row halves are combined
-//   with (value, index) order: the larger value, on a tie the smaller
-//   index.
-// * Gram: warp w owns rows 16w..16w+15 of G, all 128 columns (16 mma
-//   tiles, 64 f32 accumulators). A = x^T and B = x both come from the
-//   row-major x tile through ldmatrix.trans.
-// * G and the column sum are sums over every cloud. Each Gram block writes
-//   its cloud's partial (B x 64 KiB of scratch), and a second kernel sums
-//   the partials over b in index order: deterministic, no float atomics.
-// * f32 x and W: both are split into bf16 hi + lo in shared memory and
-//   every product is hi*hi + hi*lo + lo*hi (the TPU kernel's `_dot3`
-//   split), about 2^-16 of the exact product: one m-tile at a time to keep
-//   the registers in bounds. The column sum reads the f32 values, exact.
-// * The next tile is loaded into registers while the tensor cores work on
-//   this one. Rows past N are loaded as 0 and left out of the max/min.
+// K3 design (the design of K1's stage 5, pointnet_fused.cu: the same 128 ->
+// 1024 product over the same points with a max over them):
+// * Weights. A pack launch (`pack_kernel`, from the same C entry) reads W
+//   in place and writes W^T once a call as bf16 in the exact shared-memory
+//   image wgmma reads:
+//   blocks of 64 output channels, each two boxes of 64 rows (k 0..63,
+//   64..127) of 128 bytes with the 128-byte swizzle; for f32 W a hi image
+//   and a lo image (bf16(W) and bf16(W - hi)). A block fetches its group's
+//   slice with one bulk copy a part and keeps it resident.
+// * A persistent grid over (cloud, channel group) items, one block an SM:
+//   each block is bound to one group of at most 512 channels (256 for f32)
+//   and walks its clouds. `plan` chooses the group count from the rounds of
+//   items a block takes: two groups of 512 at B=256, E=1024 (66 blocks a
+//   group, four rounds of clouds on 132 SMs).
+// * x tiles by TMA (3-D map (128, N, B), boxes of 64 channels x P points,
+//   128-byte swizzle, zeros past N: a ragged tail is read as zeros and
+//   masked in the fold, never padded in memory) into a ring of two stages,
+//   issued by a producer warp beside the two consumer warpgroups, with
+//   full and empty mbarriers. P = 128 points for bf16, 64 for f32. No
+//   thread copies x, and the tile loop has no __syncthreads.
+// * Transposed product: D (64 channels x P points) = W^T block (A, shared
+//   memory, K-major) x tile^T (B, shared memory, K-major), m64nPk16, one
+//   64-channel block a wgmma group. With channels as rows, a thread's
+//   running max, min and their indices for its two channels come from its
+//   own accumulator columns, which it sees in increasing point order, so a
+//   strict comparison keeps the first index; at the end the four threads of
+//   a quad are combined in (value, index) order. Each warpgroup owns half of
+//   the group's channel blocks; both read every tile.
+// * The two consumer warpgroups take turns issuing (sm90::PingPong), so
+//   that one folds its accumulators while the other's wgmma group runs.
+//   The fold adds the bias to every element (ties are decided on fl(z +
+//   c)), takes the tile's max and min of each channel with fmaxf and fminf
+//   first, and searches the tile for the first point that holds one only
+//   where it beats the running value. At N = 1024 most warps still search
+//   in most tiles; on the H100 this ran 12% faster than a
+//   compare-and-select of value and index at every element (7
+//   instructions an element; both with the running values in registers),
+//   and 8% faster than the same fold on the raw accumulators with the bias
+//   added to the tile's max alone. The running values live in shared memory,
+//   each thread's own (in registers the bf16 instance spilled).
+// * Gram matrix: four 64 x 64 quadrants of x^T x on wgmma with both
+//   operands read from the same x tile through the transpose bits (the
+//   points are the contracted index, along the tile's rows): a warpgroup
+//   of the block's slot 2 * group + warpgroup accumulates quadrant slot
+//   (and slot + 2 ngroups where there is one group), in registers, issued
+//   in its first wgmma group of each tile. Column sums: the producer warp
+//   of each first-group block sums the tile's columns from shared memory
+//   once it has landed (lane l four columns, in point order) before it
+//   frees the stage. Both are partials of one cloud, which a second kernel
+//   sums over the clouds in index order: a fixed order, no float atomics,
+//   and the summation of K3 before this design (a cloud's 1024 points in
+//   one tensor-core chain of k-steps of 16, then the clouds in order).
+//   That order matters: the classifier's train-mode step turns G into BN
+//   variances by E[z^2] - mean^2, which cancels, and chip_smoke.py's check
+//   of the step against the plain version (cuBLAS's f32 sums) failed at
+//   3.1-5.2% with one partial a block (a block's clouds in one chain of up
+//   to 256 k-steps, G 7.3e-6 from its f64 value) as it did with exact
+//   sums (5.1%), where this order gives 2.1%.
+// * f32 x and W: a split launch writes x as bf16 hi and lo tensors first;
+//   the same pipeline then reads a hi and a lo tile a stage and every
+//   product is hi*hi + hi*lo + lo*hi (the TPU kernel's `_dot3` split, about
+//   2^-16 of the exact product), three wgmmas a k-step; the column sums add
+//   hi + lo (exact in f32, within 2^-17 of x).
 //
 // K4 design. The TPU builds (idx == row) one-hot tiles and multiplies them
 // on the MXU; here the scatter is a sort.
@@ -81,44 +116,128 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "attention_sm90.cuh"
+
 namespace {
+
+using sm90::desc_sw128;
+using sm90::fence_operands;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kK = 128;         // input channels: the PointNet tail's conv5 width
-constexpr int kTile = 64;       // points per tile
-constexpr int kEG = 128;        // output channels per K3 channel block
+constexpr int kK = 128;  // input channels: the PointNet tail's conv5 width
+// K3
+constexpr int kConsumerThreads = 256;                   // two consumer warpgroups
+constexpr int kStatsThreads = kConsumerThreads + 32;    // and the producer warp
+constexpr int kWBox = 8192;        // 64 channels x 64 k of bf16
+constexpr int kBlockBytes = 16384; // a 64-channel block of the image: two boxes
+constexpr int kMaxDevices = 64;
+// K4 and the partial sums' reduction
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kLd = kK + 8;     // padded shared-memory row (bf16), free of bank conflicts
-constexpr int kMaxE = 4096;     // K4: e fits the low 12 bits of a sort key
-constexpr int kReduceUnroll = 16;
+constexpr int kMaxE = 4096;  // K4: e fits the low 12 bits of a sort key
+constexpr int kReduceUnroll = 64;  // loads in flight a thread of the partials' sum
+constexpr int kReduceThreads = 128;
 
-__host__ __device__ constexpr int stats_smem_bytes(bool f32) {
-  return (f32 ? 2 : 1) * 2 * (kEG + kTile) * kLd;  // W^T slice and x tile, hi (and lo)
+// K3's shapes for bf16 or f32 operands.
+template <bool kF32>
+struct Cfg {
+  static constexpr int kPts = kF32 ? 64 : 128;        // points a tile: the product's N
+  static constexpr int kStages = 2;                   // stages of the tile ring
+  static constexpr int kMaxGroup = kF32 ? 256 : 512;  // channels a block keeps resident
+  static constexpr int kParts = kF32 ? 2 : 1;         // bf16 parts: hi (and lo)
+  static constexpr int kBox = kPts * 128;             // a tile box: kPts points x 64 k
+  static constexpr int kStageBytes = kParts * 2 * kBox;
+  static constexpr int kAcc = kPts / 2;               // a thread's accumulators of one block
+  static constexpr int kWBytes = kParts * kMaxGroup * 256;
+  static constexpr int kMaxCb = kMaxGroup / 128;      // channel blocks a warpgroup
+  static constexpr int kStateBytes = kMaxCb * 2 * kConsumerThreads * 16;  // the running values
+  // the dynamic shared memory, past the 1024-byte alignment: the weights,
+  // the ring, the running values and the barriers
+  static constexpr int kSmem = kWBytes + kStages * kStageBytes + kStateBytes + 8 * (1 + 2 * kStages);
+};
+
+struct StatsArgs {
+  const uint8_t* img;  // the packed W^T: hi (and lo at e * 256 bytes)
+  const float* c;      // (E,)
+  float *mx, *mn;      // (B, E)
+  int *amax, *amin;    // (B, E)
+  float* gpart;        // (B, 128, 128) Gram partials, one a cloud
+  float* cspart;       // (B, 128) column-sum partials
+  int n, e, batch;
+  int group, ngroups;  // channels a group (a multiple of 128), groups
+  int cpg;             // blocks a group
+};
+
+// Eight f32 values as bf16 hi = bf16(v) and lo = bf16(v - hi), in order.
+__device__ __forceinline__ void split8(float4 a, float4 b, uint4& hi, uint4& lo) {
+  const float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const __nv_bfloat162 hh = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
+    const float2 back = __bfloat1622float2(hh);
+    const __nv_bfloat162 ll = __floats2bfloat162_rn(f[2 * q] - back.x, f[2 * q + 1] - back.y);
+    memcpy(&h[q], &hh, 4);
+    memcpy(&l[q], &ll, 4);
+  }
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// W (128, E), bf16 or f32, read in place, as the image of W^T that wgmma
+// reads (see Design: Weights): byte `off` of a part lies in 64-channel
+// block off / 16384, box (off / 8192) & 1 (k from 64 box), row (channel)
+// (off / 128) & 63, and its 16-byte chunk at (off / 16) & 7 holds k 8
+// (chunk ^ row % 8) .. + 7. The lo part (f32 W only) follows the hi part.
+// One thread a chunk (its eight weights a column apart in W: 256 KB or
+// 512 KB, read once).
+template <bool kF32>
+__global__ void pack_kernel(const void* __restrict__ w, int e_total, uint8_t* __restrict__ img) {
+  const int chunks = e_total * 256 / 16;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < chunks; i += gridDim.x * blockDim.x) {
+    const int off = 16 * i;
+    const int rr = (off >> 7) & 63;
+    const int n = 64 * (off / kBlockBytes) + rr;
+    const int k0 = 64 * ((off / kWBox) & 1) + 8 * (((off >> 4) & 7) ^ (rr & 7));
+    if constexpr (kF32) {
+      const float* col = static_cast<const float*>(w) + (size_t)k0 * e_total + n;
+      float f[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) f[q] = col[(size_t)q * e_total];
+      uint4 hi, lo;
+      split8(make_float4(f[0], f[1], f[2], f[3]), make_float4(f[4], f[5], f[6], f[7]), hi, lo);
+      *reinterpret_cast<uint4*>(img + off) = hi;
+      *reinterpret_cast<uint4*>(img + (size_t)e_total * 256 + off) = lo;
+    } else {
+      const unsigned short* col = static_cast<const unsigned short*>(w) + (size_t)k0 * e_total + n;
+      uint32_t v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[q] = static_cast<uint32_t>(col[(size_t)(2 * q) * e_total]) |
+               (static_cast<uint32_t>(col[(size_t)(2 * q + 1) * e_total]) << 16);
+      *reinterpret_cast<uint4*>(img + off) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// f32 x (count values, a multiple of 8) as bf16 hi = bf16(x) and lo =
+// bf16(x - hi), 8 values a thread.
+__global__ void split_kernel(const float4* __restrict__ x, uint4* __restrict__ hi, uint4* __restrict__ lo,
+                             size_t count) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; 8 * i < count; i += (size_t)gridDim.x * blockDim.x)
+    split8(x[2 * i], x[2 * i + 1], hi[i], lo[i]);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Four bf16 values (8 bytes) as f32.
+__device__ __forceinline__ void bf16x4(float (&f)[4], uint2 v) {
+  __nv_bfloat162 p[2];
+  memcpy(p, &v, 8);
+  const float2 a = __bfloat1622float2(p[0]), b = __bfloat1622float2(p[1]);
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = b.x;
+  f[3] = b.y;
 }
 
 // (value, index) order of the max: the larger value, on a tie the smaller index.
@@ -130,328 +249,344 @@ __device__ __forceinline__ bool beats_min(float v, int i, float w, int j) {
   return v < w || (v == w && i < j);
 }
 
-// A fragments (16 rows from m0, all 128 k) of a row-major bf16 tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[kK / 16][4], const bf16* h, int m0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = h + (m0 + g) * kLd + 2 * t;
+// Issues z's product of one 64-channel block (its image at wb; f32: the lo
+// image kMaxGroup * 256 bytes on) against the tile at st: 8 k-steps of 16,
+// K-major operands, box (kk / 4) and 32 bytes a k-step within it.
+template <bool kF32>
+__device__ __forceinline__ void issue_z(float (&acc)[Cfg<kF32>::kAcc], const uint8_t* wb, const uint8_t* st) {
+  using C = Cfg<kF32>;
 #pragma unroll
-  for (int kk = 0; kk < kK / 16; ++kk) {
-    a[kk][0] = ld32(p + kk * 16);
-    a[kk][1] = ld32(p + 8 * kLd + kk * 16);
-    a[kk][2] = ld32(p + kk * 16 + 8);
-    a[kk][3] = ld32(p + 8 * kLd + kk * 16 + 8);
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t da = desc_sw128(wb + (kk >> 2) * kWBox, 16) + 2 * (kk & 3);
+    const uint64_t db = desc_sw128(st + (kk >> 2) * C::kBox, 16) + 2 * (kk & 3);
+    if constexpr (C::kPts == 64)
+      sm90::mma_bf16_ss_n64(acc, da, db, kk > 0);
+    else
+      sm90::mma_bf16_ss(acc, da, db, kk > 0);
+    if constexpr (kF32) {
+      const uint64_t dal = desc_sw128(wb + C::kMaxGroup * 256 + (kk >> 2) * kWBox, 16) + 2 * (kk & 3);
+      const uint64_t dbl = desc_sw128(st + (2 + (kk >> 2)) * C::kBox, 16) + 2 * (kk & 3);
+      sm90::mma_bf16_ss_n64(acc, da, dbl, 1);
+      sm90::mma_bf16_ss_n64(acc, dal, db, 1);
+    }
   }
 }
 
-// One tile of x, as this thread loads it: 16-byte chunks, kChunk elements
-// each, neighbouring threads on neighbouring chunks of a row.
+// Issues the tile's part of Gram quadrant (qi, qj): D[i][j] += sum over the
+// tile's points of x[p][64 qi + i] x[p][64 qj + j], A = x^T and B = x read
+// from boxes qi and qj through the transpose bits, k-steps of 16 points
+// (2048 bytes). f32: hi*hi + hi*lo + lo*hi.
 template <bool kF32>
-struct TileLoad {
-  static constexpr int kChunk = kF32 ? 4 : 8;
-  static constexpr int kPerRow = kK / kChunk;
-  static constexpr int kRowStep = kThreads / kPerRow;
-  static constexpr int kPasses = kTile / kRowStep;
-  uint4 v[kPasses];
-
-  __device__ __forceinline__ void load(const void* x, size_t row0, int valid, int tid) {
-    const int c = tid % kPerRow, r0 = tid / kPerRow;
+__device__ __forceinline__ void issue_gram(float (&d)[32], const uint8_t* st, int qi, int qj) {
+  using C = Cfg<kF32>;
 #pragma unroll
-    for (int j = 0; j < kPasses; ++j) {
-      const int r = r0 + j * kRowStep;
-      v[j] = r < valid ? reinterpret_cast<const uint4*>(x)[(row0 + r) * kPerRow + c]
-                       : make_uint4(0, 0, 0, 0);
+  for (int ks = 0; ks < C::kPts / 16; ++ks) {
+    const uint64_t da = desc_sw128(st + qi * C::kBox, C::kBox) + 128 * ks;
+    const uint64_t db = desc_sw128(st + qj * C::kBox, C::kBox) + 128 * ks;
+    sm90::mma_bf16_ss_n64_tt(d, da, db, 1);
+    if constexpr (kF32) {
+      sm90::mma_bf16_ss_n64_tt(d, da, desc_sw128(st + (2 + qj) * C::kBox, C::kBox) + 128 * ks, 1);
+      sm90::mma_bf16_ss_n64_tt(d, desc_sw128(st + (2 + qi) * C::kBox, C::kBox) + 128 * ks, db, 1);
     }
   }
+}
 
-  // Into the bf16 tile (hi and, for f32, lo); with kSum, add each chunk's
-  // values to this thread's column sums.
-  template <bool kSum>
-  __device__ __forceinline__ void store(bf16* hi, bf16* lo, float (&cs)[kChunk], int tid) const {
-    const int c = tid % kPerRow, r0 = tid / kPerRow;
-#pragma unroll
-    for (int j = 0; j < kPasses; ++j) {
-      const int r = r0 + j * kRowStep;
-      if constexpr (kF32) {
-        float f[4];
-        memcpy(f, &v[j], 16);
-        bf16 h[4], l[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          h[q] = __float2bfloat16_rn(f[q]);
-          l[q] = __float2bfloat16_rn(f[q] - __bfloat162float(h[q]));
-          if (kSum) cs[q] += f[q];
-        }
-        memcpy(hi + r * kLd + c * 4, h, 8);
-        memcpy(lo + r * kLd + c * 4, l, 8);
-      } else {
-        *reinterpret_cast<uint4*>(hi + r * kLd + c * 8) = v[j];
-        if (kSum) {
-          bf16 h[8];
-          memcpy(h, &v[j], 16);
-#pragma unroll
-          for (int q = 0; q < 8; ++q) cs[q] += __bfloat162float(h[q]);
-        }
-      }
-    }
-  }
-};
-
-struct StatsArgs {
-  const void* x;    // (B, N, 128)
-  const void* wt;   // W^T (E, 128)
-  const float* c;   // (E,)
-  float *mx, *mn;   // (B, E)
-  int *amax, *amin; // (B, E)
-  float* gpart;     // (B, 128, 128) per-cloud Gram partials
-  float* cspart;    // (B, 128) per-cloud column sums
-  int n, e;
-};
-
-// Running max/min/argmax/argmin of this thread's 8 channels.
+// A thread's running max, min and their points for one of its channels
+// (row g or g + 8 of its warp's 16 of a 64-channel block). They live in
+// shared memory, [block][row][consumer thread], each thread's own: read
+// once a tile, written where the tile beats them, so that the registers
+// hold the accumulators (in registers the bf16 instance spilled).
 struct Running {
-  float mx[4][2], mn[4][2];
-  int amax[4][2], amin[4][2];
+  float mx, mn;
+  int ax, an;
 };
 
-// Fold the accumulators of one m-tile (rows p0 + m0 ..) into `run`.
-__device__ __forceinline__ void fold(Running& run, const float (&acc)[4][4], const float (&cb)[4][2],
-                                     int prow, int n_pts) {
+// Folds a tile's accumulators (columns 8 j + 2 t + e: points p0 + 8 j + e,
+// p0 = tile start + 2 t, in increasing order) into `run` (rows g and g + 8:
+// run and run + kConsumerThreads), whose current max and min (cur0, cur1)
+// and biases (b0, b1) the caller read. The bias is added to every value
+// (ties are decided on fl(z + c)); the tile's max and min of each channel
+// come first, from fmaxf and fminf in two chains each (even and odd
+// columns), and only where one beats the running value is the tile
+// searched for its first point that holds it. MASKED (the last tile of a
+// ragged cloud): points from n on never win.
+template <bool kMasked, int kAcc>
+__device__ __forceinline__ void fold(Running* run, const float (&acc)[kAcc], float b0, float b1, float2 cur0,
+                                     float2 cur1, int p0, int n) {
+  float rmx[2][2], rmn[2][2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int p = prow + 8 * half;
-    if (p >= n_pts) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float v = acc[j][2 * half + e] + cb[j][e];
-        if (v > run.mx[j][e]) { run.mx[j][e] = v; run.amax[j][e] = p; }
-        if (v < run.mn[j][e]) { run.mn[j][e] = v; run.amin[j][e] = p; }
-      }
-  }
-}
-
-// The Gram block of a cloud: G partial and column sum over its points.
-template <bool kF32>
-__device__ __forceinline__ void gram_block(const StatsArgs& args, bf16* x_hi, bf16* x_lo, float* red) {
-  constexpr int kChunk = TileLoad<kF32>::kChunk, kPerRow = TileLoad<kF32>::kPerRow;
-  const int n_pts = args.n, cloud = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, ri = lane & 7;  // this lane's ldmatrix matrix and row
-  float gacc[16][4];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) gacc[j][0] = gacc[j][1] = gacc[j][2] = gacc[j][3] = 0.f;
-  float cs[kChunk];
-#pragma unroll
-  for (int q = 0; q < kChunk; ++q) cs[q] = 0.f;
-
-  const size_t cloud_row = (size_t)cloud * n_pts;
-  TileLoad<kF32> next;
-  next.load(args.x, cloud_row, min(kTile, n_pts), tid);
-  for (int p0 = 0; p0 < n_pts; p0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    next.template store<true>(x_hi, x_lo, cs, tid);
-    __syncthreads();
-    if (p0 + kTile < n_pts) next.load(args.x, cloud_row + p0 + kTile, min(kTile, n_pts - p0 - kTile), tid);
-    // G[16w.., :] += x^T x over the tile's 64 rows: 4 k-steps of 16 points.
-    // A = x^T: matrices (points 0-7, rows 0-7), (0-7, 8-15), (8-15, 0-7),
-    // (8-15, 8-15); B = x: (0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15).
-#pragma unroll 1
-    for (int ks = 0; ks < kTile / 16; ++ks) {
-      const int pa = ks * 16 + ri + 8 * (mi >> 1), ca = warp * 16 + 8 * (mi & 1);
-      const int pb = ks * 16 + ri + 8 * (mi & 1), cb = 8 * (mi >> 1);
-      uint32_t a[4], al[4];
-      ldmatrix_x4_trans(a, x_hi + pa * kLd + ca);
-      if constexpr (kF32) ldmatrix_x4_trans(al, x_lo + pa * kLd + ca);
-#pragma unroll
-      for (int nt = 0; nt < 16; nt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, x_hi + pb * kLd + nt * 8 + cb);
-        mma_bf16(gacc[nt], a, b[0], b[1]);
-        mma_bf16(gacc[nt + 1], a, b[2], b[3]);
-        if constexpr (kF32) {
-          uint32_t bl[4];
-          ldmatrix_x4_trans(bl, x_lo + pb * kLd + nt * 8 + cb);
-          mma_bf16(gacc[nt], a, bl[0], bl[1]);
-          mma_bf16(gacc[nt + 1], a, bl[2], bl[3]);
-          mma_bf16(gacc[nt], al, b[0], b[1]);
-          mma_bf16(gacc[nt + 1], al, b[2], b[3]);
-        }
-      }
-    }
-  }
-
-  float* gp = args.gpart + (size_t)cloud * kK * kK;
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
-    const int r = warp * 16 + g, c = nt * 8 + 2 * t;
-    gp[r * kK + c] = gacc[nt][0];
-    gp[r * kK + c + 1] = gacc[nt][1];
-    gp[(r + 8) * kK + c] = gacc[nt][2];
-    gp[(r + 8) * kK + c + 1] = gacc[nt][3];
-  }
-  // Column sums: thread tid holds columns (tid % kPerRow) * kChunk ..; the
-  // threads of one column are summed in the order of tid.
-  __syncthreads();  // every warp is done with the last tile
-#pragma unroll
-  for (int q = 0; q < kChunk; ++q) red[tid * kChunk + q] = cs[q];
-  __syncthreads();
-  if (tid < kK) {
-    const int c = tid / kChunk, q = tid % kChunk;
-    float s = 0.f;
-    for (int i = c; i < kThreads; i += kPerRow) s += red[i * kChunk + q];
-    args.cspart[(size_t)cloud * kK + tid] = s;
-  }
-}
-
-// A channel block: running max/min/argmax/argmin of z over the cloud's
-// points for channels e0 .. e0 + 127.
-template <bool kF32>
-__device__ __forceinline__ void channel_block(const StatsArgs& args, bf16* wt_hi, bf16* x_hi, bf16* x_lo,
-                                              unsigned char* red) {
-  const int n_pts = args.n, e_total = args.e, cloud = blockIdx.y;
-  const int e0 = blockIdx.x * kEG;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  bf16* wt_lo = wt_hi + kEG * kLd;  // f32 only: the lo slice right after the hi slice
-  {
-    TileLoad<kF32> w;
-    float unused[TileLoad<kF32>::kChunk];
-    for (int r0 = 0; r0 < kEG; r0 += kTile) {
-      w.load(args.wt, (size_t)e0 + r0, kTile, tid);
-      w.template store<false>(wt_hi + r0 * kLd, wt_lo + r0 * kLd, unused, tid);
-    }
-  }
-
-  const int rh = warp >> 2, cq = warp & 3;  // row half, channel quarter
-  float cb[4][2];
-  Running run;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      cb[j][e] = args.c[e0 + cq * 32 + 8 * j + 2 * t + e];
-      run.mx[j][e] = -INFINITY;
-      run.mn[j][e] = INFINITY;
-      run.amax[j][e] = run.amin[j][e] = 0;
+      rmx[h][e] = -INFINITY;
+      rmn[h][e] = INFINITY;
     }
-
-  const size_t cloud_row = (size_t)cloud * n_pts;
-  const bf16* wq = wt_hi + (cq * 32 + g) * kLd + 2 * t;
-  const int m0 = rh * 32;
-  TileLoad<kF32> next;
-  float unused[TileLoad<kF32>::kChunk];
-  next.load(args.x, cloud_row, min(kTile, n_pts), tid);
-  for (int p0 = 0; p0 < n_pts; p0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (and W^T is in place)
-    next.template store<false>(x_hi, x_lo, unused, tid);
-    __syncthreads();
-    if (p0 + kTile < n_pts) next.load(args.x, cloud_row + p0 + kTile, min(kTile, n_pts - p0 - kTile), tid);
-    if constexpr (!kF32) {
-      uint32_t a[2][kK / 16][4];
-      load_a(a[0], x_hi, m0, lane);
-      load_a(a[1], x_hi, m0 + 16, lane);
-      float acc[2][4][4] = {};
 #pragma unroll
-      for (int kk = 0; kk < kK / 16; ++kk)
+  for (int j = 0; j < kAcc / 4; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t b0 = ld32(wq + j * 8 * kLd + kk * 16);
-          const uint32_t b1 = ld32(wq + j * 8 * kLd + kk * 16 + 8);
-          mma_bf16(acc[0][j], a[0][kk], b0, b1);
-          mma_bf16(acc[1][j], a[1][kk], b0, b1);
-        }
-      fold(run, acc[0], cb, p0 + m0 + g, n_pts);
-      fold(run, acc[1], cb, p0 + m0 + 16 + g, n_pts);
-    } else {
-      const bf16* wql = wq + kEG * kLd;
-#pragma unroll 1
-      for (int mi = 0; mi < 2; ++mi) {
-        uint32_t ah[kK / 16][4], al[kK / 16][4];
-        load_a(ah, x_hi, m0 + 16 * mi, lane);
-        load_a(al, x_lo, m0 + 16 * mi, lane);
-        float acc[4][4] = {};
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = !kMasked || p0 + 8 * j + e < n;
 #pragma unroll
-        for (int kk = 0; kk < kK / 16; ++kk)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int o = j * 8 * kLd + kk * 16;
-            const uint32_t bh0 = ld32(wq + o), bh1 = ld32(wq + o + 8);
-            const uint32_t bl0 = ld32(wql + o), bl1 = ld32(wql + o + 8);
-            mma_bf16(acc[j], ah[kk], bh0, bh1);
-            mma_bf16(acc[j], ah[kk], bl0, bl1);
-            mma_bf16(acc[j], al[kk], bh0, bh1);
-          }
-        fold(run, acc, cb, p0 + m0 + 16 * mi + g, n_pts);
+      for (int h = 0; h < 2; ++h) {
+        const float v = acc[4 * j + 2 * h + e] + (h ? b1 : b0);
+        rmx[h][e] = fmaxf(rmx[h][e], ok ? v : -INFINITY);
+        rmn[h][e] = fminf(rmn[h][e], ok ? v : INFINITY);
       }
     }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float b = h ? b1 : b0;
+    const float2 cur = h ? cur1 : cur0;
+    const float mx = fmaxf(rmx[h][0], rmx[h][1]), mn = fminf(rmn[h][0], rmn[h][1]);
+    Running* r = run + h * kConsumerThreads;
+    if (mx > cur.x)
+      {
+        int at = 0;
+#pragma unroll
+        for (int j = kAcc / 4 - 1; j >= 0; --j)
+#pragma unroll
+          for (int e = 1; e >= 0; --e)
+            if (acc[4 * j + 2 * h + e] + b == mx) at = p0 + 8 * j + e;
+        r->mx = mx;
+        r->ax = at;
+      }
+    if (mn < cur.y)
+      {
+        int at = 0;
+#pragma unroll
+        for (int j = kAcc / 4 - 1; j >= 0; --j)
+#pragma unroll
+          for (int e = 1; e >= 0; --e)
+            if (acc[4 * j + 2 * h + e] + b == mn) at = p0 + 8 * j + e;
+        r->mn = mn;
+        r->an = at;
+      }
   }
+}
 
-  // Combine the 8 lanes of each channel pair, then the two row halves.
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int s = 4; s < 32; s <<= 1) {
-        const float omx = __shfl_xor_sync(0xffffffffu, run.mx[j][e], s);
-        const int oax = __shfl_xor_sync(0xffffffffu, run.amax[j][e], s);
-        const float omn = __shfl_xor_sync(0xffffffffu, run.mn[j][e], s);
-        const int oan = __shfl_xor_sync(0xffffffffu, run.amin[j][e], s);
-        if (beats_max(omx, oax, run.mx[j][e], run.amax[j][e])) { run.mx[j][e] = omx; run.amax[j][e] = oax; }
-        if (beats_min(omn, oan, run.mn[j][e], run.amin[j][e])) { run.mn[j][e] = omn; run.amin[j][e] = oan; }
-      }
-  float* rmx = reinterpret_cast<float*>(red);  // [2][kEG] each
-  float* rmn = rmx + 2 * kEG;
-  int* rax = reinterpret_cast<int*>(rmn + 2 * kEG);
-  int* ran = rax + 2 * kEG;
-  __syncthreads();  // every warp is done reading W^T, whose memory `red` reuses
-  if (g == 0) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int ch = rh * kEG + cq * 32 + 8 * j + 2 * t + e;
-        rmx[ch] = run.mx[j][e];
-        rmn[ch] = run.mn[j][e];
-        rax[ch] = run.amax[j][e];
-        ran[ch] = run.amin[j][e];
-      }
+template <bool kF32, int kQuads>
+__global__ void __launch_bounds__(kStatsThreads, 1)
+    pool_stats_kernel(const __grid_constant__ CUtensorMap map_hi, const __grid_constant__ CUtensorMap map_lo,
+                      const StatsArgs a) {
+  using C = Cfg<kF32>;
+  // channel blocks a warpgroup: one group of 128 channels where the block
+  // also keeps two Gram quadrants (E = 128, one group)
+  constexpr int kMaxCb = kQuads == 2 ? 1 : C::kMaxCb;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint8_t* ring = smem + C::kWBytes;
+  Running* state = reinterpret_cast<Running*>(ring + C::kStages * C::kStageBytes);
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(ring + C::kStages * C::kStageBytes + C::kStateBytes);
+  uint64_t* full = wbar + 1;
+  uint64_t* empty = full + C::kStages;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int grp = blockIdx.x % a.ngroups, r = blockIdx.x / a.ngroups;
+  const int c_lo = grp * a.group;
+  const int nmb = min(a.group, a.e - c_lo) >> 6;  // 64-channel blocks of this group (even)
+  const int ntiles = (a.n + C::kPts - 1) / C::kPts;
+  if (tid == 0) {
+    sm90::bar_init(wbar, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      sm90::bar_init(full + s, 1);
+      sm90::bar_init(empty + s, kConsumerThreads / 32 + 1);  // the consumer warps and the producer
+    }
+    sm90::bar_fence_init();
   }
   __syncthreads();
-  if (tid < kEG) {
-    float vx = rmx[tid], vn = rmn[tid];
-    int ix = rax[tid], in = ran[tid];
-    if (beats_max(rmx[kEG + tid], rax[kEG + tid], vx, ix)) { vx = rmx[kEG + tid]; ix = rax[kEG + tid]; }
-    if (beats_min(rmn[kEG + tid], ran[kEG + tid], vn, in)) { vn = rmn[kEG + tid]; in = ran[kEG + tid]; }
-    const size_t o = (size_t)cloud * e_total + e0 + tid;
-    args.mx[o] = vx;
-    args.mn[o] = vn;
-    args.amax[o] = ix;
-    args.amin[o] = in;
+
+  if (tid >= kConsumerThreads) {  // the producer warp
+    if (lane == 0) {
+      sm90::bar_expect_tx(wbar, C::kParts * nmb * kBlockBytes);
+      sm90::bulk_load(smem, a.img + (size_t)c_lo * 256, nmb * kBlockBytes, wbar);
+      if constexpr (kF32)
+        sm90::bulk_load(smem + C::kMaxGroup * 256, a.img + ((size_t)a.e + c_lo) * 256, nmb * kBlockBytes, wbar);
+    }
+    // the column sums: the first group's blocks, lane l columns 64 (l / 16)
+    // + 4 (l % 16) .. + 3 of each tile, in point order (rows past N are 0),
+    // one tile behind the loads, so that the next tile's copy is in flight
+    // while this one lands and is summed. Other blocks free a stage's
+    // producer share as soon as they have issued its copy.
+    const bool sums = grp == 0;
+    const int box = lane >> 4, cc = 4 * (lane & 15);
+    float cs[4] = {0.f, 0.f, 0.f, 0.f};
+    sm90::Ring loads(C::kStages), summed(C::kStages);
+    int sum_cloud = r, sum_t = 0;  // the tile the next sum takes
+    auto sum_tile = [&]() {
+      sm90::bar_wait(full + summed.stage, summed.phase);
+      const uint8_t* col = ring + summed.stage * C::kStageBytes + box * C::kBox + 2 * (cc & 7);
+#pragma unroll 4
+      for (int p = 0; p < C::kPts; ++p) {
+        const int off = p * 128 + ((((cc >> 3) ^ p) & 7) << 4);
+        float v[4];
+        bf16x4(v, *reinterpret_cast<const uint2*>(col + off));
+        if constexpr (kF32) {
+          float l[4];
+          bf16x4(l, *reinterpret_cast<const uint2*>(col + 2 * C::kBox + off));
+#pragma unroll
+          for (int q = 0; q < 4; ++q) v[q] += l[q];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) cs[q] += v[q];
+      }
+      __syncwarp();
+      if (lane == 0) sm90::bar_arrive(empty + summed.stage);
+      summed.next();
+      if (++sum_t == ntiles) {  // the cloud's partial
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          a.cspart[(size_t)sum_cloud * kK + 64 * box + cc + q] = cs[q];
+          cs[q] = 0.f;
+        }
+        sum_t = 0;
+        sum_cloud += a.cpg;
+      }
+    };
+    bool behind = false;  // a loaded tile waits for its sum
+    for (int cloud = r; cloud < a.batch; cloud += a.cpg)
+      for (int t = 0; t < ntiles; ++t) {
+        if (lane == 0) {
+          uint8_t* st = ring + loads.stage * C::kStageBytes;
+          sm90::bar_wait(empty + loads.stage, loads.phase ^ 1u);
+          sm90::bar_expect_tx(full + loads.stage, C::kStageBytes);
+#pragma unroll
+          for (int part = 0; part < C::kParts; ++part)
+#pragma unroll
+            for (int b = 0; b < 2; ++b)
+              sm90::tma_load_3d(st + (2 * part + b) * C::kBox, part ? &map_lo : &map_hi, full + loads.stage,
+                                64 * b, t * C::kPts, cloud);
+          if (!sums) sm90::bar_arrive(empty + loads.stage);
+        }
+        loads.next();
+        if (sums) {
+          if (behind) sum_tile();
+          behind = true;
+        }
+      }
+    if (behind) sum_tile();
+    return;
   }
+
+  // the consumers: warpgroup wg takes channel blocks cb0 .. cb0 + ncb - 1
+  const int wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int ncb = nmb >> 1, cb0 = wg * ncb;
+  // the Gram quadrants slot + 2 ngroups i of slot 2 grp + wg. Every
+  // warpgroup issues its products: a slot past the four quadrants (three
+  // or more groups) computes quadrant slot % 4 again and does not write
+  // it, since a wgmma on a path that not every warpgroup takes is
+  // serialized (ptxas C7520)
+  const int slot = 2 * grp + wg;
+  int quad[kQuads];
+  float gacc[kQuads][32];
+#pragma unroll
+  for (int q = 0; q < kQuads; ++q) quad[q] = slot + 2 * a.ngroups * q;
+  sm90::bar_wait(wbar, 0);
+  const sm90::PingPong turns(wg);
+  turns.open();
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int cloud = r; cloud < a.batch; cloud += a.cpg) {
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) gacc[q][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2 * kMaxCb; ++i) state[i * kConsumerThreads + tid] = Running{-INFINITY, INFINITY, 0, 0};
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const uint8_t* st = ring + stage * C::kStageBytes;
+      sm90::bar_wait(full + stage, phase);
+      const int p0 = tile * C::kPts + 2 * t;
+      const bool whole = (tile + 1) * C::kPts <= a.n;
+#pragma unroll
+      for (int cb = 0; cb < kMaxCb; ++cb) {
+        if (cb >= ncb) break;
+        float acc[C::kAcc];
+        // the biases and the running values, read before the products
+        turns.turn();
+        fence_operands(acc);
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q) fence_operands(gacc[q]);
+        sm90::wgmma_fence();
+        issue_z<kF32>(acc, smem + (cb0 + cb) * kBlockBytes, st);
+        if (cb == 0)
+#pragma unroll
+          for (int q = 0; q < kQuads; ++q) issue_gram<kF32>(gacc[q], st, (quad[q] >> 1) & 1, quad[q] & 1);
+        sm90::wgmma_commit();
+        turns.pass();
+        sm90::wgmma_wait<0>();
+        fence_operands(acc);
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q) fence_operands(gacc[q]);
+        const float* bc = a.c + c_lo + 64 * (cb0 + cb) + 16 * warp + g;
+        const float b0 = __ldg(bc), b1 = __ldg(bc + 8);
+        Running* run = state + 2 * cb * kConsumerThreads + tid;
+        const float2 cur0 = *reinterpret_cast<const float2*>(run);
+        const float2 cur1 = *reinterpret_cast<const float2*>(run + kConsumerThreads);
+        if (whole)
+          fold<false>(run, acc, b0, b1, cur0, cur1, p0, a.n);
+        else
+          fold<true>(run, acc, b0, b1, cur0, cur1, p0, a.n);
+      }
+      sm90::release(empty + stage, lane);
+      if (++stage == C::kStages) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+    // the quad's four threads in (value, index) order; thread t == 0 writes
+#pragma unroll
+    for (int cb = 0; cb < kMaxCb; ++cb) {
+      if (cb >= ncb) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const Running run = state[(2 * cb + h) * kConsumerThreads + tid];
+        float vx = run.mx, vn = run.mn;
+        int ix = run.ax, in = run.an;
+#pragma unroll
+        for (int s = 1; s < 4; s <<= 1) {
+          const float ox = __shfl_xor_sync(0xffffffffu, vx, s), on = __shfl_xor_sync(0xffffffffu, vn, s);
+          const int jx = __shfl_xor_sync(0xffffffffu, ix, s), jn = __shfl_xor_sync(0xffffffffu, in, s);
+          if (beats_max(ox, jx, vx, ix)) {
+            vx = ox;
+            ix = jx;
+          }
+          if (beats_min(on, jn, vn, in)) {
+            vn = on;
+            in = jn;
+          }
+        }
+        if (t == 0) {
+          const size_t o = (size_t)cloud * a.e + c_lo + 64 * (cb0 + cb) + 16 * warp + g + 8 * h;
+          a.mx[o] = vx;
+          a.mn[o] = vn;
+          a.amax[o] = ix;
+          a.amin[o] = in;
+        }
+      }
+    }
+    // the cloud's Gram partial: quadrant (qi, qj) rows 64 qi + 16 warp + g
+    // (+ 8), columns 64 qj + 8 j + 2 t (+ 1)
+    float* gp = a.gpart + (size_t)cloud * kK * kK;
+#pragma unroll
+    for (int q = 0; q < kQuads; ++q) {
+      if (quad[q] >= 4) continue;
+      const int row = 64 * (quad[q] >> 1) + 16 * warp + g, col = 64 * (quad[q] & 1) + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(gp + (size_t)(row + 8 * h) * kK + col + 8 * j) =
+              make_float2(gacc[q][4 * j + 2 * h], gacc[q][4 * j + 2 * h + 1]);
+    }
+  }
+  turns.close();
 }
 
-template <bool kF32>
-__global__ void __launch_bounds__(kThreads, 1) pool_stats_kernel(StatsArgs args) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* wt_hi = reinterpret_cast<bf16*>(smem);
-  bf16* x_hi = wt_hi + (kF32 ? 2 : 1) * kEG * kLd;
-  bf16* x_lo = x_hi + kTile * kLd;  // f32 only
-  // The reductions at the end reuse the W^T slice's shared memory (the
-  // Gram block has none; a channel block is past its last use there).
-  unsigned char* red = smem;
-  if (blockIdx.x == gridDim.x - 1)
-    gram_block<kF32>(args, x_hi, x_lo, reinterpret_cast<float*>(red));
-  else
-    channel_block<kF32>(args, wt_hi, x_hi, x_lo, red);
-}
-
-// G = sum_b gpart[b], colsum = sum_b cspart[b], over b in index order.
-__global__ void __launch_bounds__(kThreads) pool_stats_reduce(const float* gpart, const float* cspart,
-                                                              float* G, float* colsum, int batch) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+// G = sum_b gpart[b], colsum = sum_b cspart[b], over the clouds b in index
+// order.
+__global__ void __launch_bounds__(kReduceThreads) pool_stats_reduce(const float* gpart, const float* cspart,
+                                                                    float* G, float* colsum, int batch) {
+  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
   if (i >= kK * kK + kK) return;
   const float* src = i < kK * kK ? gpart + i : cspart + (i - kK * kK);
   const size_t stride = i < kK * kK ? (size_t)kK * kK : (size_t)kK;
@@ -572,21 +707,106 @@ __global__ void __launch_bounds__(kThreads) pool_bwd_dw_kernel(const int* idx, c
   }
   *reinterpret_cast<float4*>(dwt + (size_t)e * kK + 4 * lane) = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
+// The work split of a K3 call (see Design): the group count that minimizes
+// (rounds of clouds a block) x (an item's cost), an item costing its
+// channel blocks' products and folds plus half a block's worth for the
+// Gram quadrant and the pipeline. At least two groups from E = 256 on, so
+// that a warpgroup keeps at most one Gram quadrant beside more than one
+// channel block.
+struct Plan {
+  int group, ngroups, cpg;
+};
+
+inline Plan plan(int batch, int e_total, int sms, int max_group) {
+  Plan best{0, 0, 0};
+  double best_cost = 0.0;
+  int ng = (e_total + max_group - 1) / max_group;
+  if (e_total >= 256 && ng < 2) ng = 2;
+  for (; ng <= e_total / 128; ++ng) {
+    const int group = ((e_total + ng - 1) / ng + 127) / 128 * 128;
+    const int groups = (e_total + group - 1) / group;
+    if (groups == 1 && e_total > 128) continue;
+    const int cpg = sms / groups < 1 ? 1 : sms / groups < batch ? sms / groups : batch;
+    const double cost = (double)((batch + cpg - 1) / cpg) * (group / 128.0 + 0.5);
+    if (best.group == 0 || cost < best_cost - 1e-9) {
+      best = Plan{group, groups, cpg};
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+int launch_pack(const void* w, int is_f32, int e_total, void* img, cudaStream_t stream) {
+  const int chunks = e_total * 16;
+  if (is_f32)
+    pack_kernel<true><<<(chunks + 255) / 256, 256, 0, stream>>>(w, e_total, static_cast<uint8_t*>(img));
+  else
+    pack_kernel<false><<<(chunks + 255) / 256, 256, 0, stream>>>(w, e_total, static_cast<uint8_t*>(img));
+  return (int)cudaGetLastError();
+}
+
+template <bool kF32, int kQuads>
+int launch_stats_kernel(const CUtensorMap& hi, const CUtensorMap& lo, const StatsArgs& args, int blocks,
+                        cudaStream_t stream) {
+  static bool ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  constexpr int bytes = 1024 + Cfg<kF32>::kSmem;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(pool_stats_kernel<kF32, kQuads>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  pool_stats_kernel<kF32, kQuads><<<blocks, kStatsThreads, bytes, stream>>>(hi, lo, args);
+  return (int)cudaGetLastError();
+}
 
 template <bool kF32>
-int launch_stats(const void* x, const void* wt, const float* c, float* mx, float* mn, int* amax,
-                 int* amin, float* gpart, float* cspart, float* G, float* colsum, int batch, int n_pts,
-                 int e_total, cudaStream_t stream) {
-  const int bytes = stats_smem_bytes(kF32);
-  cudaError_t err = cudaFuncSetAttribute(pool_stats_kernel<kF32>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+int launch_stats(const void* x, const void* w, const float* c, float* mx, float* mn, int* amax, int* amin,
+                 float* gpart, float* cspart, float* G, float* colsum, void* img, void* xs, int batch,
+                 int n_pts, int e_total, cudaStream_t stream) {
+  static int sms_of[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  StatsArgs args{x, wt, c, mx, mn, amax, amin, gpart, cspart, n_pts, e_total};
-  pool_stats_kernel<kF32><<<dim3(e_total / kEG + 1, batch), kThreads, bytes, stream>>>(args);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  pool_stats_reduce<<<(kK * kK + kK + kThreads - 1) / kThreads, kThreads, 0, stream>>>(gpart, cspart, G, colsum,
-                                                                                      batch);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const Plan p = plan(batch, e_total, sms_of[dev], Cfg<kF32>::kMaxGroup);
+  if (p.group == 0) return (int)cudaErrorInvalidValue;
+  int e = launch_pack(w, kF32, e_total, img, stream);
+  if (e != 0) return e;
+  const bf16* x_hi = static_cast<const bf16*>(x);
+  const bf16* x_lo = x_hi;
+  if constexpr (kF32) {
+    const size_t count = (size_t)batch * n_pts * kK;
+    bf16* hi = static_cast<bf16*>(xs);
+    const size_t threads = count / 8;
+    const unsigned grid = threads / 256 + 1 < 8192 ? (unsigned)(threads / 256 + 1) : 8192u;
+    split_kernel<<<grid, 256, 0, stream>>>(static_cast<const float4*>(x), reinterpret_cast<uint4*>(hi),
+                                           reinterpret_cast<uint4*>(hi + count), count);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    x_hi = hi;
+    x_lo = hi + count;
+  }
+  CUtensorMap map_hi, map_lo;
+  e = sm90::make_map(&map_hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x_hi, kK, n_pts, batch, 64, Cfg<kF32>::kPts);
+  if (e == 0)
+    e = sm90::make_map(&map_lo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x_lo, kK, n_pts, batch, 64, Cfg<kF32>::kPts);
+  if (e != 0) return e;
+  const StatsArgs args{static_cast<const uint8_t*>(img), c, mx, mn, amax, amin, gpart, cspart, n_pts, e_total,
+                       batch, p.group, p.ngroups, p.cpg};
+  const int blocks = p.cpg * p.ngroups;
+  e = p.ngroups == 1 ? launch_stats_kernel<kF32, 2>(map_hi, map_lo, args, blocks, stream)
+                     : launch_stats_kernel<kF32, 1>(map_hi, map_lo, args, blocks, stream);
+  if (e != 0) return e;
+  pool_stats_reduce<<<(kK * kK + kK + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, stream>>>(
+      gpart, cspart, G, colsum, batch);
   return (int)cudaGetLastError();
 }
 
@@ -613,19 +833,28 @@ int launch_bwd(const int* idx, const float* dsel, const void* wt, const void* x,
 // contiguous tensors; K = 128. Each returns the CUDA error code of its
 // launches (0 on success).
 //
-// K3: x (B, N, 128) and wt = W^T (E, 128), both bf16 (is_f32 = 0) or both
-// f32; c (E,) f32; out mx, mn (B, E) f32, amax, amin (B, E) int32, G
-// (128, 128) f32, colsum (128,) f32; scratch gpart (B, 128, 128) and
-// cspart (B, 128) f32. E % 128 == 0, N >= 1.
-extern "C" int pool_stats(const void* x, const void* wt, const float* c, int is_f32, float* mx, float* mn,
-                          int* amax, int* amin, float* gpart, float* cspart, float* G, float* colsum,
-                          int batch, int n_pts, int e_total, void* stream) {
-  if (batch <= 0 || batch > 65535 || n_pts <= 0 || e_total <= 0 || e_total % kEG != 0)
+// K3's weight pack alone: W (128, E), bf16 (is_f32 = 0) or f32, into img
+// (E * 256 bytes, twice that for f32; 16-byte aligned).
+extern "C" int pool_stats_pack(const void* w, int is_f32, int e_total, void* img, void* stream) {
+  if (e_total <= 0 || e_total % 64 != 0) return (int)cudaErrorInvalidValue;
+  return launch_pack(w, is_f32, e_total, img, static_cast<cudaStream_t>(stream));
+}
+
+// K3: x (B, N, 128) and W (128, E), both bf16 (is_f32 = 0) or both f32; c (E,) f32; out mx, mn (B, E) f32, amax, amin (B, E) int32, G
+// (128, 128) f32, colsum (128,) f32; scratch: gpart (B, 128, 128) and
+// cspart (B, 128) f32 for the clouds' partial sums, img (E * 256 bytes, twice that for f32) for the packed weights,
+// xs (2 * B * N * 128 bf16) for f32 x's hi and lo (null for bf16). E %
+// 128 == 0, N >= 1. Four launches (three for bf16): the pack, the split,
+// the statistics, the sum of the partials.
+extern "C" int pool_stats(const void* x, const void* w, const float* c, int is_f32, float* mx, float* mn,
+                          int* amax, int* amin, float* gpart, float* cspart, float* G, float* colsum, void* img,
+                          void* xs, int batch, int n_pts, int e_total, void* stream) {
+  if (batch <= 0 || n_pts <= 0 || e_total <= 0 || e_total % 128 != 0 || (is_f32 && xs == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f32 ? launch_stats<true>(x, wt, c, mx, mn, amax, amin, gpart, cspart, G, colsum, batch, n_pts,
+  return is_f32 ? launch_stats<true>(x, w, c, mx, mn, amax, amin, gpart, cspart, G, colsum, img, xs, batch, n_pts,
                                      e_total, s)
-                : launch_stats<false>(x, wt, c, mx, mn, amax, amin, gpart, cspart, G, colsum, batch, n_pts,
+                : launch_stats<false>(x, w, c, mx, mn, amax, amin, gpart, cspart, G, colsum, img, xs, batch, n_pts,
                                       e_total, s);
 }
 

@@ -1,9 +1,10 @@
 // Warp-wide bitonic sort and merge of 64-bit keys, shared by K8 (knn.cu)
-// and K9 (dgcnn_int8.cu): a warp keeps a row's running smallest keys sorted
-// across its lanes (lane l holds position l), and merges each batch of new
-// keys that pass the k-th key by a bitonic sort of the batch and the lower
-// half of a bitonic merge, several rows at once. Keys are distinct (they
-// carry the index), or kNone.
+// and the DGCNN selection of K5, K7 and K9 (dgcnn_select.cu): a warp keeps a
+// row's running smallest keys sorted across its lanes (lane l holds
+// position l; a list of 64 holds positions l and 32 + l in two registers),
+// and merges each batch of new keys that pass the k-th key by a bitonic
+// sort of the batch and the lower half of a bitonic merge, several rows at
+// once. Keys are distinct (they carry the index), or kNone.
 
 #pragma once
 
@@ -41,18 +42,34 @@ __device__ __forceinline__ void sort32_rows(K (&c)[R], int lane) {
 }
 
 // The bitonic clean of R rows at once: each bitonic row c[r] (one key a
-// lane) sorted ascending.
-template <int R>
-__device__ __forceinline__ void clean32_rows(u64 (&c)[R], int lane) {
+// lane; 32- or 64-bit keys) sorted ascending.
+template <int R, typename K>
+__device__ __forceinline__ void clean32_rows(K (&c)[R], int lane) {
 #pragma unroll
   for (int stride = 16; stride > 0; stride >>= 1) {
     const bool lower = (lane & stride) == 0;
-    u64 o[R];
+    K o[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) o[r] = __shfl_xor_sync(kFull, c[r], stride);
 #pragma unroll
-    for (int r = 0; r < R; ++r) c[r] = keep(c[r], o[r], lower);
+    for (int r = 0; r < R; ++r) c[r] = (c[r] < o[r]) == lower ? c[r] : o[r];
   }
+}
+
+// The full bitonic merge of R rows at once: the sorted rows a[r] and b[r]
+// (one key a lane each) become one sorted row of 64, positions 0..31 in a[r]
+// and 32..63 in b[r]: a against b reversed, the smaller of each pair in a,
+// the larger in b (both bitonic), then each cleaned.
+template <int R, typename K>
+__device__ __forceinline__ void merge64_rows(K (&a)[R], K (&b)[R], int lane) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const K o = __shfl_sync(kFull, b[r], 31 - lane);
+    b[r] = a[r] < o ? o : a[r];
+    a[r] = a[r] < o ? a[r] : o;
+  }
+  clean32_rows<R>(a, lane);
+  clean32_rows<R>(b, lane);
 }
 
 // Merge R rows at once, each sorted batch c[r] (one key a lane) into the
@@ -63,6 +80,16 @@ __device__ __forceinline__ void merge32_rows(u64 (&lo)[R], const u64 (&c)[R], in
 #pragma unroll
   for (int r = 0; r < R; ++r) lo[r] = keep(lo[r], __shfl_sync(kFull, c[r], 31 - lane), true);
   clean32_rows<R>(lo, lane);
+}
+
+// Merge R rows at once, each sorted batch c[r] into the sorted list of 64
+// (lo[r], hi[r]), keeping the smallest 64: the smallest 32 of hi and the
+// batch (no key of hi past them can be among the 64, and the batch has only
+// 32), then the full merge of lo with them.
+template <int R>
+__device__ __forceinline__ void merge64_batch_rows(u64 (&lo)[R], u64 (&hi)[R], const u64 (&c)[R], int lane) {
+  merge32_rows<R>(hi, c, lane);
+  merge64_rows<R>(lo, hi, lane);
 }
 
 }  // namespace warp_select

@@ -1,6 +1,7 @@
-"""Exact kNN over xyz and the neighbor gather of DGCNN's edge features, one
-CUDA kernel (``csrc/edgeconv.cu``), K7, counterpart of
-``learning3d_tpu/kernels/edgeconv.py::knn_neighbors_pallas``.
+"""Exact kNN over xyz and the neighbor gather of DGCNN's edge features, K7,
+counterpart of ``learning3d_tpu/kernels/edgeconv.py::knn_neighbors_pallas``:
+one launch of the neighbor selection that K5 and K9 share
+(``csrc/dgcnn_select.cu``), whose epilogue writes the edge features.
 
 For each point of a cloud x (B, N, 3), its k nearest points of the same
 cloud, itself included, nearest first, ties to the smaller index, over
@@ -25,7 +26,7 @@ from learning3d_tpu_torch.kernels.dgcnn_fused import exact_knn
 from learning3d_tpu_torch.ops.geometry import get_graph_feature, index_points
 
 MAX_K = 64
-MAX_N = 16384  # the kernel keeps the cloud's xyz in one block's shared memory
+MAX_N = 16384  # the cloud's xyz and the survivor buffers fill one block's shared memory
 
 
 def kernel_limit(n_pts, k):

@@ -11,6 +11,10 @@ scatters the pooled cotangents back: dx_sp[b, idx[b,e], :] +=
 dsel[b,e] W[:, e] (dense, zeros elsewhere) and dW_sel[:, e] =
 sum_b x[b, idx[b,e], :] dsel[b,e].
 
+On the card K3 reads W^T through a weight pack, the bf16 image of
+wgmma's K-major operand (``stats_weight_image`` states its bytes), and x
+through TMA tiles; f32 operands go through a bf16 hi/lo split.
+
 A wrapper takes its kernel's plain version for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises. The plain versions repeat the
 kernels' arithmetic (not the XLA branch of ``utils.layers``): K3's z is f32
@@ -29,7 +33,6 @@ from learning3d_tpu_torch.kernels import _build
 KERNEL_K = 128  # the kernels' input width: PointNet's conv5 reads 128 channels
 MAX_E_BWD = 4096  # K4 keeps e in the low 12 bits of a sort key
 MAX_N_BWD = (1 << 20) - 1  # ... and the point index in the 20 above them
-MAX_B_STATS = 65535  # K3's grid has a block row per cloud
 
 
 def pool_stats_ok(N, E, K):
@@ -56,6 +59,30 @@ def pool_stats_reference(x, W, c):
     amin = torch.where(z == mn[:, None, :], row, N).amin(1).to(torch.int32)
     flat = xf.reshape(B * N, K)
     return mx, mn, amax, amin, flat.t() @ flat, flat.sum(0)
+
+
+IMAGE_ROW_BYTES = 256  # a channel's 128 bf16 weights in the pack
+
+
+def stats_weight_image(W):
+    """The bytes K3's weight pack writes (``csrc/poolgrad.cu``, ``pack_kernel``),
+    stated in torch: W^T (E rows, the output channels) in blocks of 64
+    channels, each two boxes of 64 rows (input channels 0..63, then 64..127)
+    of 128 bytes of bf16, every row with the 128-byte swizzle (the 16-byte
+    chunk c of row r stored at chunk c ^ (r % 8)): the layout wgmma reads
+    K-major operands in. For f32 W a hi image, bf16(W), then a lo image,
+    bf16(W - hi). W (128, E) -> uint8 (256 E,), or (512 E,) for f32."""
+    wt = W.t().cpu()
+    parts = [wt.to(torch.bfloat16)]
+    if W.dtype == torch.float32:
+        parts.append((wt - parts[0].float()).to(torch.bfloat16))
+    out = []
+    for part in parts:
+        rows = part.reshape(-1, 64, 2, 64).permute(0, 2, 1, 3).reshape(-1, 64)  # (block, box, row) x 64
+        phys = torch.arange(8)[None, :] ^ (torch.arange(rows.shape[0]) % 8)[:, None]
+        swizzled = torch.gather(rows.reshape(-1, 8, 8), 1, phys[..., None].expand(-1, 8, 8))
+        out.append(swizzled.reshape(-1).view(torch.uint8))
+    return torch.cat(out)
 
 
 def pool_bwd_reference(idx, dsel, W, x):
@@ -87,8 +114,8 @@ def _check_stats_args(x, W, c):
     E = W.shape[1]
     if K != KERNEL_K or E % 128 or E == 0:
         raise NotImplementedError(f"K3 (pool_stats) takes K == {KERNEL_K} and E % 128 == 0, got K={K}, E={E}")
-    if not 1 <= B <= MAX_B_STATS or N < 1:
-        raise NotImplementedError(f"K3 (pool_stats) takes 1 <= B <= {MAX_B_STATS} and N >= 1, got B={B}, N={N}")
+    if B < 1 or N < 1:
+        raise NotImplementedError(f"K3 (pool_stats) takes B >= 1 and N >= 1, got B={B}, N={N}")
     if W.device != x.device or c.device != x.device:
         raise ValueError("x, W and c must be on one device")
 
@@ -104,23 +131,25 @@ def pool_stats(x, W, c):
     _check_stats_args(x, W, c)
     is_f32 = _kernel_dtype(x, W)
     f32 = torch.float32
-    x = x.contiguous()
-    wt = W.t().contiguous()  # (E, K): the weight's own layout, no copy when W is a transposed weight
+    x, W = x.contiguous(), W.contiguous()  # the pack reads W (K, E) in place
     c = c.to(f32).contiguous()
     B, N, K = x.shape
-    E = wt.shape[0]
+    E = W.shape[1]
     dev = x.device
     mx, mn = torch.empty(B, E, device=dev, dtype=f32), torch.empty(B, E, device=dev, dtype=f32)
     amax = torch.empty(B, E, device=dev, dtype=torch.int32)
     amin = torch.empty(B, E, device=dev, dtype=torch.int32)
     G, colsum = torch.empty(K, K, device=dev, dtype=f32), torch.empty(K, device=dev, dtype=f32)
     gpart, cspart = torch.empty(B, K, K, device=dev, dtype=f32), torch.empty(B, K, device=dev, dtype=f32)
+    img = torch.empty(IMAGE_ROW_BYTES * E * (2 if is_f32 else 1), device=dev, dtype=torch.uint8)
+    xs = torch.empty(2 * x.numel() if is_f32 else 0, device=dev, dtype=torch.bfloat16)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pool_stats(x.data_ptr(), wt.data_ptr(), c.data_ptr(), int(is_f32), mx.data_ptr(),
+        err = lib.pool_stats(x.data_ptr(), W.data_ptr(), c.data_ptr(), int(is_f32), mx.data_ptr(),
                              mn.data_ptr(), amax.data_ptr(), amin.data_ptr(), gpart.data_ptr(),
-                             cspart.data_ptr(), G.data_ptr(), colsum.data_ptr(), B, N, E, stream)
+                             cspart.data_ptr(), G.data_ptr(), colsum.data_ptr(), img.data_ptr(),
+                             xs.data_ptr() if is_f32 else None, B, N, E, stream)
     _build.check(err, "pool_stats")
     LAUNCHES["pool_stats_pallas"] += 1
     return mx, mn, amax, amin, G, colsum

@@ -282,10 +282,16 @@ def test_k5_gate_refuses_what_the_kernel_refuses(cuda):
 
 
 # the DCP shape, exact ties (lattice), a ragged N, k past K5's limit, K7's
-# largest k, and a cloud of exactly k points
+# largest k, and a cloud of exactly k points; k = 32 and 33, where the
+# selection's list grows from 32 keys to 64; N = 4096 and 4097 (K5's limit
+# and one past it, a ragged last block of rows) and 16384 (K7's limit, the
+# shared memory full) and one short of it; lattices with exact ties at the
+# k-th neighbor at k = 33 and 64
 @pytest.mark.parametrize("case,batch,n_pts,k", [
     ("full", 4, 1024, 20), ("ties", 2, 1000, 20), ("ragged", 3, 1000, 20), ("k40", 2, 1024, 40),
-    ("k64", 1, 777, 64), ("n_eq_k", 2, 9, 9),
+    ("k64", 1, 777, 64), ("n_eq_k", 2, 9, 9), ("k32", 2, 1024, 32), ("k33", 2, 1024, 33),
+    ("n4096", 1, 4096, 20), ("n4097", 2, 4097, 40), ("n16384", 1, 16384, 64), ("n16383", 1, 16383, 33),
+    ("ties_k33", 2, 1000, 33), ("ties_k64", 2, 1000, 64),
 ])
 def test_k7_matches_plain(cuda, case, batch, n_pts, k):
     """K7's edge features, and the neighbor xyz sliced from them, against
@@ -297,9 +303,13 @@ def test_k7_matches_plain(cuda, case, batch, n_pts, k):
         edge_features, edge_features_reference, knn_neighbors_pallas, knn_neighbors_reference)
 
     rng = np.random.default_rng(n_pts + k)
-    x = lattice_cloud(rng, batch, n_pts) if case == "ties" else rng.normal(size=(batch, n_pts, 3))
+    ties = case.startswith("ties")
+    x = lattice_cloud(rng, batch, n_pts) if ties else rng.normal(size=(batch, n_pts, 3))
     x = torch.from_numpy(x.astype(np.float32)).to(cuda)
     assert all(torch.unique(c, dim=0).shape[0] == n_pts for c in x)
+    if ties:  # some row's k-th and (k+1)-th distances are equal
+        dist = torch.sort(((x[:, :, None] - x[:, None]) ** 2).sum(-1), dim=-1).values  # exact on the lattice
+        assert bool((dist[..., k - 1] == dist[..., k]).any())
     before = LAUNCHES["knn_neighbors_pallas"]
     edges = edge_features(x, k)
     xyz = knn_neighbors_pallas(x, k)
@@ -917,10 +927,18 @@ def pool_inputs(rng, batch, n_pts, emb, dtype, device, repeat=None):
 POOL_TOL = 1e-4
 
 
+# The Hopper design's edges besides: B = 67 and 133, not a multiple of the
+# persistent grid's blocks a channel group (a last round of clouds that
+# leaves blocks idle); N = 999, a ragged last tile of 64 (f32) or 128 (bf16)
+# points; E = 128 (one channel group, two Gram quadrants a warpgroup), 384
+# (a full and a half group) and 2048 (four groups)
 @pytest.mark.parametrize("case,batch,n_pts,emb,dtype", [
     ("full", 4, 1024, 1024, torch.bfloat16), ("f32", 4, 1024, 1024, torch.float32),
     ("ragged", 3, 1000, 256, torch.bfloat16), ("tiny", 2, 37, 128, torch.float32),
-    ("ties", 2, 300, 128, torch.bfloat16)])
+    ("ties", 2, 300, 128, torch.bfloat16), ("rounds", 67, 256, 1024, torch.bfloat16),
+    ("rounds_f32", 133, 130, 512, torch.float32), ("ragged_f32", 3, 999, 384, torch.float32),
+    ("e128", 5, 999, 128, torch.bfloat16), ("e2048", 3, 512, 2048, torch.bfloat16),
+    ("e2048_f32", 2, 200, 2048, torch.float32)])
 def test_k3_matches_plain(cuda, case, batch, n_pts, emb, dtype):
     from learning3d_tpu_torch.kernels import LAUNCHES
     from learning3d_tpu_torch.kernels.poolgrad import pool_stats, pool_stats_reference
@@ -975,6 +993,22 @@ def test_k4_matches_plain(cuda, case, batch, n_pts, emb, dtype):
     touched = torch.zeros(batch, n_pts, dtype=torch.bool, device=cuda)
     touched.scatter_(1, idx.long(), True)
     assert bool((dx[~touched] == 0).all())
+
+
+@pytest.mark.parametrize("emb,dtype", [(128, torch.bfloat16), (1024, torch.bfloat16), (384, torch.float32)])
+def test_k3_pack_is_the_stated_layout(cuda, emb, dtype):
+    """K3's weight pack writes ``stats_weight_image``'s bytes."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.poolgrad import stats_weight_image
+
+    w = pool_inputs(np.random.default_rng(emb), 1, 1, emb, dtype, cuda)[1]
+    img = torch.empty(stats_weight_image(w).numel(), device=cuda, dtype=torch.uint8)
+    lib = _build.library()
+    err = lib.pool_stats_pack(w.data_ptr(), int(dtype == torch.float32), emb, img.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "pool_stats_pack")
+    torch.cuda.synchronize()
+    assert torch.equal(img.cpu(), stats_weight_image(w))
 
 
 def test_k3_k4_refuse_what_they_do_not_take(cuda):

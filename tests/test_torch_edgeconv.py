@@ -31,7 +31,10 @@ from learning3d_tpu_torch.ops import geometry as tgeo
 from learning3d_tpu_torch.utils.jax_import import load_nnx_state, nnx_to_torch
 from torch_port_util import cloud, lattice_cloud, nnx_flat, randomize_bn
 
-CASES = {"random": (2, 200, 20), "ragged": (3, 100, 7), "lattice": (2, 120, 20), "k_past_k5": (1, 64, 40)}
+# k = 33 and 64: the selection's list of 64 keys a row (two a lane), on
+# the card; "lattice_k64" has exact ties at the 64th neighbor
+CASES = {"random": (2, 200, 20), "ragged": (3, 100, 7), "lattice": (2, 120, 20), "k_past_k5": (1, 64, 40),
+         "k33": (2, 150, 33), "lattice_k64": (2, 200, 64)}
 
 
 @pytest.fixture(autouse=True)
@@ -41,7 +44,7 @@ def _one_thread():
 
 def case_cloud(name):
     b, n, k = CASES[name]
-    return (lattice_cloud(b, n, seed=4) if name == "lattice" else cloud(b, n, seed=5)), k
+    return (lattice_cloud(b, n, seed=4) if name.startswith("lattice") else cloud(b, n, seed=5)), k
 
 
 def numpy_knn(x, k):
@@ -75,6 +78,16 @@ def test_lattice_ties_decide_the_kth_neighbor():
     """The lattice case is one where ties matter: some query's k-th and
     (k+1)-th distances are equal, and the smaller index is kept."""
     x, k = case_cloud("lattice")
+    d = x[:, :, None, :] - x[:, None, :, :]
+    dist = np.sort((d ** 2).sum(-1), axis=-1)
+    assert (dist[..., k - 1] == dist[..., k]).any()
+
+
+def test_lattice_ties_decide_the_64th_neighbor():
+    """At k = 64 too, where the kernel's list holds two keys a lane: some
+    query's 64th and 65th distances are equal, and the smaller index is
+    kept."""
+    x, k = case_cloud("lattice_k64")
     d = x[:, :, None, :] - x[:, None, :, :]
     dist = np.sort((d ** 2).sum(-1), axis=-1)
     assert (dist[..., k - 1] == dist[..., k]).any()

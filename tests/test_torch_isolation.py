@@ -109,7 +109,7 @@ def test_training_subpackages_are_covered():
         assert f"learning3d_tpu_torch.{sub}" in names
     files = {p.relative_to(PORT).as_posix() for p in port_files(".py", ".cu") if PORT in p.parents}
     for f in ("train/trainer.py", "train/metrics.py", "data/dataloaders.py", "losses/losses.py",
-              "kernels/csrc/poolgrad.cu", "kernels/edgeconv.py", "kernels/csrc/edgeconv.cu",
+              "kernels/csrc/poolgrad.cu", "kernels/edgeconv.py", "kernels/csrc/dgcnn_select.cu",
               "kernels/chamfer.py", "kernels/csrc/chamfer.cu", "kernels/emd.py", "kernels/csrc/emd.cu",
               "kernels/knn.py", "kernels/csrc/knn.cu", "models/prnet.py", "kernels/csrc/ball_group.cu",
               "kernels/sinkhorn.py", "kernels/csrc/sinkhorn.cu", "models/rpmnet.py"):

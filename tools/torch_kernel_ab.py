@@ -3,11 +3,13 @@
 and of the models that run them, from one tree: the attention kernels K6
 (attention_pallas) and K10 (attention_int8_kernel), the fused int8 pointer
 layers K11a/K11b, K8 (knn_pallas), K1 (pointnet_pooled_kernel), K14
-(fps_pallas), K9 (dgcnn_encode_int8_kernel), K5 (dgcnn_encode_fused) and
-K17 (sinkhorn_log_pallas).
+(fps_pallas), K9 (dgcnn_encode_int8_kernel), K5 (dgcnn_encode_fused), K17
+(sinkhorn_log_pallas), K7 (knn_neighbors_pallas's edge features) and K3
+(pool_stats_pallas).
 
     python3 tools/torch_kernel_ab.py [--root TREE] [--label NAME]
-        [--parts k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8,k5,k17,dcp_bf16,rpmnet]
+        [--parts k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8,k5,k17,dcp_bf16,rpmnet,
+                 k7,k3,dcp_f32]
 
 (``tools/torch_attention_ab.py`` is the same script under its former name.)
 ``--root`` names the checkout whose ``learning3d_tpu_torch`` and
@@ -53,7 +55,13 @@ RPMNet's shape (J=K=1024, 5 iterations) at B = 1, 4 and 16 (the batch's
 matrices in and past the 50 MB L2) and at B=16 with 0 and 1 iterations,
 its device time and launches by kernel (the passes over the matrix).
 ``dcp_bf16``: ``model_ms`` of bf16 DCP at B=32. ``rpmnet``: ``model_ms`` of
-served RPMNet() at B=16. Inputs are numpy-seeded. Prints one JSON line of
+served RPMNet() at B=16. ``k7``: K7's edge features at the DCP shape (B=32,
+N=1024, k=20) and at k=40, device time by launch. ``k3``: K3 at the
+classifier step's shape (B=256, N=1024, K=128, E=1024) in bf16 and f32,
+device time by launch (the weight pack, f32's split, the statistics, the
+sum of the partials). ``dcp_f32``: ``model_ms`` of the f32 DCP forward
+(DCP(DGCNN(512, k=20)), the training path's, K7 twice) at B=32, in eval
+mode. Inputs are numpy-seeded. Prints one JSON line of
 ms a call (chip_smoke.cuda_ms; for K8, K1, K14, K9, K5 and K17 also
 ``/device``, the kernels' own time under torch.profiler) with the card's
 name and power limit. Needs a CUDA card.
@@ -77,7 +85,7 @@ def main() -> None:
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
     parser.add_argument("--label", default="")
     parser.add_argument("--parts", default="k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8,"
-                        "k5,k17,dcp_bf16,rpmnet")
+                        "k5,k17,dcp_bf16,rpmnet,k7,k3,dcp_f32")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -156,7 +164,11 @@ def main() -> None:
             times.update(k5_times(chip_smoke))
         if "k17" in parts:
             times.update(k17_times(chip_smoke))
-    if parts & {"prnet", "ipcrnet", "flownet", "dcp_int8", "dcp_bf16", "rpmnet"}:
+        if "k7" in parts:
+            times.update(k7_times(chip_smoke))
+        if "k3" in parts:
+            times.update(k3_times(chip_smoke))
+    if parts & {"prnet", "ipcrnet", "flownet", "dcp_int8", "dcp_bf16", "rpmnet", "dcp_f32"}:
         times.update(model_times(chip_smoke, parts))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -344,11 +356,50 @@ def k17_times(chip_smoke) -> dict:
     return times
 
 
+def by_launch(chip_smoke, times: dict, name: str, fn) -> None:
+    """ms a call, device time, and device time by kernel name of ``fn``
+    into ``times`` under ``name``."""
+    times[name] = chip_smoke.cuda_ms(fn)
+    kernels = device_ms(fn, by_kernel=True)
+    times[f"{name}/device"] = sum(kernels.values())
+    for key, ms in kernels.items():
+        label = f"{name}/device/{kernel_name(key)}"
+        times[label] = times.get(label, 0.0) + ms
+
+
+def k7_times(chip_smoke) -> dict:
+    """K7's edge features at the DCP shape (B=32, N=1024) at k=20 and k=40."""
+    from learning3d_tpu_torch.kernels.edgeconv import edge_features
+
+    rng = np.random.default_rng(chip_smoke.SEED + 7)
+    x = torch.from_numpy(rng.normal(size=(chip_smoke.DCP_B, chip_smoke.DCP_N, 3)).astype(np.float32)).cuda()
+    times = {}
+    for k in (chip_smoke.DCP_K, 40):
+        by_launch(chip_smoke, times, f"k7/k{k}", lambda: edge_features(x, k))
+    return times
+
+
+def k3_times(chip_smoke) -> dict:
+    """K3 at the classifier step's shape, bf16 and f32, on ReLU'd inputs."""
+    from learning3d_tpu_torch.kernels.poolgrad import pool_stats
+
+    rng = np.random.default_rng(chip_smoke.SEED + 3)
+    x = np.maximum(rng.normal(size=(chip_smoke.B, chip_smoke.N, chip_smoke.K_TAIL)), 0.0).astype(np.float32)
+    w = rng.normal(0, chip_smoke.K_TAIL**-0.5, (chip_smoke.K_TAIL, chip_smoke.EMB)).astype(np.float32)
+    c = torch.from_numpy(rng.normal(0, 0.1, chip_smoke.EMB).astype(np.float32)).cuda()
+    times = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        xt, wt = (torch.from_numpy(a).cuda().to(dtype) for a in (x, w))
+        by_launch(chip_smoke, times, f"k3/{name}", lambda: pool_stats(xt, wt, c))
+        del xt
+    return times
+
+
 def model_times(chip_smoke, parts) -> dict:
     """model_ms of served PRNet (B=32), of bf16 iPCRNet (B=32, the
     multi-start batch of 256, and multistart_register on 32 pairs), of
     FlowNet3D (B=16), of int8 DCP, unfused and fused (B=32), of bf16 DCP
-    (B=32) and of RPMNet (B=16)."""
+    (B=32), of RPMNet (B=16) and of the f32 DCP forward (B=32)."""
     from profile_torch_serve import build
 
     times = {}
@@ -361,6 +412,17 @@ def model_times(chip_smoke, parts) -> dict:
             dev = [torch.from_numpy(a).cuda() for a in inputs]
             with torch.inference_mode():
                 times[f"{name}/model_ms"] = chip_smoke.cuda_ms(lambda: model(*dev), reps=10)
+    if "dcp_f32" in parts:
+        from learning3d_tpu_torch.models import DCP, DGCNN
+        from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+        rng = np.random.default_rng(chip_smoke.SEED)
+        model = load_nnx_state(DCP(DGCNN(emb_dims=chip_smoke.DCP_EMB, k=chip_smoke.DCP_K)),
+                               chip_smoke.random_dcp_state(rng, chip_smoke.DCP_EMB)).cuda().eval()
+        t, s = (torch.from_numpy(rng.normal(size=(chip_smoke.DCP_B, chip_smoke.DCP_N, 3)).astype(np.float32)).cuda()
+                for _ in range(2))
+        with torch.inference_mode():
+            times["dcp_f32/model_ms"] = chip_smoke.cuda_ms(lambda: model(t, s), reps=10)
     if "prnet" in parts:
         model, _, inputs = build("prnet", np.random.default_rng(chip_smoke.SEED))
         model.cuda().eval()
