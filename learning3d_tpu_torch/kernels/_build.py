@@ -36,7 +36,8 @@ SIGNATURES = {
     "dgcnn_encode_bf16": ([_P] * 13 + [_I] * 5 + [_P], ctypes.c_int),
     "dgcnn_knn_scale": ([_P] * 2 + [_I] * 3 + [_F, _P], ctypes.c_int),
     "attention_bf16": ([_P] * 4 + [_I] * 6 + [ctypes.c_float, _P], ctypes.c_int),
-    "pointnet_pooled_int8": ([_P] * 11 + [_F] * 4 + [_P, _I, _I, _I, _P], ctypes.c_int),
+    "pointnet_pooled_int8": ([_P] * 8 + [_F] * 4 + [_P, _I, _I, _I, _P], ctypes.c_int),
+    "pointnet_int8_group": ([_I] * 3, ctypes.c_int),
     "dgcnn_encode_int8": ([_P] * 12 + [_F] * 4 + [_P] * 3 + [_I] * 5 + [_P], ctypes.c_int),
     "dgcnn_quant_xw1": ([_P] * 4 + [ctypes.c_longlong, _P], ctypes.c_int),
     "attention_int8": ([_P] * 4 + [_I] * 5 + [_F, _F, _I, _P], ctypes.c_int),
@@ -60,6 +61,8 @@ SIGNATURES = {
     "fps_chain_floor": ([_P] + [_I] * 3 + [_P], ctypes.c_int),
     "ball_query": ([_P] * 3 + [_I] * 4 + [_F, _P], ctypes.c_int),
     "ball_group": ([_P] * 5 + [_I] * 5 + [_F, _P], ctypes.c_int),
+    "ball_group_chunk": ([_I, _I], ctypes.c_int),
+    "ball_group_queries": ([_I] * 3, ctypes.c_int),
     "sinkhorn_slack": ([_P] * 5 + [_I] * 5 + [_P], ctypes.c_int),
     "l3d_error_string": ([_I], ctypes.c_char_p),
 }

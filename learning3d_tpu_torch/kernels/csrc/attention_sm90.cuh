@@ -1,12 +1,12 @@
 // Hopper (sm_90a) pieces of the two-pass attention kernels, K6
 // (attention.cu), K10 (attention_int8.cu) and K11's attention
-// (transformer_int8.cu), of K11's int8 GEMM, of K1's fused PointNet
-// chain (pointnet_fused.cu), of the DGCNN chains, K5's bf16
+// (transformer_int8.cu), of K11's int8 GEMM, of K1's and K2's fused
+// PointNet chains (pointnet_fused.cu, pointnet_int8.cu), of the DGCNN chains, K5's bf16
 // (dgcnn_fused.cu) and K9's int8 (dgcnn_int8.cu), and of K3's pooled
 // statistics (poolgrad.cu):
 // mbarriers and a ring of them, 3-D and 4-D TMA
 // tile loads and the producer that issues them, bulk copies, wgmma
-// shared-memory descriptors and the m64n{64,128} products with their fence,
+// shared-memory descriptors and the m64n{64,128,256} products with their fence,
 // commit and wait, register rebalancing, K10's int8 two-pass consumers
 // (shared with K11's int8 P.V instance) and V^T in key_order, and the
 // host's tensor-map encoding.
@@ -416,6 +416,27 @@ __device__ __forceinline__ void mma_s8_ss_n128(int (&d)[64], uint64_t da, uint64
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " L3D_D64 ", %64, %65, p;\n}\n"
       : L3D_ACC64("+r")
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#define L3D_ACC128(C) L3D_ACC64(C), L3D_ACC16(C, 64), L3D_ACC16(C, 80), L3D_ACC16(C, 96), L3D_ACC16(C, 112)
+#define L3D_D128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+// d (64 x 256, s32) (+)= A (64 x 32 int8, K-major in shared memory) B (32 x
+// 256 int8, K-major): K2's stage 5, 256 points a product.
+__device__ __forceinline__ void mma_s8_ss_n256(int (&d)[128], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " L3D_D128 ", %128, %129, p;\n}\n"
+      : L3D_ACC128("+r")
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

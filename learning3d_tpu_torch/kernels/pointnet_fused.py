@@ -24,6 +24,7 @@ from torch import nn
 
 from learning3d_tpu_torch.kernels import LAUNCHES
 from learning3d_tpu_torch.kernels import _build
+from learning3d_tpu_torch.kernels.dgcnn_fused import key_order, swizzle128
 from learning3d_tpu_torch.ops.int8 import f32_scalar, int8_matmul, to_int8
 
 CHAIN = (3, 64, 64, 64, 128)  # the widths the kernel is written for, then emb
@@ -175,13 +176,56 @@ def pointnet_pooled_fused(x, convs, bns):
 # the requantization round(h * (1 / s_x)) clamped to +-127; relu(max over
 # points) of the conv5 output, in f32. ``csrc/pointnet_int8.cu``.
 
+K2_W234_BYTES = 16384  # W4^T | W2^T, W3^T: 128 rows of 128 bytes
+K2_MAX_GROUP = 1024  # W5 rows a block keeps resident
+K2_STAGES14_COST = 0.5  # an item's stages 1-4 against a 1024-channel stage 5 (csrc: kStages14Cost)
+
+
+def k2_image(wts):
+    """K2's weight image from the int8 (out, in) weights of conv2..conv5, the
+    bytes its wgmma products read (``csrc/pointnet_int8.cu``): 128 rows of
+    128 bytes, each row's bytes 0..63 W4^T (rows 0..127), bytes 64..127 W2^T
+    (rows 0..63) and W3^T (rows 64..127); then W5^T, one 128-byte row an
+    output channel. W2's contracted index is in natural order (stage 1 forms
+    its A fragments channel by channel), W3's, W4's and W5's in
+    ``key_order``. Every row swizzled by ``swizzle128``. -> uint8 (16384 +
+    128 emb,)."""
+    w2t, w3t, w4t, w5t = (w.view(torch.uint8) for w in wts)
+    dev = w2t.device
+    rows = torch.empty((128, 128), dtype=torch.uint8, device=dev)
+    rows[:, :64] = w4t[:, key_order(64).to(dev)]
+    rows[:64, 64:] = w2t
+    rows[64:, 64:] = w3t[:, key_order(64).to(dev)]
+    return torch.cat([swizzle128(rows), swizzle128(w5t[:, key_order(128).to(dev)].contiguous())])
+
+
+def k2_plan(batch, emb, sms=132):
+    """K2's work split, the Python statement of ``plan`` in
+    ``csrc/pointnet_int8.cu``: (group, groups, blocks a group) with the
+    group count that minimizes (rounds of clouds a block) x (an item's
+    cost), an item costing K2_STAGES14_COST for its stages 1-4 plus group /
+    1024 for its stage 5."""
+    best, best_cost = None, 0.0
+    for ng in range(-(-emb // K2_MAX_GROUP), emb // 64 + 1):
+        group = (-(-emb // ng) + 63) // 64 * 64
+        groups = -(-emb // group)
+        cpg = max(1, min(sms // groups, batch))
+        cost = -(-batch // cpg) * (K2_STAGES14_COST + group / 1024.0)
+        if best is None or cost < best_cost - 1e-9:
+            best, best_cost = (group, groups, cpg), cost
+    return best
+
 
 class PointNetInt8Weights(nn.Module):
     """K2's operands, built once from ``w1``, ``b1`` (f32) and ``qlayers``
     = [(w_q int8 (in, out), s_w (out,), b (out,), s_x float)] for
-    conv2..conv5: w_q transposed to (out, in), the layout the kernel
-    reads (the plain version multiplies by its transpose), swb = [s_w * s_x; b] (2, out) f32, and 1 / s_x as Python floats (the
-    kernel multiplies by them in f32)."""
+    conv2..conv5: w_q transposed to (out, in) (the plain version multiplies
+    by its transpose), swb = [s_w * s_x; b] (2, out) f32, and 1 / s_x as
+    Python floats (the kernel multiplies by them in f32). The kernel reads
+    the weights through ``img`` (``k2_image``), derived from ``wt*`` and
+    kept out of the state dict: ``derive`` builds it at construction and
+    again after every ``load_state_dict``; an in-place edit of ``wt*`` must
+    call it too. Every buffer moves with ``.to()``."""
 
     def __init__(self, w1, b1, qlayers):
         super().__init__()
@@ -193,6 +237,18 @@ class PointNetInt8Weights(nn.Module):
             swb = torch.stack([s_w.to(f32) * f32_scalar(float(s_x), s_w), b.to(f32)])
             self.register_buffer(f"wt{i}", w_q.to(torch.int8).t().contiguous())
             self.register_buffer(f"swb{i}", swb.contiguous())
+        self.register_buffer("img", None, persistent=False)
+        self.derive()
+        self.register_load_state_dict_post_hook(lambda module, _keys: module.derive())
+
+    @torch.no_grad()
+    def derive(self):
+        """Rebuild ``img`` from ``wt*``."""
+        if [tuple(wt.shape) for wt, _ in self.stages()[:3]] == [(64, 64), (64, 64), (128, 64)] \
+                and self.wt3.shape[1] == 128 and self.wt3.shape[0] % 64 == 0:
+            self.img = k2_image([wt for wt, _ in self.stages()])
+        else:  # widths the kernel does not take: the wrapper refuses them
+            self.img = None
 
     def stages(self):
         """[(w_q^T (out, in), swb)] for conv2..conv5."""
@@ -221,15 +277,15 @@ def _check_int8_args(x, pack):
     want = [(i, o) for i, o in zip(CHAIN, CHAIN[1:] + (emb,))]
     if widths != want or emb % 64:
         raise ValueError(f"weights must be {want} with emb % 64 == 0, got {widths}")
-    for t in (pack.w1, pack.b1, *(t for s in stages for t in s)):
+    for t in (pack.w1, pack.b1, pack.img, *(t for s in stages for t in s)):
         if t.device != x.device:
             raise ValueError("the int8 weights must be on x's device")
 
 
 def pointnet_pooled_int8_kernel(x, pack):
     """x (B, N, 3) f32 and a ``PointNetInt8Weights`` -> pooled (B, emb) f32.
-    A CUDA tensor runs K2; a CPU tensor runs the plain version
-    ``pn_int8_reference``."""
+    A CUDA tensor runs K2 on the pack's image; a CPU tensor runs the plain
+    version ``pn_int8_reference``."""
     if x.device.type == "cpu":
         return pn_int8_reference(x, pack)
     if x.device.type != "cuda":
@@ -240,13 +296,13 @@ def pointnet_pooled_int8_kernel(x, pack):
     stages = pack.stages()
     emb = stages[-1][0].shape[0]
     out = torch.empty((B, emb), device=x.device, dtype=torch.float32)
-    ptrs = [t.data_ptr() for s in stages for t in s]
     inv = [ctypes.c_float(s) for s in pack.inv_s]
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pointnet_pooled_int8(x.data_ptr(), pack.w1.data_ptr(), pack.b1.data_ptr(), *ptrs, *inv,
-                                       out.data_ptr(), B, N, emb, stream)
+        err = lib.pointnet_pooled_int8(x.data_ptr(), pack.w1.data_ptr(), pack.b1.data_ptr(), pack.img.data_ptr(),
+                                       *(swb.data_ptr() for _, swb in stages), *inv, out.data_ptr(), B, N, emb,
+                                       stream)
     _build.check(err, "pointnet_pooled_int8")
     LAUNCHES["pointnet_pooled_int8"] += 1
     return out

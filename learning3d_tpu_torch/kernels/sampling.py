@@ -82,6 +82,38 @@ def ball_group_kernel_limit(n, nsample, c):
     return None
 
 
+# K16's schedule (``csrc/ball_group.cu``): queries a block (at most), slots
+# of a warp's index list, 32-point rounds an iteration of the scan, the
+# widest C written float by float (wider: slot by slot), and the
+# shared-memory budget of a chunk of the cloud
+BALL_GROUP_QUERIES = 32
+BALL_GROUP_LIST = 256
+BALL_GROUP_ROUNDS = 4
+BALL_GROUP_GATHER_C = 32
+BALL_GROUP_CLOUD_BYTES = 40960
+
+
+def ball_group_chunk(n, c):
+    """(points, values): how many of a cloud's N points K16 stages in shared
+    memory at once, and whether their C values are staged with their
+    coordinates (12 bytes a point, and 4 C where 32 points' worth fit the
+    budget); the Python statement of ``chunk_of`` in ``csrc/ball_group.cu``."""
+    values = 32 * (12 + 4 * c) <= BALL_GROUP_CLOUD_BYTES
+    per = 12 + (4 * c if values else 0)
+    return min(BALL_GROUP_CLOUD_BYTES // per // 32 * 32, n), values
+
+
+def ball_group_queries(batch, s, sms=132):
+    """The queries a K16 block takes: BALL_GROUP_QUERIES, halved down to one
+    a warp (8) while batch * ceil(S / queries) blocks would not fill every
+    SM's four resident blocks; the Python statement of ``queries_of`` in
+    ``csrc/ball_group.cu``."""
+    nq = BALL_GROUP_QUERIES
+    while nq > 8 and batch * -(-s // nq) < 4 * sms:
+        nq //= 2
+    return nq
+
+
 def squared_radius(radius) -> np.float32:
     """The Python float ``radius ** 2`` rounded once to f32 (``f32(r) *
     f32(r)`` can differ from it by an ulp)."""

@@ -521,9 +521,45 @@ def test_k2_matches_plain(cuda, batch, n_pts, emb):
     torch.cuda.synchronize()
     assert LAUNCHES["pointnet_pooled_int8"] == before + 1
     assert got.dtype == torch.float32 and got.shape == want.shape == (batch, emb)
-    # the same int8 products; stage 1's f32 sum or an epilogue may round
-    # otherwise and move a requantized activation by one step
-    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+    # the same int8 products, stage 1's sum in the same order and the same
+    # two roundings an epilogue: bit for bit
+    assert torch.equal(got, want)
+
+
+# The Hopper design's edges, every case ragged somewhere: B = 1 (one cloud,
+# the most channel groups), 3, 32 (groups of 256: one round of blocks) and
+# 256 (one group of 1024: two rounds); N = 1, 127 (a warpgroup's half past
+# N), 1000 (a ragged last tile) and 1024; emb = 64 (one channel block), 512
+# and 1024 (sixteen blocks: four stage-5 groups a tile).
+@pytest.mark.parametrize("batch,n_pts,emb", [(1, 1, 64), (1, 127, 1024), (3, 1000, 512), (3, 1, 1024),
+                                             (32, 127, 512), (32, 1000, 1024), (32, 1024, 64), (256, 1024, 1024),
+                                             (256, 1000, 512), (256, 127, 64)])
+def test_k2_hopper_edges_match_plain(cuda, batch, n_pts, emb):
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels.pointnet_fused import (
+        PointNetInt8Weights, pn_int8_reference, pointnet_pooled_int8_kernel)
+
+    rng = np.random.default_rng(batch * 7 + n_pts + emb)
+    pack = PointNetInt8Weights(*int8_chain(rng, emb, cuda))
+    x = torch.from_numpy(rng.normal(size=(batch, n_pts, 3)).astype(np.float32)).to(cuda)
+    before = LAUNCHES["pointnet_pooled_int8"]
+    got = pointnet_pooled_int8_kernel(x, pack)
+    want = pn_int8_reference(x, pack)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pointnet_pooled_int8"] == before + 1
+    assert got.shape == want.shape == (batch, emb)
+    assert torch.equal(got, want)
+
+
+def test_k2_plan_is_the_stated_plan(cuda):
+    """The C entry's work split is kernels/pointnet_fused.py's k2_plan."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.pointnet_fused import k2_plan
+
+    lib = _build.library()
+    for batch in (1, 3, 32, 100, 256, 600):
+        for emb in (64, 512, 640, 1024, 2048):
+            assert lib.pointnet_int8_group(batch, emb, 132) == k2_plan(batch, emb, 132)[0], (batch, emb)
 
 
 @pytest.mark.parametrize("case,batch,n_pts,k,emb", [
@@ -1738,22 +1774,41 @@ def k16_case(name, rng, device):
         x = (0.1 * g + 0.37).astype(np.float32)[rng.permutation(len(g))][None]
         v = np.concatenate([x, rng.normal(size=x.shape).astype(np.float32)], -1)
         return 0.1, 16, dev(x), dev(x), dev(np.arange(125, dtype=np.int32)[None]), dev(v)
+    if name.startswith("c") and name[1:].isdigit():  # C = 1, 3, 7: rows off the 16-byte grid; 40: slot by slot
+        c = int(name[1:])
+        pc = unit_cloud(rng, 2, 1000)
+        v = rng.normal(size=(2, 1000, c)).astype(np.float32)
+        it = np.broadcast_to(np.arange(1000, dtype=np.int32), (2, 1000)).copy()
+        return 0.3, 37, dev(pc[..., :3]), dev(pc[..., :3]), dev(it), dev(v)
+    if name == "s_ne_n":  # 777 queries off the cloud among 1000 points, centers in and out of range
+        pc = unit_cloud(rng, 3, 1000)
+        q = unit_cloud(rng, 3, 777)[..., :3]
+        it = rng.integers(-5, 1005, (3, 777)).astype(np.int32)
+        return 0.3, 64, dev(pc[..., :3]), dev(q), dev(it), dev(pc)
     b, n, ns = {"rpmnet": (2, 1024, 64), "nsample_8": (2, 1024, 8), "ragged": (3, 1000, 64),
-                "small": (2, 20, 40), "outside": (2, 300, 64)}[name]
+                "small": (2, 20, 40), "outside": (2, 300, 64), "chunked": (2, 20000, 64),
+                "nsample_200": (2, 1024, 200), "long_rows": (2, 1024, 300)}[name]
     pc = unit_cloud(rng, b, n)
     itself = np.broadcast_to(np.arange(n, dtype=np.int32), (b, n)).copy()
     if name == "outside":  # center indices outside [0, N): nothing left out, zeros padded
         itself[:, ::7] = -1
         itself[:, 3::7] = n
-    return (0.3 if name != "small" else 0.9), ns, dev(pc[..., :3]), dev(pc[..., :3]), dev(itself), dev(pc)
+    radius = {"small": 0.9, "chunked": 0.1, "long_rows": 0.9}.get(name, 0.3)
+    return radius, ns, dev(pc[..., :3]), dev(pc[..., :3]), dev(itself), dev(pc)
 
 
-@pytest.mark.parametrize("name", ["rpmnet", "nsample_8", "ragged", "small", "outside", "on_the_radius"])
+@pytest.mark.parametrize("name", ["rpmnet", "nsample_8", "ragged", "small", "outside", "on_the_radius", "chunked",
+                                  "nsample_200", "long_rows", "c1", "c3", "c7", "c40", "s_ne_n"])
 def test_k16_matches_plain(cuda, name):
     """K16 gives its plain version's values exactly: RPMNet's grouping (N =
     S = 1024, r 0.3, nsample 64, C = 6), nsample 8 (outside the TPU gate's
     nsample * 6 % 128 == 0), N = 1000 (not a multiple of 32), nsample past
-    N, center indices outside [0, N), a lattice on the radius."""
+    N, center indices outside [0, N), a lattice on the radius; N = 20,000
+    (18 shared-memory chunks of 1120 points, every query's row open across
+    them), nsample 200 with C = 6 (1200-float rows), nsample 300 in balls of
+    ~390 points (the 256-slot list full mid-scan: rows written in pieces),
+    C = 1, 3 and 7 (rows of 37 C floats off the 16-byte grid), C = 40 (slot
+    by slot), and 777 queries off a 1000-point cloud (S != N)."""
     from learning3d_tpu_torch.kernels import LAUNCHES
     from learning3d_tpu_torch.kernels.sampling import ball_group_pallas, ball_group_reference
 
@@ -1767,6 +1822,31 @@ def test_k16_matches_plain(cuda, name):
     assert torch.equal(got, want)
     if name == "outside":
         assert bool((got[:, ::7, -1] == 0).all())
+
+
+def test_k16_chunk_is_the_stated_chunk(cuda):
+    """The C entry's chunk of the staged cloud is kernels/sampling.py's
+    ball_group_chunk."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.sampling import ball_group_chunk
+
+    lib = _build.library()
+    for n in (1, 20, 1000, 1024, 1121, 20000):
+        for c in (1, 3, 6, 7, 64, 400):
+            points, values = ball_group_chunk(n, c)
+            assert lib.ball_group_chunk(n, c) == (points if values else -points), (n, c)
+
+
+def test_k16_queries_are_the_stated_queries(cuda):
+    """The C entry's queries a block are kernels/sampling.py's
+    ball_group_queries."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.sampling import ball_group_queries
+
+    lib = _build.library()
+    for batch in (1, 2, 16, 64):
+        for s in (1, 100, 541, 1024, 4096):
+            assert lib.ball_group_queries(batch, s, 132) == ball_group_queries(batch, s, 132), (batch, s)
 
 
 def test_k16_refuses_past_its_limits(cuda):

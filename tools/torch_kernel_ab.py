@@ -4,12 +4,12 @@ and of the models that run them, from one tree: the attention kernels K6
 (attention_pallas) and K10 (attention_int8_kernel), the fused int8 pointer
 layers K11a/K11b, K8 (knn_pallas), K1 (pointnet_pooled_kernel), K14
 (fps_pallas), K9 (dgcnn_encode_int8_kernel), K5 (dgcnn_encode_fused), K17
-(sinkhorn_log_pallas), K7 (knn_neighbors_pallas's edge features) and K3
-(pool_stats_pallas).
+(sinkhorn_log_pallas), K7 (knn_neighbors_pallas's edge features), K3
+(pool_stats_pallas), K2 (pointnet_pooled_int8) and K16 (ball_group_pallas).
 
     python3 tools/torch_kernel_ab.py [--root TREE] [--label NAME]
         [--parts k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8,k5,k17,dcp_bf16,rpmnet,
-                 k7,k3,dcp_f32]
+                 k7,k3,dcp_f32,k2,k16,pointnet_int8]
 
 (``tools/torch_attention_ab.py`` is the same script under its former name.)
 ``--root`` names the checkout whose ``learning3d_tpu_torch`` and
@@ -61,7 +61,14 @@ classifier step's shape (B=256, N=1024, K=128, E=1024) in bf16 and f32,
 device time by launch (the weight pack, f32's split, the statistics, the
 sum of the partials). ``dcp_f32``: ``model_ms`` of the f32 DCP forward
 (DCP(DGCNN(512, k=20)), the training path's, K7 twice) at B=32, in eval
-mode. Inputs are numpy-seeded. Prints one JSON line of
+mode. ``k2``: K2 at the int8 classifier's serving chunk (B=256, N=1024,
+emb 1024) and at B=32, on a numpy-seeded int8 pack. ``k16``: K16 at RPMNet's
+grouping (the template clouds of 16 pairs: 1024 queries among 1024 points, r
+0.3, nsample 64, C=6), at N=20,000 (1/37 of the points as queries, r 0.1:
+rows open across shared-memory chunks) and with rows of nsample 200.
+``pointnet_int8``: ``model_ms`` of the served int8 classifier at B=256
+(``profile_torch_serve.build("pointnet-int8")``, K2 and the head). Inputs are
+numpy-seeded. Prints one JSON line of
 ms a call (chip_smoke.cuda_ms; for K8, K1, K14, K9, K5 and K17 also
 ``/device``, the kernels' own time under torch.profiler) with the card's
 name and power limit. Needs a CUDA card.
@@ -85,7 +92,7 @@ def main() -> None:
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
     parser.add_argument("--label", default="")
     parser.add_argument("--parts", default="k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8,"
-                        "k5,k17,dcp_bf16,rpmnet,k7,k3,dcp_f32")
+                        "k5,k17,dcp_bf16,rpmnet,k7,k3,dcp_f32,k2,k16,pointnet_int8")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -168,7 +175,11 @@ def main() -> None:
             times.update(k7_times(chip_smoke))
         if "k3" in parts:
             times.update(k3_times(chip_smoke))
-    if parts & {"prnet", "ipcrnet", "flownet", "dcp_int8", "dcp_bf16", "rpmnet", "dcp_f32"}:
+        if "k2" in parts:
+            times.update(k2_times(chip_smoke))
+        if "k16" in parts:
+            times.update(k16_times(chip_smoke))
+    if parts & {"prnet", "ipcrnet", "flownet", "dcp_int8", "dcp_bf16", "rpmnet", "dcp_f32", "pointnet_int8"}:
         times.update(model_times(chip_smoke, parts))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -395,16 +406,62 @@ def k3_times(chip_smoke) -> dict:
     return times
 
 
+def k2_times(chip_smoke) -> dict:
+    """K2 at B=256 and B=32 (N=1024, emb 1024) on a numpy-seeded int8 pack
+    (per-channel weights, static scales), built once as the model builds
+    it."""
+    from learning3d_tpu_torch.kernels.pointnet_fused import PointNetInt8Weights, pointnet_pooled_int8_kernel
+
+    rng = np.random.default_rng(chip_smoke.SEED + 2)
+    dims = [3, 64, 64, 64, 128, chip_smoke.EMB]
+    ws = [torch.from_numpy(rng.normal(0, i**-0.5, (i, o)).astype(np.float32)) for i, o in zip(dims[:-1], dims[1:])]
+    bs = [torch.from_numpy(rng.normal(0, 0.1, o).astype(np.float32)) for o in dims[1:]]
+    qlayers = []
+    for w, b in zip(ws[1:], bs[1:]):
+        s_w = w.abs().amax(0).clamp_min(1e-12) / 127
+        qlayers.append((torch.clamp(torch.round(w / s_w), -127, 127).to(torch.int8), s_w, b,
+                        float(rng.uniform(0.01, 0.05))))
+    pack = PointNetInt8Weights(ws[0], bs[0], qlayers).cuda()
+    times = {}
+    for b in (chip_smoke.B, chip_smoke.K1_SMALL_B):
+        x = torch.from_numpy(rng.normal(size=(b, chip_smoke.N, 3)).astype(np.float32)).cuda()
+        by_launch(chip_smoke, times, f"k2/B{b}", lambda: pointnet_pooled_int8_kernel(x, pack))
+    return times
+
+
+def k16_times(chip_smoke) -> dict:
+    """K16 at RPMNet's grouping, at N=20,000 (rows open across chunks) and
+    with rows of nsample 200."""
+    from learning3d_tpu_torch.kernels.sampling import ball_group_pallas
+
+    pc = torch.from_numpy(chip_smoke.rpm_requests(chip_smoke.RPM_B)[0]).cuda()
+    xyz = pc[..., :3].contiguous()
+    every = torch.arange(chip_smoke.RPM_N, dtype=torch.int32, device="cuda").expand(chip_smoke.RPM_B, -1).contiguous()
+    rng = np.random.default_rng(chip_smoke.SEED + 16)
+    big = torch.from_numpy(rng.uniform(-1.0, 1.0, (2, 20000, 6)).astype(np.float32)).cuda()
+    picks = torch.arange(0, 20000, 37, dtype=torch.int32, device="cuda")
+    big_xyz = big[..., :3].contiguous()
+    cases = {"rpmnet": (chip_smoke.RPM_RADIUS, chip_smoke.RPM_NSAMPLE, xyz, xyz, every, pc),
+             "chunked": (0.1, chip_smoke.RPM_NSAMPLE, big_xyz, big_xyz[:, picks.long()].contiguous(),
+                         picks.expand(2, -1).contiguous(), big),
+             "nsample200": (chip_smoke.RPM_RADIUS, 200, xyz, xyz, every, pc)}
+    times = {}
+    for name, args in cases.items():
+        by_launch(chip_smoke, times, f"k16/{name}", lambda: ball_group_pallas(*args))
+    return times
+
+
 def model_times(chip_smoke, parts) -> dict:
     """model_ms of served PRNet (B=32), of bf16 iPCRNet (B=32, the
     multi-start batch of 256, and multistart_register on 32 pairs), of
     FlowNet3D (B=16), of int8 DCP, unfused and fused (B=32), of bf16 DCP
-    (B=32), of RPMNet (B=16) and of the f32 DCP forward (B=32)."""
+    (B=32), of RPMNet (B=16), of the f32 DCP forward (B=32) and of the int8
+    classifier (B=256)."""
     from profile_torch_serve import build
 
     times = {}
     for part, names in (("flownet", ("flownet",)), ("dcp_int8", ("dcp-int8", "dcp-int8-fused")),
-                        ("dcp_bf16", ("dcp",)), ("rpmnet", ("rpmnet",))):
+                        ("dcp_bf16", ("dcp",)), ("rpmnet", ("rpmnet",)), ("pointnet_int8", ("pointnet-int8",))):
         for name in names if part in parts else ():
             model, _, inputs = build(name, np.random.default_rng(chip_smoke.SEED))
             if isinstance(model, torch.nn.Module):
