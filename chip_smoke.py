@@ -113,6 +113,7 @@ Phases, one JSON line each with the seconds since start:
    indices of the K3 run (bf16 and f32, main shape; the ragged cloud) and
    with every channel on one point; dense dx_sp and dW_sel within
    POOL_SUM_TOL; index_add_ plus a gathered einsum as ``library_ms``;
+   times and bounds in bf16 and in f32;
 16. train: bench.py's training configuration (Classifier(PointNet(1024,
    use_bn=True)) in bf16, B=256, N=1024, Adam 1e-3, augmentation on) through
    Trainer.fit for one epoch of SyntheticModelNet40 (6 steps) in a temporary
@@ -214,9 +215,10 @@ Phases, one JSON line each with the seconds since start:
 28. kernel_k15 (ball_query_pallas): against its plain version, indices
    equal, at FlowNet3D's six calls (the clouds and FPS samples of phase
    27), a ragged one, nsample = 128, a lattice whose neighbors lie on the
-   radius and rows whose ball is empty (N everywhere); times, with
+   radius and rows whose ball is empty (N everywhere), the int64 instance
+   (query_ball_point's) equal to the int32 one; times, with
    torch.cdist + torch.where + torch.topk as ``library_ms``, and the bound
-   from the points this run's queries read;
+   from the points this run's queries read (printed at each shape);
 29. serve_flownet: FlowNet3D() in f32 eval with numpy-seeded weights through
    InferenceEngine(batch_size=16) on 16, 5 and 40 SyntheticSceneflow pairs
    of N=2048: K14 6, K15 6 and K8 once a chunk, nothing else; the flow
@@ -1570,7 +1572,7 @@ def phase_kernel_k4(rng, k3_cases) -> dict:
     cases = {name: (inp[0], inp[1], out[2]) for name, (inp, out) in k3_cases.items()}
     x, w, _ = k3_cases["full"][0]
     cases["one_point"] = (x, w, torch.full((B, EMB), 17, dtype=torch.int32, device="cuda"))
-    errs = {}
+    errs, timed = {}, {}
     with torch.inference_mode():
         for name, (x, w, idx) in cases.items():
             dsel = torch.from_numpy(rng.normal(size=idx.shape).astype(np.float32)).cuda()
@@ -1582,18 +1584,23 @@ def phase_kernel_k4(rng, k3_cases) -> dict:
             touched = torch.zeros(x.shape[:2], dtype=torch.bool, device="cuda").scatter_(1, idx.long(), True)
             require(bool((dx[~touched] == 0).all()), f"K4 ({name}): untouched rows of dx_sp are 0")
             errs[name] = {"abs": max(a1, a2), "rel": max(r1, r2), "dx_rel": r1, "dW_rel": r2}
-            if name == "full":
-                full = (idx, dsel, w, x)
+            if name in ("full", "f32"):
+                timed[name] = (idx, dsel, w, x)
+        full, f32 = timed["full"], timed["f32"]
         k_ms = cuda_ms(lambda: pool_bwd(*full))
         p_ms = cuda_ms(lambda: pool_bwd_reference(*full), reps=5)
         l_ms = cuda_ms(lambda: library_pool_bwd(*full), reps=5)
+        f32_ms = cuda_ms(lambda: pool_bwd(*f32))
+        f32_plain_ms = cuda_ms(lambda: pool_bwd_reference(*f32), reps=5)
+        f32_library_ms = cuda_ms(lambda: library_pool_bwd(*f32), reps=5)
     bound_ms, bound_by = k4_bound(full[0], full[2], full[3])
     result = {
         "max_abs_err": max(e["abs"] for e in errs.values()), "max_rel_err": max(e["rel"] for e in errs.values()),
         "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bound_ms, "bound_by": bound_by,
     }
     emit("kernel", name="pool_bwd_pallas", tolerance=f"dx_sp, dW_sel <= {POOL_SUM_TOL}*max|plain|",
-         shape={"B": B, "N": N, "K": K_TAIL, "E": EMB}, errors=errs,
+         shape={"B": B, "N": N, "K": K_TAIL, "E": EMB}, errors=errs, f32_kernel_ms=f32_ms,
+         f32_bound_ms=k4_bound(f32[0], f32[2], f32[3])[0], f32_plain_ms=f32_plain_ms, f32_library_ms=f32_library_ms,
          distinct_rows_picked=int((full[0].long() + N * torch.arange(B, device="cuda")[:, None]).unique().numel()),
          library="index_add_ + gathered einsum (f32), yardstick only", **result)
     return result
@@ -2982,9 +2989,11 @@ def phase_kernel_k15(rng, levels) -> dict:
     with torch.inference_mode():
         for name, (radius, nsample, xyz, new) in cases.items():
             got, want = ball_query_pallas(radius, nsample, xyz, new), ball_query_reference(radius, nsample, xyz, new)
+            wide = ball_query_pallas(radius, nsample, xyz, new, dtype=torch.int64)  # query_ball_point's instance
             torch.cuda.synchronize()
             picks = int((got != want).sum())
             require(picks == 0, f"K15 vs plain ({name}): {picks} indices differ")
+            require(wide.dtype == torch.int64 and torch.equal(wide, got.long()), f"K15 int64 vs int32 ({name})")
             checked[name] = {"B": xyz.shape[0], "N": xyz.shape[1], "S": new.shape[1], "radius": radius,
                              "nsample": nsample, "indices_differing": picks,
                              "rows_with_empty_ball": int((got[..., 0] == xyz.shape[1]).sum())}
@@ -2994,6 +3003,7 @@ def phase_kernel_k15(rng, levels) -> dict:
             radius, nsample, xyz, new = cases[f"sa{k + 1}_pc1"]
             b_ms, b_by = k15_bound(radius, nsample, xyz, new)
             times[f"sa{k + 1}"] = {
+                "points_scanned": in_ball_scan(radius, nsample, xyz, new),
                 "kernel_ms": cuda_ms(lambda: ball_query_pallas(radius, nsample, xyz, new)),
                 "plain_ms": cuda_ms(lambda: ball_query_reference(radius, nsample, xyz, new), reps=5, warmup=1),
                 "library_ms": cuda_ms(lambda: library_ball_query(radius, nsample, xyz, new)),
@@ -3016,13 +3026,13 @@ def k15_nearest_first():
     from learning3d_tpu_torch.kernels import sampling
     from learning3d_tpu_torch.kernels.knn import _sq_dist
 
-    def nearest(radius, nsample, xyz, new_xyz):
+    def nearest(radius, nsample, xyz, new_xyz, dtype=torch.int32):
         n = xyz.shape[1]
         d = _sq_dist(new_xyz.float(), xyz.float())
         inside = d <= torch.tensor(sampling.squared_radius(radius), device=d.device)
         order = torch.sort(torch.where(inside, d, float("inf")), dim=-1, stable=True).indices[..., :nsample]
         key = torch.where(torch.gather(inside, -1, order), order, n)
-        return torch.where(key == n, key[..., :1], key).to(torch.int32)
+        return torch.where(key == n, key[..., :1], key).to(dtype)
 
     kernel = sampling.ball_query_pallas
     sampling.ball_query_pallas = nearest

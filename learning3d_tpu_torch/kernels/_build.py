@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / ".build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -51,6 +53,7 @@ SIGNATURES = {
     "pool_stats": ([_P] * 3 + [_I] + [_P] * 10 + [_I] * 3 + [_P], ctypes.c_int),
     "pool_stats_pack": ([_P, _I, _I, _P, _P], ctypes.c_int),
     "pool_bwd": ([_P] * 4 + [_I] + [_P] * 2 + [_I] * 3 + [_P], ctypes.c_int),
+    "pool_bwd_schedule": ([_I], ctypes.c_int),
     "knn_neighbors": ([_P] * 2 + [_I] * 3 + [_P], ctypes.c_int),
     "nn_oneway": ([_P] * 4 + [_I] * 3 + [_P], ctypes.c_int),
     "emd_fwd": ([_P] * 6 + [_I] * 3 + [_F] * 2 + [_P], ctypes.c_int),
@@ -59,7 +62,8 @@ SIGNATURES = {
     "fps_scratch_needed": ([_I], ctypes.c_int),
     "fps_sample": ([_P] * 4 + [_I] * 3 + [_P], ctypes.c_int),
     "fps_chain_floor": ([_P] + [_I] * 3 + [_P], ctypes.c_int),
-    "ball_query": ([_P] * 3 + [_I] * 4 + [_F, _P], ctypes.c_int),
+    "ball_query": ([_P] * 3 + [_I] * 5 + [_F, _P], ctypes.c_int),
+    "ball_query_rounds": ([], ctypes.c_int),
     "ball_group": ([_P] * 5 + [_I] * 5 + [_F, _P], ctypes.c_int),
     "ball_group_chunk": ([_I, _I], ctypes.c_int),
     "ball_group_queries": ([_I] * 3, ctypes.c_int),
@@ -138,6 +142,23 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Call C entry ``name`` with ``args`` and the current stream of
+    ``device`` (a CUDA device with its index) on that device, and raise on a
+    CUDA error. Every kernel wrapper launches through here. The stream's
+    handle comes from PyTorch's raw getter (a few tenths of a microsecond on
+    the host, where ``torch.cuda.current_stream`` builds a Stream object in
+    several), and the device is entered only where it is not the current
+    one already (entering costs the host more than the launch)."""
+    fn = getattr(library(), name)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    check(err, name)
 
 
 def check(err: int, name: str) -> None:

@@ -82,12 +82,8 @@ def attention_pallas(q, k, v):
     # any other dtype from the kernel's f32 (so f32 is never rounded to bf16)
     out_f32 = q.dtype != bf16
     out = torch.empty((B, H, N, Dv), device=q.device, dtype=torch.float32 if out_f32 else bf16)
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.attention_bf16(qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), int(out_f32),
-                                 B * H, N, M, D, Dv, ctypes.c_float(1.0 / D**0.5), stream)
-    _build.check(err, "attention_bf16")
+    _build.launch("attention_bf16", q.device, qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
+                  int(out_f32), B * H, N, M, D, Dv, ctypes.c_float(1.0 / D**0.5))
     LAUNCHES["attention_pallas"] += 1
     return out.to(q.dtype)
 
@@ -229,15 +225,10 @@ def attention_int8_kernel(q, k, v, s_q, s_k, s_v, int8_pv=False):
         vk = torch.empty((B * H, M, D), device=q.device, dtype=torch.bfloat16)
     out = torch.empty((B * H, N, D), device=q.device, dtype=torch.bfloat16)
     oscale = s_v / 127.0 if int8_pv else s_v
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.attention_int8_values(vc.data_ptr(), vk.data_ptr(), B * H, M, mp, D, int(bool(int8_pv)), stream)
-        _build.check(err, "attention_int8_values")
-        err = lib.attention_int8(qc.data_ptr(), kc.data_ptr(), vk.data_ptr(), out.data_ptr(), B * H, N, M, mp, D,
-                                 ctypes.c_float(s_q * s_k / (D**0.5)), ctypes.c_float(oscale), int(bool(int8_pv)),
-                                 stream)
-    _build.check(err, "attention_int8")
+    _build.launch("attention_int8_values", q.device, vc.data_ptr(), vk.data_ptr(), B * H, M, mp, D,
+                  int(bool(int8_pv)))
+    _build.launch("attention_int8", q.device, qc.data_ptr(), kc.data_ptr(), vk.data_ptr(), out.data_ptr(), B * H, N,
+                  M, mp, D, ctypes.c_float(s_q * s_k / (D**0.5)), ctypes.c_float(oscale), int(bool(int8_pv)))
     LAUNCHES["attention_int8"] += 1
     return out.reshape(B, H, N, D)
 

@@ -74,11 +74,7 @@ def nn_oneway(x, y):
     idx = torch.empty((B, N), device=x.device, dtype=torch.int32)
     if B == 0:
         return d, idx
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nn_oneway(x.data_ptr(), y.data_ptr(), d.data_ptr(), idx.data_ptr(), B, N, y.shape[1], stream)
-    _build.check(err, "nn_oneway")
+    _build.launch("nn_oneway", x.device, x.data_ptr(), y.data_ptr(), d.data_ptr(), idx.data_ptr(), B, N, y.shape[1])
     LAUNCHES["_nn_oneway_pallas"] += 1
     return d, idx
 

@@ -96,19 +96,36 @@
 //   hi + lo (exact in f32, within 2^-17 of x).
 //
 // K4 design. The TPU builds (idx == row) one-hot tiles and multiplies them
-// on the MXU; here the scatter is a sort.
-// * dx (grid B, 8 warps): the block sorts its cloud's (idx << 12 | e) keys
-//   with a bitonic sort in shared memory, so each point's channels form one
-//   run in ascending e. Warp w writes rows w, w + 8, ...: a binary search
-//   finds the row's run, lane l sums columns 4l..4l+3 over the run in
-//   ascending e (f32 fma), and the 512-byte row is written whole, zeros
-//   where the run is empty. Duplicates (many channels picking one critical
-//   point, the normal case) are summed in a fixed order, no atomics.
-// * dW (grid E / 8, a warp per channel e): lane l sums columns 4l..4l+3 of
-//   x[b, idx[b,e], :] dsel[b,e] over b = 0..B-1 in order, eight rows in
-//   flight at a time. It writes dW_sel^T (E, 128); the wrapper hands back
-//   its transpose.
-// * Indices outside [0, N) contribute nothing and write nothing.
+// on the MXU; here one launch of two block roles, the dW blocks first (their
+// gathers are latency chains that the dx blocks' stores then overlap; on
+// the H100 this ran faster than the dW blocks last or spread among the dx
+// blocks).
+// * dx (a block a tile of kRowTile = 128 rows of one cloud: 2048 blocks at
+//   B=256, N=1024, many waves of 8 warps): the block reads its cloud's E
+//   indices (warp w a contiguous range of e; each key's row staged in shared
+//   memory) and keeps the keys whose row lies in its tile, in ascending e: a
+//   ballot a 32-key round, a warp's count, the warps' offsets summed by
+//   every thread, then each key written at its offset plus the popcount of
+//   the lanes below (a list of row << 12 | e, and a count a row by shared
+//   atomics). Warp w writes rows w, w + 8, ...: a row with keys takes them
+//   from the list by ballot in e order until it has its count, loads
+//   kRowKeys = 4 keys' W^T rows (L2-resident) and dsel before their FMAs
+//   (rows hold ~2 keys at the classifier's shape: 4 ran faster than 2, 8 or
+//   16 on the H100),
+//   and lane l sums columns 2l, 2l + 1, 64 + 2l, 65 + 2l by fmaf from 0 in
+//   ascending e; a row with none is zeros. Every row is written whole by
+//   streaming stores. No sort (a bitonic sort of the keys takes 55 barriers
+//   at E = 1024) and no search a row. Each output's summation chain is fixed
+//   (ascending e from 0; ascending b below), so the results do not depend on
+//   the schedule: a sort-based schedule gives the same bits.
+// * dW (a warp a half row: 64 columns of one channel e): lane l sums its two
+//   columns of x[b, idx[b,e], :] dsel[b,e] over b = 0..B-1 in order (fmaf),
+//   with 32 clouds' rows in flight for bf16 and 16 for f32. It writes
+//   dW_sel^T (E, 128); the wrapper hands back its transpose.
+// * Registers: 64 a thread (four blocks an SM; at 96, two blocks an SM, dx
+//   ran 20% slower), a dW warp's loads in flight 32 of them. Indices outside
+//   [0, N) contribute nothing and write nothing. Shared memory is 8 E + 544 bytes (33 KB at E = 4096): under
+//   48 KB, so no attribute is set.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,7 +152,9 @@ constexpr int kMaxDevices = 64;
 // K4 and the partial sums' reduction
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxE = 4096;  // K4: e fits the low 12 bits of a sort key
+constexpr int kMaxE = 4096;  // K4: e fits the low 12 bits of a list entry
+constexpr int kRowTile = 128;  // K4: dx_sp rows a block
+constexpr int kRowKeys = 4;    // K4: keys whose W^T rows a dx row loads before their FMAs
 constexpr int kReduceUnroll = 64;  // loads in flight a thread of the partials' sum
 constexpr int kReduceThreads = 128;
 
@@ -601,112 +620,183 @@ __global__ void __launch_bounds__(kReduceThreads) pool_stats_reduce(const float*
   if (i < kK * kK) G[i] = s; else colsum[i - kK * kK] = s;
 }
 
-// Four consecutive columns of a row of a bf16 or f32 matrix, as f32.
+// Two consecutive columns of a row as a lane loads them (bf16: 4 bytes, f32:
+// 8), and how many clouds' gathered x rows a dW warp keeps in flight (32
+// registers of loads either way).
 template <bool kF32>
-__device__ __forceinline__ void load4(float (&f)[4], const void* base, size_t off) {
-  if constexpr (kF32) {
-    const float4 v = *reinterpret_cast<const float4*>(static_cast<const float*>(base) + off);
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-  } else {
-    const uint2 v = *reinterpret_cast<const uint2*>(static_cast<const bf16*>(base) + off);
-    bf16 h[4];
-    memcpy(h, &v, 8);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) f[q] = __bfloat162float(h[q]);
-  }
-}
+struct Pair;
 
-// dx_sp of one cloud a block (see the header).
+template <>
+struct Pair<true> {
+  using Raw = float2;
+  static constexpr int kInflight = 16;
+  __device__ static Raw zero() { return make_float2(0.f, 0.f); }
+  __device__ static Raw load(const void* base, size_t off) {
+    return __ldg(reinterpret_cast<const float2*>(static_cast<const float*>(base) + off));
+  }
+  __device__ static float2 unpack(Raw v) { return v; }
+};
+
+template <>
+struct Pair<false> {
+  using Raw = unsigned;
+  static constexpr int kInflight = 32;
+  __device__ static Raw zero() { return 0u; }
+  __device__ static Raw load(const void* base, size_t off) {
+    return __ldg(reinterpret_cast<const unsigned*>(static_cast<const bf16*>(base) + off));
+  }
+  __device__ static float2 unpack(Raw v) {
+    __nv_bfloat162 h;
+    memcpy(&h, &v, 4);
+    return __bfloat1622float2(h);
+  }
+};
+
+// K4 (see the header): one launch, two block roles. Blocks [0, dw_blocks)
+// take dW_sel^T, a warp a half row (64 channels of x) of one channel e; the
+// rest take dx_sp, a block a tile of kRowTile rows of one cloud.
 template <bool kF32>
-__global__ void __launch_bounds__(kThreads) pool_bwd_dx_kernel(const int* idx, const float* dsel,
-                                                               const void* wt, float* dx, int n_pts,
-                                                               int e_total, int e_pow2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* keys = reinterpret_cast<uint32_t*>(smem);  // [e_pow2]
-  float* coef = reinterpret_cast<float*>(keys + e_pow2);  // [e_total]
-  const int cloud = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int e = tid; e < e_pow2; e += kThreads) {
-    uint32_t key = 0xffffffffu;
-    if (e < e_total) {
-      const int n = idx[(size_t)cloud * e_total + e];
-      if (n >= 0 && n < n_pts) key = (static_cast<uint32_t>(n) << 12) | static_cast<uint32_t>(e);
-      const float d = dsel[(size_t)cloud * e_total + e];
-      coef[e] = kF32 ? d : __bfloat162float(__float2bfloat16_rn(d));
-    }
-    keys[e] = key;
-  }
-  __syncthreads();
-  for (int k = 2; k <= e_pow2; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < e_pow2; i += kThreads) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const uint32_t a = keys[i], b = keys[ixj];
-          if ((a > b) == ((i & k) == 0)) { keys[i] = b; keys[ixj] = a; }
-        }
-      }
-      __syncthreads();
-    }
-
-  float* out = dx + (size_t)cloud * n_pts * kK;
-  for (int n = warp; n < n_pts; n += kWarps) {
-    const uint32_t want = static_cast<uint32_t>(n) << 12;
-    int lo = 0, hi = e_total;  // the first key >= want
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (keys[mid] < want) lo = mid + 1; else hi = mid;
-    }
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int i = lo; i < e_total; ++i) {
-      const uint32_t key = keys[i];
-      if ((key >> 12) != static_cast<uint32_t>(n)) break;
-      const int e = key & 0xfff;
-      float w[4];
-      load4<kF32>(w, wt, (size_t)e * kK + 4 * lane);
-      const float d = coef[e];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] = fmaf(d, w[q], acc[q]);
-    }
-    *reinterpret_cast<float4*>(out + (size_t)n * kK + 4 * lane) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  }
-}
-
-// dW_sel^T (E, 128): warp w of block i owns channel e = 8 i + w.
-template <bool kF32>
-__global__ void __launch_bounds__(kThreads) pool_bwd_dw_kernel(const int* idx, const float* dsel,
-                                                               const void* x, float* dwt, int batch,
-                                                               int n_pts, int e_total) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int e = blockIdx.x * kWarps + warp;
+__device__ __forceinline__ void pool_bwd_dw(const int* idx, const float* dsel, const void* x, float* dwt, int batch,
+                                            int n_pts, int e_total, int block) {
+  using P = Pair<kF32>;
+  constexpr int kIn = P::kInflight;
+  const int lane = threadIdx.x & 31;
+  const int half_row = block * kWarps + (threadIdx.x >> 5);
+  const int e = half_row >> 1;
   if (e >= e_total) return;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int b0 = 0; b0 < batch; b0 += 8) {
+  const int col = 64 * (half_row & 1) + 2 * lane;  // lane's two columns
+  float acc0 = 0.f, acc1 = 0.f;
+  for (int b0 = 0; b0 < batch; b0 += kIn) {
     int my_n = -1;
     float my_d = 0.f;
-    if (lane < 8 && b0 + lane < batch) {
-      my_n = idx[(size_t)(b0 + lane) * e_total + e];
-      my_d = dsel[(size_t)(b0 + lane) * e_total + e];
+    if (lane < kIn && b0 + lane < batch) {
+      my_n = __ldg(idx + (size_t)(b0 + lane) * e_total + e);
+      my_d = __ldg(dsel + (size_t)(b0 + lane) * e_total + e);
     }
-    float v[8][4], d[8];
+    if (my_n < 0 || my_n >= n_pts) my_d = 0.f;  // a row outside [0, N) contributes nothing
+    typename P::Raw v[kIn];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
+    for (int u = 0; u < kIn; ++u) {
       const int n = __shfl_sync(0xffffffffu, my_n, u);
-      d[u] = __shfl_sync(0xffffffffu, my_d, u);
-      if (n >= 0 && n < n_pts) {
-        load4<kF32>(v[u], x, ((size_t)(b0 + u) * n_pts + n) * kK + 4 * lane);
-      } else {
-        v[u][0] = v[u][1] = v[u][2] = v[u][3] = 0.f;
-        d[u] = 0.f;
+      v[u] = P::zero();
+      if (n >= 0 && n < n_pts) v[u] = P::load(x, ((size_t)(b0 + u) * n_pts + n) * kK + col);
+    }
+#pragma unroll
+    for (int u = 0; u < kIn; ++u) {
+      const float d = __shfl_sync(0xffffffffu, my_d, u);
+      const float2 f = P::unpack(v[u]);
+      acc0 = fmaf(f.x, d, acc0);
+      acc1 = fmaf(f.y, d, acc1);
+    }
+  }
+  *reinterpret_cast<float2*>(dwt + (size_t)e * kK + col) = make_float2(acc0, acc1);
+}
+
+template <bool kF32>
+__device__ __forceinline__ void pool_bwd_dx(const int* idx, const float* dsel, const void* wt, float* dx, int n_pts,
+                                            int e_total, int item, int tiles, unsigned char* smem) {
+  using P = Pair<kF32>;
+  unsigned* rel = reinterpret_cast<unsigned*>(smem);   // [e_total]: each key's row less r0
+  int* list = reinterpret_cast<int*>(rel + e_total);   // [e_total]: (row << 12) | e, the tile's keys in e order
+  int* cnt = list + e_total;                           // [kRowTile]: keys a row
+  int* wcount = cnt + kRowTile;                        // [kWarps]: keys a warp's range of e
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int cloud = item / tiles, r0 = (item - cloud * tiles) * kRowTile;
+  const unsigned rows = (unsigned)min(kRowTile, n_pts - r0);
+  const int* ib = idx + (size_t)cloud * e_total;
+  const float* db = dsel + (size_t)cloud * e_total;
+  // warp w takes the contiguous 32-key rounds [w seg, (w + 1) seg) of e
+  const int seg = (((e_total + 31) >> 5) + kWarps - 1) / kWarps;
+  const int e0 = warp * seg * 32 + lane, e1 = min((warp + 1) * seg * 32, e_total);
+  for (int i = tid; i < kRowTile; i += kThreads) cnt[i] = 0;
+  int count = 0;
+#pragma unroll 4
+  for (int e = e0; e < (warp + 1) * seg * 32; e += 32) {
+    const unsigned r = e < e1 ? (unsigned)__ldg(ib + e) - (unsigned)r0 : 0xffffffffu;
+    if (e < e1) rel[e] = r;
+    count += __popc(__ballot_sync(0xffffffffu, r < rows));
+  }
+  if (lane == 0) wcount[warp] = count;
+  __syncthreads();
+  int off = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = wcount[w];
+    off += w < warp ? c : 0;
+    total += c;
+  }
+  // the compaction: each warp's keys at its offset, in e order
+  for (int e = e0; e < (warp + 1) * seg * 32; e += 32) {
+    const unsigned r = e < e1 ? rel[e] : 0xffffffffu;
+    const bool in = r < rows;
+    const unsigned m = __ballot_sync(0xffffffffu, in);
+    if (in) {
+      list[off + __popc(m & below)] = (int)(r << 12) | e;
+      atomicAdd(cnt + r, 1);
+    }
+    off += __popc(m);
+  }
+  __syncthreads();
+  // the rows: a warp a row, its keys taken from the list by ballot in e
+  // order, kRowKeys W^T rows and r(dsel) loaded before their FMAs; lane l sums
+  // columns 2l, 2l + 1 and 64 + 2l, 65 + 2l
+  float* out = dx + ((size_t)cloud * n_pts + r0) * kK;
+  for (int r = warp; r < (int)rows; r += kWarps) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const int want = cnt[r];
+    for (int i0 = 0, got = 0; got < want; i0 += 32) {
+      const int ent = i0 + lane < total ? list[i0 + lane] : -1;
+      unsigned m = __ballot_sync(0xffffffffu, ent >= 0 && (ent >> 12) == r);
+      got += __popc(m);
+      while (m) {
+        typename P::Raw w0[kRowKeys], w1[kRowKeys];
+        float dk[kRowKeys];
+        int nb = 0;
+#pragma unroll
+        for (int j = 0; j < kRowKeys; ++j) {
+          if (m) {
+            const int e = __shfl_sync(0xffffffffu, ent, __ffs(m) - 1) & 0xfff;
+            m &= m - 1;
+            const float d = __ldg(db + e);
+            dk[j] = kF32 ? d : __bfloat162float(__float2bfloat16_rn(d));
+            w0[j] = P::load(wt, (size_t)e * kK + 2 * lane);
+            w1[j] = P::load(wt, (size_t)e * kK + 64 + 2 * lane);
+            ++nb;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kRowKeys; ++j)
+          if (j < nb) {
+            const float2 a = P::unpack(w0[j]), c = P::unpack(w1[j]);
+            acc[0] = fmaf(dk[j], a.x, acc[0]);
+            acc[1] = fmaf(dk[j], a.y, acc[1]);
+            acc[2] = fmaf(dk[j], c.x, acc[2]);
+            acc[3] = fmaf(dk[j], c.y, acc[3]);
+          }
       }
     }
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] = fmaf(v[u][q], d[u], acc[q]);
+    float* row = out + (size_t)r * kK;
+    __stcs(reinterpret_cast<float2*>(row) + lane, make_float2(acc[0], acc[1]));
+    __stcs(reinterpret_cast<float2*>(row + 64) + lane, make_float2(acc[2], acc[3]));
   }
-  *reinterpret_cast<float4*>(dwt + (size_t)e * kK + 4 * lane) = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
+
+template <bool kF32>
+__global__ void __launch_bounds__(kThreads, 4) pool_bwd_kernel(const int* __restrict__ idx,
+                                                               const float* __restrict__ dsel,
+                                                               const void* __restrict__ wt,
+                                                               const void* __restrict__ x, float* __restrict__ dx,
+                                                               float* __restrict__ dwt, int batch, int n_pts,
+                                                               int e_total, int dw_blocks, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int i = (int)blockIdx.x;
+  if (i < dw_blocks)
+    pool_bwd_dw<kF32>(idx, dsel, x, dwt, batch, n_pts, e_total, i);
+  else
+    pool_bwd_dx<kF32>(idx, dsel, wt, dx, n_pts, e_total, i - dw_blocks, tiles, smem);
+}
+
 // The work split of a K3 call (see Design): the group count that minimizes
 // (rounds of clouds a block) x (an item's cost), an item costing its
 // channel blocks' products and folds plus half a block's worth for the
@@ -813,17 +903,14 @@ int launch_stats(const void* x, const void* w, const float* c, float* mx, float*
 template <bool kF32>
 int launch_bwd(const int* idx, const float* dsel, const void* wt, const void* x, float* dx, float* dwt,
                int batch, int n_pts, int e_total, cudaStream_t stream) {
-  int e_pow2 = 1;
-  while (e_pow2 < e_total) e_pow2 <<= 1;
-  const int bytes = 4 * (e_pow2 + e_total);
-  cudaError_t err = cudaFuncSetAttribute(pool_bwd_dx_kernel<kF32>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  pool_bwd_dx_kernel<kF32><<<batch, kThreads, bytes, stream>>>(idx, dsel, wt, dx, n_pts, e_total, e_pow2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  pool_bwd_dw_kernel<kF32><<<(e_total + kWarps - 1) / kWarps, kThreads, 0, stream>>>(idx, dsel, x, dwt, batch,
-                                                                                    n_pts, e_total);
+  const int tiles = (n_pts + kRowTile - 1) / kRowTile;
+  const int dw_blocks = (2 * e_total + kWarps - 1) / kWarps;  // a warp a half row
+  const long long blocks = dw_blocks + (long long)batch * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // under 48 KB (33 KB at E = 4096): no attribute to set
+  const int bytes = 8 * e_total + 4 * (kRowTile + kWarps);
+  pool_bwd_kernel<kF32><<<(unsigned)blocks, kThreads, bytes, stream>>>(idx, dsel, wt, x, dx, dwt, batch, n_pts,
+                                                                      e_total, dw_blocks, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -868,4 +955,12 @@ extern "C" int pool_bwd(const int* idx, const float* dsel, const void* wt, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f32 ? launch_bwd<true>(idx, dsel, wt, x, dx, dwt, batch, n_pts, e_total, s)
                 : launch_bwd<false>(idx, dsel, wt, x, dx, dwt, batch, n_pts, e_total, s);
+}
+
+// K4's dx_sp schedule, as kernels/poolgrad.py states it for the CPU
+// emulation: which 0 the rows a block (BWD_ROW_TILE), 1 the warps a block
+// (BWD_WARPS), 2 the keys a row loads before their FMAs (BWD_KEY_BATCH);
+// -1 for any other.
+extern "C" int pool_bwd_schedule(int which) {
+  return which == 0 ? kRowTile : which == 1 ? kWarps : which == 2 ? kRowKeys : -1;
 }

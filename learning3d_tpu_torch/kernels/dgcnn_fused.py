@@ -158,7 +158,7 @@ def _check_kernel_args(x, ws, bs, k, dot_dtype):
             raise ValueError(f"bias {tuple(b.shape)} does not match weight {tuple(w.shape)}")
 
 
-def _knn_scale_kernel(x, lib, stream, approx):
+def _knn_scale_kernel(x, approx):
     """The approx-kNN key scales on the device (``dgcnn_knn_scale``), with
     the tile they are per, or (None, 1) for exact kNN."""
     if not approx:
@@ -167,8 +167,7 @@ def _knn_scale_kernel(x, lib, stream, approx):
     tile_n, Np = knn_tile(N)
     scale = torch.empty((B, Np // tile_n), device=x.device, dtype=torch.float32)
     levels = (1 << (30 - (Np - 1).bit_length())) - 1
-    _build.check(lib.dgcnn_knn_scale(x.data_ptr(), scale.data_ptr(), B, N, tile_n, ctypes.c_float(levels), stream),
-                 "dgcnn_knn_scale")
+    _build.launch("dgcnn_knn_scale", x.device, x.data_ptr(), scale.data_ptr(), B, N, tile_n, ctypes.c_float(levels))
     return scale, tile_n
 
 
@@ -252,13 +251,9 @@ def dgcnn_encode_packed(x, pack, k, *, dot_dtype=torch.bfloat16, approx_knn=Fals
     out = torch.empty((B, N, emb), device=x.device, dtype=torch.bfloat16)
     nbrs = torch.empty((B, N, k), device=x.device, dtype=torch.int32)  # the selection's output, the chain's input
     ptrs = [x, xw1, pack.wc1, pack.bs[0], pack.img, pack.img5, *pack.bs[1:], out]
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        scale, tile_n = _knn_scale_kernel(x, lib, stream, approx_knn)
-        err = lib.dgcnn_encode_bf16(*(t.data_ptr() for t in ptrs), 0 if scale is None else scale.data_ptr(),
-                                    nbrs.data_ptr(), B, N, k, emb, tile_n, stream)
-    _build.check(err, "dgcnn_encode_bf16")
+    scale, tile_n = _knn_scale_kernel(x, approx_knn)
+    _build.launch("dgcnn_encode_bf16", x.device, *(t.data_ptr() for t in ptrs),
+                  0 if scale is None else scale.data_ptr(), nbrs.data_ptr(), B, N, k, emb, tile_n)
     LAUNCHES["dgcnn_encode_fused"] += 1
     return out
 
@@ -471,7 +466,6 @@ def dgcnn_encode_int8_kernel(x, pack, k, approx_knn=False):
     if widths != [*DIMS[1:], (512, emb)] or pack.wn1.device != x.device:
         raise ValueError(f"int8 weights must be {[*DIMS[1:], (512, emb)]} on x's device, got {widths}")
     B, N, _ = x.shape
-    lib = _build.library()
     # the plain version's xw1 product, its quantization in two kernels
     xw1 = torch.matmul(x.to(torch.bfloat16).to(torch.float32), pack.wn1_bf16)
     xw1q = torch.empty(xw1.shape, device=x.device, dtype=torch.int8)
@@ -481,16 +475,12 @@ def dgcnn_encode_int8_kernel(x, pack, k, approx_knn=False):
     nbrs = torch.empty((B, N, k), device=x.device, dtype=torch.int32)  # the selection's output, the chain's input
     ptrs = [t.data_ptr() for t in (pack.img23, pack.img4, pack.img5)] + [swb.data_ptr() for _, swb in stages]
     inv = [ctypes.c_float(s) for s in pack.inv_s]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.check(lib.dgcnn_quant_xw1(xw1.data_ptr(), xw1q.data_ptr(), s_xw1.data_ptr(), amax.data_ptr(),
-                                         xw1.numel(), stream), "dgcnn_quant_xw1")
-        scale, tile_n = _knn_scale_kernel(x, lib, stream, approx_knn)
-        err = lib.dgcnn_encode_int8(x.data_ptr(), xw1q.data_ptr(), s_xw1.data_ptr(), pack.wc1.data_ptr(),
-                                    pack.b1.data_ptr(), *ptrs, *inv, out.data_ptr(),
-                                    0 if scale is None else scale.data_ptr(), nbrs.data_ptr(), B, N, k, emb, tile_n,
-                                    stream)
-    _build.check(err, "dgcnn_encode_int8")
+    _build.launch("dgcnn_quant_xw1", x.device, xw1.data_ptr(), xw1q.data_ptr(), s_xw1.data_ptr(), amax.data_ptr(),
+                  xw1.numel())
+    scale, tile_n = _knn_scale_kernel(x, approx_knn)
+    _build.launch("dgcnn_encode_int8", x.device, x.data_ptr(), xw1q.data_ptr(), s_xw1.data_ptr(), pack.wc1.data_ptr(),
+                  pack.b1.data_ptr(), *ptrs, *inv, out.data_ptr(), 0 if scale is None else scale.data_ptr(),
+                  nbrs.data_ptr(), B, N, k, emb, tile_n)
     LAUNCHES["dgcnn_encode_fused_int8"] += 1
     return out
 

@@ -71,11 +71,7 @@ def edge_features(x, k):
     out = torch.empty((B, N, k, 6), device=x.device, dtype=torch.float32)
     if B == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.knn_neighbors(x.data_ptr(), out.data_ptr(), B, N, k, stream)
-    _build.check(err, "knn_neighbors")
+    _build.launch("knn_neighbors", x.device, x.data_ptr(), out.data_ptr(), B, N, k)
     LAUNCHES["knn_neighbors_pallas"] += 1
     return out
 

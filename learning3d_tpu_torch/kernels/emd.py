@@ -160,12 +160,8 @@ def emd_kernel(x, y):
         return cost, g1, g2
     scratch = torch.empty((B * (3 * N + 2 * M),), device=x.device, dtype=torch.float32)
     mult_l, mult_r = _multipliers(N, M)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.emd_fwd(x.data_ptr(), y.data_ptr(), cost.data_ptr(), g1.data_ptr(), g2.data_ptr(),
-                          scratch.data_ptr(), B, N, M, mult_l, mult_r, stream)
-    _build.check(err, "emd_fwd")
+    _build.launch("emd_fwd", x.device, x.data_ptr(), y.data_ptr(), cost.data_ptr(), g1.data_ptr(), g2.data_ptr(),
+                  scratch.data_ptr(), B, N, M, mult_l, mult_r)
     LAUNCHES["_emd_fwd_pallas"] += 1
     return cost, g1, g2
 

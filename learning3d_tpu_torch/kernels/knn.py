@@ -112,11 +112,7 @@ def knn_pallas(queries, points, k):
     idx = torch.empty((B, S, k), device=q.device, dtype=torch.int32)
     if B == 0 or S == 0:
         return dist, idx
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.knn_select(q.data_ptr(), p.data_ptr(), dist.data_ptr(), idx.data_ptr(), B, S, p.shape[1], C, k,
-                             stream)
-    _build.check(err, "knn_select")
+    _build.launch("knn_select", q.device, q.data_ptr(), p.data_ptr(), dist.data_ptr(), idx.data_ptr(), B, S,
+                  p.shape[1], C, k)
     LAUNCHES["knn_pallas"] += 1
     return dist, idx

@@ -119,12 +119,8 @@ def pointnet_pooled_kernel(x, ws, bs, *, dot_dtype=torch.bfloat16):
     emb = ws[-1].shape[1]
     out = torch.empty((B, emb), device=x.device, dtype=torch.bfloat16)
     img = torch.empty(W234_BYTES + 2 * CHAIN[-1] * emb, device=x.device, dtype=torch.uint8)
-    lib = _build.library()
     ptrs = [t.data_ptr() for pair in zip(ws, bs) for t in pair]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pointnet_pooled_bf16(x.data_ptr(), *ptrs, out.data_ptr(), img.data_ptr(), B, N, emb, stream)
-    _build.check(err, "pointnet_pooled_bf16")
+    _build.launch("pointnet_pooled_bf16", x.device, x.data_ptr(), *ptrs, out.data_ptr(), img.data_ptr(), B, N, emb)
     LAUNCHES["pointnet_pooled_kernel"] += 1
     return out
 
@@ -297,13 +293,8 @@ def pointnet_pooled_int8_kernel(x, pack):
     emb = stages[-1][0].shape[0]
     out = torch.empty((B, emb), device=x.device, dtype=torch.float32)
     inv = [ctypes.c_float(s) for s in pack.inv_s]
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pointnet_pooled_int8(x.data_ptr(), pack.w1.data_ptr(), pack.b1.data_ptr(), pack.img.data_ptr(),
-                                       *(swb.data_ptr() for _, swb in stages), *inv, out.data_ptr(), B, N, emb,
-                                       stream)
-    _build.check(err, "pointnet_pooled_int8")
+    _build.launch("pointnet_pooled_int8", x.device, x.data_ptr(), pack.w1.data_ptr(), pack.b1.data_ptr(),
+                  pack.img.data_ptr(), *(swb.data_ptr() for _, swb in stages), *inv, out.data_ptr(), B, N, emb)
     LAUNCHES["pointnet_pooled_int8"] += 1
     return out
 

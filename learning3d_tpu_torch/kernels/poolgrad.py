@@ -31,8 +31,14 @@ from learning3d_tpu_torch.kernels import LAUNCHES
 from learning3d_tpu_torch.kernels import _build
 
 KERNEL_K = 128  # the kernels' input width: PointNet's conv5 reads 128 channels
-MAX_E_BWD = 4096  # K4 keeps e in the low 12 bits of a sort key
-MAX_N_BWD = (1 << 20) - 1  # ... and the point index in the 20 above them
+MAX_E_BWD = 4096  # K4 keeps e in the low 12 bits of a list entry
+MAX_N_BWD = (1 << 20) - 1  # its C entry takes N < 2**20
+# K4's dx_sp schedule (``csrc/poolgrad.cu``): rows a block, warps a block
+# (each a contiguous range of e in the compaction), W^T rows a row loads
+# before their FMAs
+BWD_ROW_TILE = 128
+BWD_WARPS = 8
+BWD_KEY_BATCH = 4
 
 
 def pool_stats_ok(N, E, K):
@@ -143,14 +149,9 @@ def pool_stats(x, W, c):
     gpart, cspart = torch.empty(B, K, K, device=dev, dtype=f32), torch.empty(B, K, device=dev, dtype=f32)
     img = torch.empty(IMAGE_ROW_BYTES * E * (2 if is_f32 else 1), device=dev, dtype=torch.uint8)
     xs = torch.empty(2 * x.numel() if is_f32 else 0, device=dev, dtype=torch.bfloat16)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pool_stats(x.data_ptr(), W.data_ptr(), c.data_ptr(), int(is_f32), mx.data_ptr(),
-                             mn.data_ptr(), amax.data_ptr(), amin.data_ptr(), gpart.data_ptr(),
-                             cspart.data_ptr(), G.data_ptr(), colsum.data_ptr(), img.data_ptr(),
-                             xs.data_ptr() if is_f32 else None, B, N, E, stream)
-    _build.check(err, "pool_stats")
+    _build.launch("pool_stats", dev, x.data_ptr(), W.data_ptr(), c.data_ptr(), int(is_f32), mx.data_ptr(),
+                  mn.data_ptr(), amax.data_ptr(), amin.data_ptr(), gpart.data_ptr(), cspart.data_ptr(), G.data_ptr(),
+                  colsum.data_ptr(), img.data_ptr(), xs.data_ptr() if is_f32 else None, B, N, E)
     LAUNCHES["pool_stats_pallas"] += 1
     return mx, mn, amax, amin, G, colsum
 
@@ -190,11 +191,7 @@ def pool_bwd(idx, dsel, W, x):
     E = wt.shape[0]
     dx = torch.empty(B, N, K, device=x.device, dtype=f32)
     dwt = torch.empty(E, K, device=x.device, dtype=f32)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.pool_bwd(idx.data_ptr(), dsel.data_ptr(), wt.data_ptr(), x.data_ptr(), int(is_f32),
-                           dx.data_ptr(), dwt.data_ptr(), B, N, E, stream)
-    _build.check(err, "pool_bwd")
+    _build.launch("pool_bwd", x.device, idx.data_ptr(), dsel.data_ptr(), wt.data_ptr(), x.data_ptr(), int(is_f32),
+                  dx.data_ptr(), dwt.data_ptr(), B, N, E)
     LAUNCHES["pool_bwd_pallas"] += 1
     return dx, dwt.t()

@@ -13,8 +13,10 @@ distances are all 0 and the picks repeat the first such index. Any N and
 npoint: the TPU kernel's npoint <= 1024 is a limit of its VMEM that the
 CUDA kernel does not share. ``start`` must lie in [0, N).
 
-``ball_query_pallas(radius, nsample, xyz, new_xyz)``: xyz (B, N, 3),
-new_xyz (B, S, 3) -> idx (B, S, nsample) int32: the first nsample indices
+``ball_query_pallas(radius, nsample, xyz, new_xyz, dtype=torch.int32)``:
+xyz (B, N, 3), new_xyz (B, S, 3) -> idx (B, S, nsample) int32 (int64 for
+``dtype=torch.int64``, written so by the kernel: ``ops.geometry`` takes its
+int64 indices without a conversion pass): the first nsample indices
 with ``(d0*d0 + d1*d1) + d2*d2 <= r2`` (exact per-coordinate differences),
 ascending, a short row padded with its first index, a row with no point in
 the ball N everywhere. ``r2`` is the Python float ``radius ** 2`` rounded
@@ -114,6 +116,11 @@ def ball_group_queries(batch, s, sms=132):
     return nq
 
 
+# K15's scan (``csrc/ball_query.cu``): 32-point rounds a warp loads before
+# it tests any of them
+BALL_QUERY_ROUNDS = 4
+
+
 def squared_radius(radius) -> np.float32:
     """The Python float ``radius ** 2`` rounded once to f32 (``f32(r) *
     f32(r)`` can differ from it by an ulp)."""
@@ -161,12 +168,12 @@ def fps_reference(xyz, npoint, start=None):
     return out
 
 
-def ball_query_reference(radius, nsample, xyz, new_xyz):
-    """The kernel's plain version: (B, S, nsample) int32 from exact
-    per-coordinate differences, the in-ball indices as keys (N outside the
-    ball), the nsample smallest in ascending order, N replaced by the row's
-    first key. Batches go in chunks whose (b, S, N) intermediates stay under
-    CHUNK_BYTES."""
+def ball_query_reference(radius, nsample, xyz, new_xyz, dtype=torch.int32):
+    """The kernel's plain version: (B, S, nsample) ``dtype`` (int32 or
+    int64) from exact per-coordinate differences, the in-ball indices as keys
+    (N outside the ball), the nsample smallest in ascending order, N replaced
+    by the row's first key. Batches go in chunks whose (b, S, N)
+    intermediates stay under CHUNK_BYTES."""
     p, q = xyz.float(), new_xyz.float()
     B, N, _ = p.shape
     S = q.shape[1]
@@ -182,7 +189,7 @@ def ball_query_reference(radius, nsample, xyz, new_xyz):
         if k < nsample:
             key = torch.cat([key, torch.full(key.shape[:-1] + (nsample - k,), N, dtype=key.dtype, device=key.device)],
                             dim=-1)
-        outs.append(torch.where(key == N, key[..., :1], key).to(torch.int32))
+        outs.append(torch.where(key == N, key[..., :1], key).to(dtype))
     return torch.cat(outs)
 
 
@@ -212,13 +219,10 @@ def fps_pallas(xyz, npoint, start=None):
     idx = torch.empty((B, npoint), device=x.device, dtype=torch.int32)
     if B == 0:
         return idx
-    lib = _build.library()
-    scratch = torch.empty((B, 4, N), device=x.device, dtype=torch.float32) if lib.fps_scratch_needed(N) else None
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fps_sample(x.data_ptr(), None if st is None else st.data_ptr(), idx.data_ptr(),
-                             None if scratch is None else scratch.data_ptr(), B, N, npoint, stream)
-    _build.check(err, "fps_sample")
+    scratch = torch.empty((B, 4, N), device=x.device, dtype=torch.float32) \
+        if _build.library().fps_scratch_needed(N) else None
+    _build.launch("fps_sample", x.device, x.data_ptr(), None if st is None else st.data_ptr(), idx.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), B, N, npoint)
     LAUNCHES["fps_pallas"] += 1
     return idx
 
@@ -234,32 +238,36 @@ def _check_ball_query(nsample, xyz, new_xyz):
         raise ValueError(f"ball query needs N >= 1 and nsample >= 1, got N={xyz.shape[1]}, nsample={nsample}")
 
 
-def ball_query_pallas(radius, nsample, xyz, new_xyz):
-    """xyz (B, N, 3), new_xyz (B, S, 3) -> idx (B, S, nsample) int32. One
-    kernel launch on a CUDA tensor (past ``ball_query_kernel_limit``
-    NotImplementedError), the plain version on a CPU one."""
+def ball_query_pallas(radius, nsample, xyz, new_xyz, dtype=torch.int32):
+    """xyz (B, N, 3), new_xyz (B, S, 3) -> idx (B, S, nsample) ``dtype``
+    (int32 or int64). One kernel launch on a CUDA tensor (past
+    ``ball_query_kernel_limit`` NotImplementedError), the plain version on a
+    CPU one."""
     _check_ball_query(nsample, xyz, new_xyz)
+    if dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"ball query indices are int32 or int64, got {dtype}")
     if xyz.device.type == "cpu":
-        return ball_query_reference(radius, nsample, xyz, new_xyz)
+        return ball_query_reference(radius, nsample, xyz, new_xyz, dtype)
     if xyz.device.type != "cuda":
         raise ValueError(f"no kernel for device {xyz.device}")
-    limit = ball_query_kernel_limit(xyz.shape[1], nsample)
+    B, N, _ = xyz.shape
+    S = new_xyz.shape[1]
+    limit = ball_query_kernel_limit(N, nsample)
     if limit is not None:
         raise NotImplementedError(limit)
-    p, q = xyz.detach().float().contiguous(), new_xyz.detach().float().contiguous()
-    B, N, _ = p.shape
-    S = q.shape[1]
-    idx = torch.empty((B, S, nsample), device=p.device, dtype=torch.int32)
+    p, q = _f32(xyz), _f32(new_xyz)
+    idx = p.new_empty((B, S, nsample), dtype=dtype)
     if B == 0 or S == 0:
         return idx
-    lib = _build.library()
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = lib.ball_query(p.data_ptr(), q.data_ptr(), idx.data_ptr(), B, N, S, nsample,
-                             float(squared_radius(radius)), stream)
-    _build.check(err, "ball_query")
+    _build.launch("ball_query", p.device, p.data_ptr(), q.data_ptr(), idx.data_ptr(), int(dtype == torch.int64), B,
+                  N, S, nsample, float(squared_radius(radius)))
     LAUNCHES["ball_query_pallas"] += 1
     return idx
+
+
+def _f32(t):
+    """``t`` as a contiguous f32 tensor, itself where it is one already."""
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.detach().float().contiguous()
 
 
 def ball_group_reference(radius, nsample, xyz, new_xyz, itself_idx, values):
@@ -329,11 +337,7 @@ def ball_group_pallas(radius, nsample, xyz, new_xyz, itself_idx, values):
     out = torch.empty((B, S, nsample, C), device=p.device, dtype=torch.float32)
     if B == 0 or S == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = lib.ball_group(p.data_ptr(), q.data_ptr(), it.data_ptr(), v.data_ptr(), out.data_ptr(), B, N, S,
-                             nsample, C, float(squared_radius(radius)), stream)
-    _build.check(err, "ball_group")
+    _build.launch("ball_group", p.device, p.data_ptr(), q.data_ptr(), it.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                  N, S, nsample, C, float(squared_radius(radius)))
     LAUNCHES["ball_group_pallas"] += 1
     return out

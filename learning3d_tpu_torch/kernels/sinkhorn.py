@@ -71,12 +71,8 @@ def _launch(log_alpha, n_iters):
     u = torch.empty((B, J), device=a.device, dtype=torch.float64)  # the potentials, kept in f64
     v = torch.empty((B, K), device=a.device, dtype=torch.float64)
     part = torch.empty((2, B, -(-J // SWEEP_ROWS), K), device=a.device, dtype=torch.float64)  # the sweeps' (m, s)
-    lib = _build.library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.sinkhorn_slack(a.data_ptr(), out.data_ptr(), u.data_ptr(), v.data_ptr(), part.data_ptr(), B, J, K,
-                                 n_iters, SWEEP_ROWS, stream)
-    _build.check(err, "sinkhorn_slack")
+    _build.launch("sinkhorn_slack", a.device, a.data_ptr(), out.data_ptr(), u.data_ptr(), v.data_ptr(),
+                  part.data_ptr(), B, J, K, n_iters, SWEEP_ROWS)
     LAUNCHES["sinkhorn_log_pallas"] += 1
     return out
 

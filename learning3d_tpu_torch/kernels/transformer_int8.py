@@ -281,10 +281,9 @@ def _ptr(t):
 def _ln_quant(x, a, b, s, *, do_ln=True):
     rows, d = x.shape[0] * x.shape[1], x.shape[-1]
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    err = _build.library().layer_ln_quant(
-        x.data_ptr(), _ptr(a), _ptr(b), out.data_ptr(), rows, d, int(x.dtype == BF16), int(do_ln),
-        ctypes.c_float(d / (d - 1)), ctypes.c_float(LN_EPS), ctypes.c_float(s), _stream(x))
-    _build.check(err, "layer_ln_quant")
+    _build.launch("layer_ln_quant", x.device, x.data_ptr(), _ptr(a), _ptr(b), out.data_ptr(), rows, d,
+                  int(x.dtype == BF16), int(do_ln), ctypes.c_float(d / (d - 1)), ctypes.c_float(LN_EPS),
+                  ctypes.c_float(s))
     return out
 
 
@@ -294,11 +293,9 @@ def _gemm(a, pack, name, mode, res=None, out_dtype=torch.int8):
     n, k = wt.shape
     out = torch.empty((*a.shape[:-1], n), dtype=out_dtype, device=a.device)
     so, sr = getattr(pack, name + "_so", None), getattr(pack, name + "_sr", None)
-    err = _build.library().layer_gemm_s8(
-        a.data_ptr(), wt.data_ptr(), getattr(pack, name + "_cs").data_ptr(), getattr(pack, name + "_b").data_ptr(),
-        _ptr(so), _ptr(sr), _ptr(res), out.data_ptr(), a.numel() // k, n, k, mode,
-        int(res is not None and res.dtype == BF16), int(out_dtype == BF16), _stream(a))
-    _build.check(err, "layer_gemm_s8")
+    _build.launch("layer_gemm_s8", a.device, a.data_ptr(), wt.data_ptr(), getattr(pack, name + "_cs").data_ptr(),
+                  getattr(pack, name + "_b").data_ptr(), _ptr(so), _ptr(sr), _ptr(res), out.data_ptr(),
+                  a.numel() // k, n, k, mode, int(res is not None and res.dtype == BF16), int(out_dtype == BF16))
     return out
 
 
@@ -337,16 +334,10 @@ def _attention(q, kv, d, k_off, v_off, n_heads, att, int8_pv):
     if int8_pv and d_k <= SM90_MAX_DK:
         vt = torch.empty(values_scratch_shape(B, n_heads, M, d_k), dtype=torch.int8, device=q.device)
     base = kv.data_ptr()
-    err = _build.library().layer_attention_s8(
-        q.data_ptr(), base + k_off, base + v_off, out.data_ptr(), _ptr(vt), 0 if vt is None else vt.shape[-1], B,
-        n_heads, N, M, d_k, ldq, ldkv, d, ctypes.c_float(sscale), ctypes.c_float(s_v / 127.0 if int8_pv else s_v),
-        ctypes.c_float(s_att), int(bool(int8_pv)), _stream(q))
-    _build.check(err, "layer_attention_s8")
+    _build.launch("layer_attention_s8", q.device, q.data_ptr(), base + k_off, base + v_off, out.data_ptr(), _ptr(vt),
+                  0 if vt is None else vt.shape[-1], B, n_heads, N, M, d_k, ldq, ldkv, d, ctypes.c_float(sscale),
+                  ctypes.c_float(s_v / 127.0 if int8_pv else s_v), ctypes.c_float(s_att), int(bool(int8_pv)))
     return out
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check(x, pack, kernel):

@@ -180,7 +180,7 @@ def query_ball_point(radius, nsample, xyz, new_xyz, get_cnt=False):
         if get_cnt:
             raise NotImplementedError("query_ball_point(get_cnt=True) has no kernel on the card (K15 returns the "
                                       "indices only)")
-        return _sampling.ball_query_pallas(radius, nsample, xyz.detach(), new_xyz.detach()).long()
+        return _sampling.ball_query_pallas(radius, nsample, xyz, new_xyz, dtype=torch.int64)  # K15 writes int64
     sqrdists = square_distance(new_xyz.detach(), xyz.detach())  # (B, S, N)
     r2 = torch.tensor(np.float32(float(radius) * float(radius)), device=xyz.device)
     cols = torch.arange(N, device=xyz.device)

@@ -1004,10 +1004,15 @@ def test_k3_matches_plain(cuda, case, batch, n_pts, emb, dtype):
 @pytest.mark.parametrize("case,batch,n_pts,emb,dtype", [
     ("k3_picks", 4, 1024, 1024, torch.bfloat16), ("k3_picks_f32", 4, 1024, 1024, torch.float32),
     ("ragged", 3, 1000, 256, torch.bfloat16), ("one_point", 2, 512, 1024, torch.bfloat16),
-    ("one_point_f32", 2, 100, 640, torch.float32)])
+    ("one_point_f32", 2, 100, 640, torch.float32), ("ragged_tile", 4, 1000, 1024, torch.bfloat16),
+    ("e4096", 2, 300, 4096, torch.bfloat16), ("waves", 300, 1024, 1024, torch.bfloat16),
+    ("waves_f32", 300, 1024, 1024, torch.float32)])
 def test_k4_matches_plain(cuda, case, batch, n_pts, emb, dtype):
     """Indices from a real K3 run (many channels share a critical point),
-    and every channel on one point; dense dx_sp with zero rows elsewhere."""
+    and every channel on one point; dense dx_sp with zero rows elsewhere.
+    N = 1000 ends in a partial row tile (104 of 128 rows), E = 4096 is the
+    C entry's limit, and 300 clouds take several waves of dx blocks and a
+    partial last group of the dW warps' clouds in flight."""
     from learning3d_tpu_torch.kernels import LAUNCHES
     from learning3d_tpu_torch.kernels.poolgrad import pool_bwd, pool_bwd_reference, pool_stats
 
@@ -1045,6 +1050,16 @@ def test_k3_pack_is_the_stated_layout(cuda, emb, dtype):
     _build.check(err, "pool_stats_pack")
     torch.cuda.synchronize()
     assert torch.equal(img.cpu(), stats_weight_image(w))
+
+
+def test_k4_schedule_is_the_stated_schedule(cuda):
+    """The C entry's dx_sp schedule is kernels/poolgrad.py's BWD_ROW_TILE,
+    BWD_WARPS and BWD_KEY_BATCH, which the CPU emulation runs."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.poolgrad import BWD_KEY_BATCH, BWD_ROW_TILE, BWD_WARPS
+
+    lib = _build.library()
+    assert [lib.pool_bwd_schedule(i) for i in range(4)] == [BWD_ROW_TILE, BWD_WARPS, BWD_KEY_BATCH, -1]
 
 
 def test_k3_k4_refuse_what_they_do_not_take(cuda):
@@ -1628,11 +1643,16 @@ def k15_case(name, rng):
     whose ball is empty."""
     shapes = {"sa1": (0.5, 16, 2048, 1024), "sa2": (1.0, 16, 1024, 256), "sa3": (2.0, 8, 256, 64),
               "sa4": (4.0, 8, 64, 16), "ragged": (0.7, 16, 1000, 333), "nsample_128": (1.5, 128, 2048, 100),
-              "nsample_300": (2.0, 300, 2048, 100)}
+              "nsample_300": (2.0, 300, 2048, 100), "n20000": (0.1, 32, 20000, 541),
+              "query_ball_point": (0.5, 16, 2048, 1024)}
     if name in shapes:
         r, ns, n, s = shapes[name]
         x = rng.normal(size=(4, n, 3)).astype(np.float32)
         return r, ns, x, x[:, rng.permutation(n)[:s]].copy()
+    if name == "late_balls":  # the first 1100 points far away: balls fill after many rounds
+        x = rng.normal(size=(4, 2048, 3)).astype(np.float32)
+        x[:, :1100] += 50.0
+        return 0.4, 16, x, x[:, 1100 + rng.permutation(948)[:200]].copy()
     if name == "on_the_radius":
         x = radius_lattice()
         return 0.1, 16, x, x[:, :64].copy()
@@ -1641,12 +1661,16 @@ def k15_case(name, rng):
 
 
 @pytest.mark.parametrize("name", ["sa1", "sa2", "sa3", "sa4", "ragged", "nsample_128", "nsample_300",
-                                  "on_the_radius", "empty_ball"])
+                                  "on_the_radius", "empty_ball", "late_balls", "n20000", "query_ball_point"])
 def test_k15_matches_plain(cuda, name):
     """K15 against its plain version on the card: indices equal, one
-    launch; an empty ball gives N everywhere."""
+    launch; the int64 instance gives the same indices; an empty ball gives
+    N everywhere; balls that fill only past the first 1100 points; N =
+    20,000; ``ops.geometry.query_ball_point`` takes K15's int64 indices in
+    one launch."""
     from learning3d_tpu_torch.kernels import LAUNCHES
     from learning3d_tpu_torch.kernels.sampling import ball_query_pallas, ball_query_reference
+    from learning3d_tpu_torch.ops.geometry import query_ball_point
 
     r, ns, x, q = k15_case(name, np.random.default_rng(len(name)))
     x, q = torch.from_numpy(x).to(cuda), torch.from_numpy(q).to(cuda)
@@ -1657,8 +1681,37 @@ def test_k15_matches_plain(cuda, name):
     assert LAUNCHES["ball_query_pallas"] == before + 1
     assert got.dtype == torch.int32 and got.shape == (q.shape[0], q.shape[1], ns)
     assert torch.equal(got, want)
+    wide = query_ball_point(r, ns, x, q) if name == "query_ball_point" else ball_query_pallas(r, ns, x, q,
+                                                                                                  dtype=torch.int64)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ball_query_pallas"] == before + 2
+    assert wide.dtype == torch.int64 and torch.equal(wide, got.long())
     if name == "empty_ball":
         assert bool((got[:, 10:] == x.shape[1]).all()) and bool((got[:, :10] < x.shape[1]).all())
+    if name == "late_balls":
+        assert int(got.min()) >= 1100
+
+
+def test_k15_reads_points_past_int32_offsets(cuda):
+    """A cloud of 720M points (8.6 GB): the two in-ball points lie past
+    index 2**31 / 3, where a point's float offset no longer fits int32."""
+    from learning3d_tpu_torch.kernels.sampling import ball_query_pallas
+
+    n = 720_000_000
+    x = torch.full((1, n, 3), 100.0, device=cuda)
+    x[0, n - 7] = x[0, n - 2] = 0.0
+    got = ball_query_pallas(0.5, 2, x, torch.zeros((1, 1, 3), device=cuda))
+    torch.cuda.synchronize()
+    assert got.tolist() == [[[n - 7, n - 2]]]
+
+
+def test_k15_rounds_are_the_stated_rounds(cuda):
+    """The C entry's rounds a scan loads before their ballots are
+    kernels/sampling.py's BALL_QUERY_ROUNDS, which the CPU emulation runs."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.sampling import BALL_QUERY_ROUNDS
+
+    assert _build.library().ball_query_rounds() == BALL_QUERY_ROUNDS
 
 
 def test_k14_k15_refuse_past_their_limits(cuda):

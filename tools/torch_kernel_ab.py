@@ -5,11 +5,12 @@ and of the models that run them, from one tree: the attention kernels K6
 layers K11a/K11b, K8 (knn_pallas), K1 (pointnet_pooled_kernel), K14
 (fps_pallas), K9 (dgcnn_encode_int8_kernel), K5 (dgcnn_encode_fused), K17
 (sinkhorn_log_pallas), K7 (knn_neighbors_pallas's edge features), K3
-(pool_stats_pallas), K2 (pointnet_pooled_int8) and K16 (ball_group_pallas).
+(pool_stats_pallas), K2 (pointnet_pooled_int8), K16 (ball_group_pallas), K15
+(ball_query_pallas) and K4 (pool_bwd_pallas).
 
     python3 tools/torch_kernel_ab.py [--root TREE] [--label NAME]
         [--parts k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8,k5,k17,dcp_bf16,rpmnet,
-                 k7,k3,dcp_f32,k2,k16,pointnet_int8]
+                 k7,k3,dcp_f32,k2,k16,pointnet_int8,k15,k4,cls_step]
 
 (``tools/torch_attention_ab.py`` is the same script under its former name.)
 ``--root`` names the checkout whose ``learning3d_tpu_torch`` and
@@ -67,7 +68,22 @@ grouping (the template clouds of 16 pairs: 1024 queries among 1024 points, r
 0.3, nsample 64, C=6), at N=20,000 (1/37 of the points as queries, r 0.1:
 rows open across shared-memory chunks) and with rows of nsample 200.
 ``pointnet_int8``: ``model_ms`` of the served int8 classifier at B=256
-(``profile_torch_serve.build("pointnet-int8")``, K2 and the head). Inputs are
+(``profile_torch_serve.build("pointnet-int8")``, K2 and the head). ``k15``:
+K15 at FlowNet3D's four shapes (sa1 (16, 1024 among 2048, r 0.5, 16), sa2
+(16, 256 among 1024, r 1.0, 16), sa3 (16, 64 among 256, r 2.0, 8), sa4 (16,
+16 among 64, r 4.0, 8) on the SyntheticSceneflow clouds' own levels), as
+the kernel alone and through ``ops.geometry.query_ball_point`` (FlowNet3D's
+call: int64 indices), and the sums over a forward's six launches, with the
+SHA-256 of the int32 indices at the four shapes, and the host's
+microseconds a call at sa4 in parts (``host_us``: the wrapper, the checks,
+the allocation, the device and stream lookups, the C entry alone). ``k4``:
+K4 at the classifier step's shape (B=256, N=1024, K=128, E=1024) in bf16
+and f32 on K3's picks, device time by kernel (the wrapper's transpose of W
+beside K4) and the transpose's host time, with the SHA-256 of dx_sp's and
+dW_sel's bytes. ``cls_step``: the classifier
+train step (``chip_smoke.time_train_step``, bench.py's configuration, B=256)
+in bf16 and f32. The SHA-256 values tell whether two trees' kernels agree
+bit for bit on the same seeded inputs. Inputs are
 numpy-seeded. Prints one JSON line of
 ms a call (chip_smoke.cuda_ms; for K8, K1, K14, K9, K5 and K17 also
 ``/device``, the kernels' own time under torch.profiler) with the card's
@@ -77,10 +93,12 @@ name and power limit. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -92,7 +110,7 @@ def main() -> None:
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
     parser.add_argument("--label", default="")
     parser.add_argument("--parts", default="k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8,"
-                        "k5,k17,dcp_bf16,rpmnet,k7,k3,dcp_f32,k2,k16,pointnet_int8")
+                        "k5,k17,dcp_bf16,rpmnet,k7,k3,dcp_f32,k2,k16,pointnet_int8,k15,k4,cls_step")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -179,6 +197,12 @@ def main() -> None:
             times.update(k2_times(chip_smoke))
         if "k16" in parts:
             times.update(k16_times(chip_smoke))
+        if "k15" in parts:
+            times.update(k15_times(chip_smoke))
+        if "k4" in parts:
+            times.update(k4_times(chip_smoke))
+    if "cls_step" in parts:
+        times.update(cls_step_times(chip_smoke))
     if parts & {"prnet", "ipcrnet", "flownet", "dcp_int8", "dcp_bf16", "rpmnet", "dcp_f32", "pointnet_int8"}:
         times.update(model_times(chip_smoke, parts))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -448,6 +472,129 @@ def k16_times(chip_smoke) -> dict:
     times = {}
     for name, args in cases.items():
         by_launch(chip_smoke, times, f"k16/{name}", lambda: ball_group_pallas(*args))
+    return times
+
+
+def k15_times(chip_smoke) -> dict:
+    """K15 at FlowNet3D's four shapes, alone and through query_ball_point,
+    their sums over a forward's six launches, and the indices' SHA-256."""
+    from learning3d_tpu_torch.kernels.sampling import ball_query_pallas
+    from learning3d_tpu_torch.ops.geometry import query_ball_point
+
+    pc1 = torch.from_numpy(chip_smoke.flow_requests(chip_smoke.FLOW_B)[0]).cuda()
+    digest = hashlib.sha256()
+    times = {}
+    for k, (xyz, new, _, radius, nsample) in enumerate(chip_smoke.flow_levels(pc1)):
+        name = f"k15/sa{k + 1}"
+        times[name] = chip_smoke.cuda_ms(lambda: ball_query_pallas(radius, nsample, xyz, new))
+        times[f"{name}/device"] = device_ms(lambda: ball_query_pallas(radius, nsample, xyz, new))
+        times[f"{name}/query_ball_point"] = chip_smoke.cuda_ms(lambda: query_ball_point(radius, nsample, xyz, new))
+        times[f"{name}/query_ball_point/device"] = device_ms(lambda: query_ball_point(radius, nsample, xyz, new))
+        digest.update(ball_query_pallas(radius, nsample, xyz, new).cpu().numpy().tobytes())
+    for key in ("", "/device", "/query_ball_point", "/query_ball_point/device"):
+        times[f"k15/flownet_forward_6{key}"] = sum(times[f"k15/sa{k + 1}{key}"] * (2 if k < 2 else 1)
+                                                   for k in range(4))
+    times["k15/sha256"] = digest.hexdigest()
+    xyz, new, _, radius, nsample = chip_smoke.flow_levels(pc1)[3]
+    times.update(k15_host_us(xyz, new, radius, nsample))
+    return times
+
+
+def host_us(fn, reps: int = 2000) -> float:
+    """Host microseconds a call of ``fn``, by the host's clock over ``reps``
+    calls after a warm-up, ending in a synchronize (where ``fn`` enqueues
+    device work that takes less than its host time, the host's)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / reps
+
+
+def k15_host_us(xyz, new, radius, nsample) -> dict:
+    """The host's work a K15 call at sa4 (its device time is the least), in
+    parts: the wrapper as a whole, FlowNet3D's call (query_ball_point), the
+    checks, the output's allocation (two ways), the current device, the
+    device context, the current stream (two ways), and (where the tree's C
+    entry takes an output type) the C entry alone."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.sampling import _check_ball_query, ball_query_pallas, squared_radius
+    from learning3d_tpu_torch.ops.geometry import query_ball_point
+
+    dev = xyz.device
+    B, N, S = xyz.shape[0], xyz.shape[1], new.shape[1]
+
+    def enter_device():
+        with torch.cuda.device(dev):
+            pass
+
+    out = {"k15/host_us/wrapper": host_us(lambda: ball_query_pallas(radius, nsample, xyz, new)),
+           "k15/host_us/query_ball_point": host_us(lambda: query_ball_point(radius, nsample, xyz, new)),
+           "k15/host_us/check": host_us(lambda: _check_ball_query(nsample, xyz, new)),
+           "k15/host_us/empty": host_us(lambda: torch.empty((B, S, nsample), device=dev, dtype=torch.int32)),
+           "k15/host_us/new_empty": host_us(lambda: new.new_empty((B, S, nsample), dtype=torch.int32)),
+           "k15/host_us/device_enter": host_us(enter_device),
+           "k15/host_us/current_device": host_us(torch.cuda.current_device),
+           "k15/host_us/current_stream": host_us(lambda: torch.cuda.current_stream(dev).cuda_stream)}
+    if hasattr(torch._C, "_cuda_getCurrentRawStream"):
+        out["k15/host_us/raw_stream"] = host_us(lambda: torch._C._cuda_getCurrentRawStream(dev.index))
+    if len(_build.SIGNATURES["ball_query"][0]) == 10:  # the C entry takes the output type
+        lib, idx = _build.library(), torch.empty((B, S, nsample), device=dev, dtype=torch.int32)
+        stream, r2 = torch.cuda.current_stream(dev).cuda_stream, float(squared_radius(radius))
+        args = (xyz.data_ptr(), new.data_ptr(), idx.data_ptr(), 0, B, N, S, nsample, r2, stream)
+        out["k15/host_us/entry"] = host_us(lambda: lib.ball_query(*args))
+    return out
+
+
+def k4_times(chip_smoke) -> dict:
+    """K4 at the classifier step's shape in bf16 and f32 on K3's picks,
+    device time by kernel, and the SHA-256 of dx_sp and dW_sel."""
+    from learning3d_tpu_torch.kernels.poolgrad import pool_bwd, pool_stats
+
+    times = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        rng = np.random.default_rng(chip_smoke.SEED + 4)
+        x, w, c = chip_smoke.pool_tail_inputs(rng, chip_smoke.B, chip_smoke.N, chip_smoke.EMB, dtype)
+        idx = pool_stats(x, w, c)[2]
+        dsel = torch.from_numpy(rng.normal(size=idx.shape).astype(np.float32)).cuda()
+        by_launch(chip_smoke, times, f"k4/{name}", lambda: pool_bwd(idx, dsel, w, x))
+        times[f"k4/{name}/host_us/transpose"] = host_us(lambda: w.t().contiguous(), reps=500)
+        dx, dw = pool_bwd(idx, dsel, w, x)
+        digest = hashlib.sha256(dx.cpu().numpy().tobytes())
+        digest.update(dw.contiguous().cpu().numpy().tobytes())
+        times[f"k4/{name}/sha256"] = digest.hexdigest()
+        del x, dx
+    return times
+
+
+def cls_step_times(chip_smoke) -> dict:
+    """The classifier train step (bench.py's configuration, B=256, N=1024,
+    Adam, augmentation) in bf16 and f32: ``chip_smoke.time_train_step``'s
+    step and its parts."""
+    import tempfile
+
+    from learning3d_tpu_torch.models import Classifier, PointNet
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    times = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        rng = np.random.default_rng(chip_smoke.SEED)
+        model = Classifier(PointNet(emb_dims=chip_smoke.EMB, use_bn=True, dtype=dtype), chip_smoke.CLASSES,
+                           dtype=dtype)
+        load_nnx_state(model, chip_smoke.random_nnx_state(rng, chip_smoke.EMB, chip_smoke.CLASSES))
+        batch = (torch.from_numpy(rng.normal(size=(chip_smoke.B, chip_smoke.N, 3)).astype(np.float32)).cuda(),
+                 torch.from_numpy(rng.integers(0, chip_smoke.CLASSES, chip_smoke.B)).cuda())
+        with tempfile.TemporaryDirectory() as ckpt:
+            trainer = Trainer(TrainConfig(batch_size=chip_smoke.B, num_points=chip_smoke.N, lr=chip_smoke.TRAIN_LR,
+                                          ckpt_dir=ckpt, task="classification", augment=True), model)
+            trainer._ensure_optimizer(1)
+            step = chip_smoke.time_train_step(trainer, batch, reps=10)
+            trainer.close()
+        times.update({f"cls_step/{name}/{k}": v for k, v in step.items()})
     return times
 
 
