@@ -7,10 +7,10 @@ Drives the port's main paths at full width, bf16 and int8 (post-training
 quantized) eval serving of the PointNet-1024 classifier and of DCP
 registration (DGCNN-512, the co-attention pointer and the SVD head), bf16
 serving of iPCRNet with multi-start registration, f32 serving of PRNet
-(with multi-start registration), of FlowNet3D and of RPMNet, and training
-of the PointNet-1024 classifier, DCP, iPCRNet, PCN, PRNet, FlowNet3D and
-RPMNet through the Trainer, and holds every CUDA kernel of those paths
-against its plain PyTorch version.
+(with multi-start registration), of FlowNet3D and of RPMNet, MaskNet filtering for PointNetLK, and training
+of the PointNet-1024 classifier, DCP, iPCRNet, PCN, PRNet, FlowNet3D,
+RPMNet, PointNetLK, MaskNet and part segmentation through the Trainer, and
+holds every CUDA kernel of those paths against its plain PyTorch version.
 Phases, one JSON line each with the seconds since start:
 
 1. device: the card, and its name and power limit from nvidia-smi;
@@ -264,6 +264,50 @@ Phases, one JSON line each with the seconds since start:
    skipped, every weight changed; one step against the plain versions
    (RPM_STEP_TOL, the control must fail); a save -> load round trip; the
    step's parts, pairs/s and peak memory;
+
+35. serve_masknet_pnlk: the reference's test_masknet workflow (partial
+   scans against full models, examples/evaluate.py's --masknet_ckpt):
+   MaskNet(PointNet(1024, use_bn=True)) in bf16 eval through
+   InferenceEngine(batch_size=32) filters the template of 32 and 10
+   RegistrationData("PointNetLK", partial_source=True) pairs (a template of
+   1024 points, a 768-point source), then PointNetLK(PointNet(1024,
+   use_bn=True)) in f32 eval (10 iterations) registers the source against
+   the masked template: K1 once a MaskNet chunk, nothing else (PointNetLK's
+   f32 embeddings take the plain path, as in the JAX package); every output
+   finite, est_R a rotation; MaskNet's mask on the kernels against the
+   plain versions within LK_MASK_TOL (the picks' overlap reported) and the
+   control k1_half_cloud outside it; PointNetLK on the same masked
+   template, kernels against plain, within LK_SAME_TOL, and where the two
+   runs' picks agree for a pair, the chain's est_T too; model times of
+   MaskNet, of PointNetLK on the masked and on the full template, and
+   pairs/s of the two engines in turn. Its data, and that of the phases
+   below, come from a generator of its own and one cached set of clouds;
+36. train_pnlk: PointNetLK(PointNet(1024, use_bn=True)) in f32, B=32,
+   N=1024, 10 iterations, Adam 1e-3, task pointnetlk, through Trainer.fit
+   for one step: K3 twice (the warm-up's template and source embeddings in
+   train mode, forward only), K4 never; the loss finite, every weight and
+   running statistic changed; the step against the plain versions
+   (LK_STEP_TOL) and the control k3_last_tile_dropped outside it; the
+   step's parts and pairs/s;
+37. train_masknet: MaskNet(PointNet(1024, use_bn=True)) in f32, B=32, a
+   template of 1024 and a source of 768 points, Adam 1e-3, the bce loss,
+   for one step: K3 and K4 once each (the source's pool); the same checks
+   against the plain versions (MASK_STEP_TOL) with the control
+   k3_misplaced;
+38. train_seg: Segmentation(PointNet(1024, use_bn=True, global_feat=False),
+   40 classes) in f32, B=32, N=1024 on SyntheticPartSegmentation, Adam
+   1e-3, for one step: no kernel launched (per-point features, in both
+   packages); the loss finite, every weight and statistic changed; the
+   step's parts;
+39. kernel_pool_f32 (K3 and K4 in f32 at the shapes phases 36 and 37 give
+   them: B=32, N=1024 and N=768, K=128, E=1024): K3 against its plain
+   version within K3_F32_TOL (max/min, z at the kernel's indices) and
+   K3_F32_SUM_TOL (G, the column sum), K4 with the kernel's indices within
+   K4_F32_TOL (dx_sp, dW_sel); the controls k3_bf16_input and k4_bf16_input
+   (the kernels fed their f32 operands rounded to bf16, as a kernel that
+   computed its f32 path at bf16 precision would) outside them; the times
+   of both kernels and their plain versions. Its data come from a generator
+   of its own;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``. Any
 failed check raises, so the script exits non-zero and prints no result. It
@@ -1481,26 +1525,34 @@ def k3_bound(x, w) -> tuple[float, str]:
     return bound(flops, nbytes)
 
 
-def pool_stats_errors(got, want, x, w, c, what) -> dict:
+def pool_stats_gaps(got, want, x, w, c, what) -> dict:
+    """K3's outputs against the plain version's, each relative to the
+    largest plain value: max/min, z at the kernel's argmax/argmin, G and
+    the column sum (the indices checked for range first)."""
     mx, mn, amax, amin, G, cs = got
+    n_pts = x.shape[1]
+    for ai in (amax, amin):
+        require(ai.dtype == torch.int32 and int(ai.min()) >= 0 and int(ai.max()) < n_pts, f"K3 {what}: index range")
     scale = max(want[0].abs().max().item(), want[1].abs().max().item())
     abs_err = max((mx - want[0]).abs().max().item(), (mn - want[1]).abs().max().item())
-    require(abs_err <= TOL * scale, f"K3 {what}: max/min err {abs_err} > {TOL} * {scale}")
-    sums = {}
-    for key, g, r in (("G", G, want[4]), ("colsum", cs, want[5])):
-        sums[key] = (g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
-        require(sums[key] <= POOL_SUM_TOL, f"K3 {what}: {key} rel err {sums[key]}")
-    n_pts = x.shape[1]
     z = torch.matmul(x.float(), w.float()) + c.float()
-    at_err = 0.0
-    for ai, ref in ((amax, want[0]), (amin, want[1])):
-        require(ai.dtype == torch.int32 and int(ai.min()) >= 0 and int(ai.max()) < n_pts, f"K3 {what}: index range")
-        at = torch.gather(z, 1, ai.long()[:, None, :])[:, 0]
-        at_err = max(at_err, (at - ref).abs().max().item())
-    require(at_err <= TOL * scale, f"K3 {what}: z at the kernel's argmax/argmin off the plain max/min by {at_err}")
-    differ = 0.5 * ((amax != want[2]).float().mean().item() + (amin != want[3]).float().mean().item())
-    return {"abs": abs_err, "rel": abs_err / scale, "G_rel": sums["G"], "colsum_rel": sums["colsum"],
-            "z_at_index_rel": at_err / scale, "indices_differing": differ}
+    at_err = max((torch.gather(z, 1, ai.long()[:, None, :])[:, 0] - ref).abs().max().item()
+                 for ai, ref in ((amax, want[0]), (amin, want[1])))
+    rel = lambda g, r: (g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)  # noqa: E731
+    return {"abs": abs_err, "max_min": abs_err / scale, "z_at_index": at_err / scale, "G": rel(G, want[4]),
+            "colsum": rel(cs, want[5])}
+
+
+def pool_stats_errors(got, want, x, w, c, what) -> dict:
+    gaps = pool_stats_gaps(got, want, x, w, c, what)
+    require(gaps["max_min"] <= TOL, f"K3 {what}: max/min err {gaps['abs']} > {TOL} of max")
+    for key in ("G", "colsum"):
+        require(gaps[key] <= POOL_SUM_TOL, f"K3 {what}: {key} rel err {gaps[key]}")
+    require(gaps["z_at_index"] <= TOL, f"K3 {what}: z at the kernel's argmax/argmin off the plain max/min by "
+                                       f"{gaps['z_at_index']} of max")
+    differ = 0.5 * ((got[2] != want[2]).float().mean().item() + (got[3] != want[3]).float().mean().item())
+    return {"abs": gaps["abs"], "rel": gaps["max_min"], "G_rel": gaps["G"], "colsum_rel": gaps["colsum"],
+            "z_at_index_rel": gaps["z_at_index"], "indices_differing": differ}
 
 
 def phase_kernel_k3(rng) -> tuple[dict, dict]:
@@ -3544,6 +3596,435 @@ def phase_train_rpmnet(rng) -> dict:
     return result
 
 
+# -- MaskNet, PointNetLK and part segmentation --------------------------------
+LK_B, LK_N, LK_NS, LK_EMB, LK_ITERS = 32, 1024, 768, 1024, 10  # examples/train.py:55-62, the PointNetLK default
+LK_REQUESTS = (32, 10)
+SEG_CLASSES = 40  # examples/train.py:36-38
+# MaskNet with random weights scores every point near sigmoid(out's bias):
+# at emb 1024 the scores of a batch spread over 0.46-0.48, about ten bf16
+# steps, and dropping half of each source cloud from the pool moved them by
+# 0.008 (a CPU run at this width). The served model's output layer is drawn
+# MASK_OUT_SCALE times wider, so that its scores spread over 0.06-0.47; then
+# pooled features moved by one bf16 step on a tenth of the channels (what K1
+# against its plain version can give: another sum order) moved a score by
+# up to 0.012, the half cloud by 0.21 (on the H100: K1 against its plain
+# version 0.0068, the half cloud 0.232). LK_MASK_TOL (absolute, scores in
+# [0, 1]) lies between them. The train phase keeps the plain draw: scaled,
+# scores saturate at small widths, where the BCE gradient vanishes
+MASK_OUT_SCALE = 30.0
+LK_MASK_TOL = 5e-2
+# PointNetLK in f32 runs no kernel: on the same input the two contexts run
+# the same code, so only run-to-run differences of the card's own
+# reductions may show (none did: 0.0 on the H100)
+LK_SAME_TOL = 1e-6
+# One train step on K3/K4 against their plain versions, per-tensor relative
+# error (the H100; tools/torch_lk_step_gaps.py over two weight draws, and
+# this phase's own). PointNetLK: K3's f32 statistics (bf16 hi/lo products)
+# reach the loss only through the warm-up's running statistics
+# (1.4e-6-1.6e-6 apart), which the finite-difference Jacobian amplifies:
+# loss 8.7e-7-6.9e-6, gradients 5.1e-5-1.3e-4, the cancelling biases
+# 8.6e-5-6.7e-4 of their weight's gradient. A K3 fed bf16-rounded input
+# moved them about as little (gradients 1.5e-4-1.6e-4: its rounding
+# averages out over 32,768 points), so the control is a K3 that lost each
+# cloud's last 128-point tile (gradients 0.35-1.85). MaskNet: loss
+# 1e-7-6e-7, gradients 8.7e-4-5.5e-3 (K3's f32 picks: a channel whose two
+# largest values lie within ~2^-16 can take the other point, as in the
+# classifier's f32 step); the control k3_misplaced 0.10-0.23. LK_STEP_TOL
+# lies 7.7x over the worst reading and LK_NOISE_TOL 7.5x, MASK_STEP_TOL
+# 3.6x; each lies 5x or more under its control. Phase 39 holds K3's f32
+# path directly at these shapes, where a bf16-rounded input does show
+LK_STEP_TOL = 1e-3
+MASK_STEP_TOL = 2e-2
+LK_NOISE_TOL = 5e-3
+# K3 and K4 in f32 at the new paths' shapes against their plain versions,
+# relative to the largest plain value (the H100, phase 39 at B=32, N=1024
+# and 768). K3 multiplies through a bf16 hi/lo split (about 2^-16 of a
+# product) and sums in another order: max/min 5.4e-6-5.8e-6, z at the
+# indices 0, G 5.9e-6-6.5e-6, the column sum 3.7e-7-3.9e-7; fed its operands
+# rounded to bf16 (k3_bf16_input): 2.3e-3, 1.4e-3-1.7e-3, 1.5e-4-1.6e-4 and
+# 4.8e-5-4.9e-5. K4: dx_sp 1.5e-7, dW_sel 1.8e-7-1.9e-7; k4_bf16_input
+# 2.4e-3-2.5e-3 and 1.8e-3. Each limit lies 4.6x or more over its reading;
+# the controls fail every one (the column sum by 1.6x, the rest by 4.9x or
+# more)
+K3_F32_TOL = 1e-4
+K3_F32_SUM_TOL = 3e-5
+K4_F32_TOL = 1e-5
+POOL_F32_SHAPES = {"pnlk_warmup": (LK_B, LK_N), "masknet_source": (LK_B, LK_NS)}
+# the biases whose gradient cancels to rounding, held against their layer's
+# weight gradient: PointNetLK's last encoder stage shifts the template's and
+# the moved copies' features alike; in MaskNet the biases in front of a
+# train-mode BatchNorm
+LK_ZERO_GRADIENT_BIASES = ("feature_model.convs.4.bias", "feature_model.bns.4.bias")
+MASK_ZERO_GRADIENT_BIASES = tuple(f"maskNet.feature_model.convs.{i}.bias" for i in range(5))
+
+
+def random_pointnet_state(flat, rng, prefix, emb):
+    dims = [3, 64, 64, 64, 128, emb]
+    for k, (i, o) in enumerate(zip(dims[:-1], dims[1:])):
+        random_linear(flat, rng, f"{prefix}.convs.{k}", i, o)
+        random_bn(flat, rng, f"{prefix}.bns.{k}", o)
+
+
+def random_masknet_state(rng, emb: int = LK_EMB) -> dict:
+    """A flat nnx state of MaskNet(PointNet(emb, use_bn=True))."""
+    flat = {}
+    random_pointnet_state(flat, rng, "maskNet.feature_model", emb)
+    dims = [2 * emb, 1024, 512, 256, 128]
+    for k, (i, o) in enumerate(zip(dims[:-1], dims[1:])):
+        random_linear(flat, rng, f"maskNet.h3.{k}", i, o)
+    random_linear(flat, rng, "maskNet.out", 128, 1)
+    return flat
+
+
+def random_pnlk_state(rng, emb: int = LK_EMB) -> dict:
+    """A flat nnx state of PointNetLK(PointNet(emb, use_bn=True)), dt 0.01."""
+    flat = {"dt": np.full((1, 6), 1e-2, np.float32)}
+    random_pointnet_state(flat, rng, "feature_model", emb)
+    return flat
+
+
+def random_segmentation_state(rng, emb: int = LK_EMB, classes: int = SEG_CLASSES) -> dict:
+    """A flat nnx state of Segmentation(PointNet(emb, use_bn=True,
+    global_feat=False), classes)."""
+    flat = {}
+    random_pointnet_state(flat, rng, "feature_model", emb)
+    for k, (i, o) in enumerate([(emb + 64, 512), (512, 256), (256, 128), (128, classes)], 1):
+        random_linear(flat, rng, f"conv{k}", i, o)
+        if k < 4:
+            random_bn(flat, rng, f"bn{k}", o)
+    return flat
+
+
+@functools.cache
+def lk_clouds():
+    """The SyntheticModelNet40 clouds of every MaskNet and PointNetLK phase,
+    made once (~40 ms an item on the host), enough for the serving requests
+    (the first LK_B also train)."""
+    from learning3d_tpu_torch.data import SyntheticModelNet40
+
+    data = SyntheticModelNet40(num_points=LK_N, size=sum(LK_REQUESTS))
+    return tuple(data[i] for i in range(len(data)))
+
+
+def lk_pairs(n_pairs, offset=0, masknet=False):
+    """RegistrationData("PointNetLK") over the cached clouds (items offset
+    .. offset + n_pairs); with ``masknet`` a 768-point partial source and
+    the template's ground-truth mask."""
+    from learning3d_tpu_torch.data import RegistrationData
+
+    extra = {"partial_source": True, "additional_params": {"use_masknet": True}} if masknet else {}
+    return RegistrationData("PointNetLK", lk_clouds()[offset:offset + n_pairs], **extra)
+
+
+@contextlib.contextmanager
+def k1_half_cloud():
+    """The control of MaskNet's serving check: K1 pooling only the first
+    half of each cloud's points, as a kernel that dropped its last tiles
+    would."""
+    from learning3d_tpu_torch.kernels import pointnet_fused
+
+    kernel = pointnet_fused.pointnet_pooled_kernel
+    pointnet_fused.pointnet_pooled_kernel = lambda x, ws, bs: kernel(x[:, : x.shape[1] // 2].contiguous(), ws, bs)
+    try:
+        yield
+    finally:
+        pointnet_fused.pointnet_pooled_kernel = kernel
+
+
+@contextlib.contextmanager
+def k3_misplaced():
+    """The control of MaskNet's step check: K3 whose argmax and argmin on
+    every 64th channel name the next point, as a kernel that mixed up its
+    point offsets would (the values stay right; the backward scatters to
+    the wrong rows)."""
+    from learning3d_tpu_torch.utils import layers
+
+    kernel = layers.pool_stats
+
+    def misplaced(x, W, c):
+        mx, mn, amax, amin, G, colsum = kernel(x, W, c)
+        bad = torch.zeros_like(amax, dtype=torch.bool)
+        bad[:, ::64] = True
+        n = x.shape[1]
+        return mx, mn, torch.where(bad, (amax + 1) % n, amax), torch.where(bad, (amin + 1) % n, amin), G, colsum
+
+    layers.pool_stats = misplaced
+    try:
+        yield
+    finally:
+        layers.pool_stats = kernel
+
+
+@contextlib.contextmanager
+def k3_last_tile_dropped():
+    """The control of PointNetLK's step check: K3 reading each cloud but its
+    last 128-point tile, as a kernel that lost its last tile would (the
+    statistics then sum over 7/8 of the points)."""
+    from learning3d_tpu_torch.utils import layers
+
+    kernel = layers.pool_stats
+    layers.pool_stats = lambda x, W, c: kernel(x[:, : x.shape[1] - 128].contiguous(), W, c)
+    try:
+        yield
+    finally:
+        layers.pool_stats = kernel
+
+
+def phase_serve_masknet_pnlk(rng) -> dict:
+    from learning3d_tpu_torch.data import batch_iterator
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.models import MaskNet, PointNet, PointNetLK
+    from learning3d_tpu_torch.models.masknet import top_indices
+    from learning3d_tpu_torch.serve import InferenceEngine
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    bf16 = torch.bfloat16
+    state = random_masknet_state(rng)
+    state["maskNet.out.kernel"] *= MASK_OUT_SCALE
+    masknet = load_nnx_state(MaskNet(PointNet(emb_dims=LK_EMB, use_bn=True, dtype=bf16), dtype=bf16), state).eval()
+    pnlk = load_nnx_state(PointNetLK(PointNet(emb_dims=LK_EMB, use_bn=True)), random_pnlk_state(rng)).eval()
+    mask_engine, lk_engine = InferenceEngine(masknet, batch_size=LK_B), InferenceEngine(pnlk, batch_size=LK_B)
+    offsets = np.cumsum((0,) + LK_REQUESTS[:-1])
+    requests = [next(batch_iterator(lk_pairs(n, int(o), masknet=True), n, shuffle=False))
+                for n, o in zip(LK_REQUESTS, offsets)]
+    chunks = sum(-(-n // LK_B) for n in LK_REQUESTS)
+
+    def workflow(template, source):
+        masked, mask = mask_engine(template, source)
+        return masked, mask, lk_engine(masked, source)
+
+    reset_launches()
+    outs = [workflow(t, s) for t, s, _, _ in requests]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    require(launches == {"pointnet_pooled_kernel": chunks},
+            f"serve_masknet_pnlk launches {launches} for {chunks} MaskNet chunks (want K1 once a chunk)")
+    rot_err = 0.0
+    for (t, s, _, _), (masked, mask, out) in zip(requests, outs):
+        n = t.shape[0]
+        require(masked.shape == (n, LK_NS, 3) and mask.shape == (n, LK_N) and out["est_T"].shape == (n, 4, 4),
+                "result shapes")
+        require(out["est_T_series"].shape[1:] == (LK_B, 4, 4), "est_T_series is (iterations cut to rows, B, 4, 4)")
+        for name, val in (("masked template", masked), ("mask", mask), *out.items()):
+            require(bool(np.isfinite(val).all()), f"every {name} finite")
+        rot_err = max(rot_err, rotation_error(out["est_R"]))
+    require(rot_err <= ROT_TOL, f"est_R not a rotation: {rot_err} > {ROT_TOL}")
+
+    t_dev, s_dev = (torch.from_numpy(a[:LK_B]).cuda() for a in requests[0][:2])
+    with torch.inference_mode():
+        k_masked, k_mask = masknet(t_dev, s_dev)
+        with plain_versions():
+            p_masked, p_mask = masknet(t_dev, s_dev)
+        with k1_half_cloud():
+            c_mask = masknet(t_dev, s_dev)[1]
+        mask_err = (k_mask.float() - p_mask.float()).abs().max().item()
+        control_err = (c_mask.float() - p_mask.float()).abs().max().item()
+        require(mask_err <= LK_MASK_TOL, f"MaskNet's mask, kernels vs plain: {mask_err} > {LK_MASK_TOL}")
+        require(control_err > LK_MASK_TOL, f"the control k1_half_cloud passed: {control_err} <= {LK_MASK_TOL}")
+        k_picks, p_picks = top_indices(k_mask, LK_NS), top_indices(p_mask, LK_NS)
+        overlap = [len(np.intersect1d(a, b)) / LK_NS for a, b in zip(k_picks.cpu().numpy(), p_picks.cpu().numpy())]
+        k_out = pnlk(k_masked, s_dev)
+        with plain_versions():
+            p_out = pnlk(k_masked, s_dev)
+            chain = pnlk(p_masked, s_dev)
+        same_err = (k_out["est_T"] - p_out["est_T"]).abs().max().item()
+        require(same_err <= LK_SAME_TOL, f"PointNetLK on the same input, kernels vs plain: {same_err}")
+        same = (k_picks == p_picks).all(-1)
+        chain_err = (k_out["est_T"] - chain["est_T"]).abs().amax((1, 2))
+        require(bool((chain_err[same] <= LK_SAME_TOL).all()), "the chain's est_T where the picks agree")
+        mask_ms = cuda_ms(lambda: masknet(t_dev, s_dev), reps=5)
+        with plain_versions():
+            plain_mask_ms = cuda_ms(lambda: masknet(t_dev, s_dev), reps=3, warmup=1)
+        lk_ms = cuda_ms(lambda: pnlk(k_masked, s_dev), reps=3, warmup=1)
+        lk_full_ms = cuda_ms(lambda: pnlk(t_dev, s_dev), reps=3, warmup=1)
+    reps = 3
+    workflow(*requests[0][:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        workflow(*requests[0][:2])
+    host_s = (time.perf_counter() - t0) / reps
+    result = {"launches": launches.get("pointnet_pooled_kernel", 0), "mask_ms": mask_ms, "pnlk_ms": lk_ms}
+    emit("serve_masknet_pnlk", config={"masknet": "MaskNet(PointNet(1024, use_bn=True)) bf16 eval",
+                                       "pointnetlk": f"PointNetLK(PointNet(1024, use_bn=True)) f32 eval, "
+                                                     f"{LK_ITERS} iterations",
+                                       "B": LK_B, "template": LK_N, "source": LK_NS},
+         requests=list(LK_REQUESTS), chunks=chunks, launches=launches,
+         mask_vs_plain={"tolerance": f"max |mask| difference <= {LK_MASK_TOL}; the control k1_half_cloud must fail",
+                        "max_abs": mask_err, "control": control_err, "picks_overlap_min": min(overlap),
+                        "pairs_with_equal_picks": int(same.sum())},
+         pnlk_vs_plain={"tolerance": LK_SAME_TOL, "same_input": same_err,
+                        "chain_where_picks_differ": chain_err[~same].max().item() if (~same).any() else 0.0},
+         rotation={"max_RRt_minus_I_or_det": rot_err, "tolerance": ROT_TOL},
+         model_ms={"masknet": mask_ms, "masknet_plain": plain_mask_ms, "pointnetlk_masked": lk_ms,
+                   "pointnetlk_full_template": lk_full_ms},
+         workflow_ms=1e3 * host_s, pairs_per_s=LK_B / host_s)
+    return result
+
+
+def train_one_step(name, cfg, build, data, batch, tol, zero_gradient, want_launches, control=None, what=""):
+    """One Adam step through Trainer.fit (a dataset of one batch), the
+    launches it made, the checks of check_trained, the step against the
+    plain versions of K3 and K4 (with ``control`` that must fail), and the
+    step's parts."""
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.train import Trainer
+
+    trainer = Trainer(cfg, build())
+    before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):  # the Trainer's epoch line
+        trainer.fit(data)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    require(launches == want_launches, f"{name} launches {launches} (want {want_launches})")
+    epoch = trainer.history[-1]
+    skipped, changed = check_trained(trainer, before)
+    agreement = None
+    if control is not None:
+        agreement = step_agreement(lambda: Trainer(cfg, build()), batch, tol, plain_poolgrad, zero_gradient,
+                                   LK_NOISE_TOL, what=what, control=control)
+    timing = time_train_step(trainer, batch, reps=3, unit="pairs" if len(batch) > 2 else "clouds")
+    trainer.close()
+    return {"launches": launches, "train_loss": epoch["train_loss"], "epoch_s": epoch["seconds"],
+            "skipped_steps": skipped, "tensors_changed": sum(changed.values()), "tensors": len(changed),
+            "step_vs_plain": agreement, **timing}
+
+
+def phase_train_pnlk(rng) -> dict:
+    import tempfile
+
+    from learning3d_tpu_torch.data import batch_iterator, to_device
+    from learning3d_tpu_torch.models import PointNet, PointNetLK
+    from learning3d_tpu_torch.train import TrainConfig
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    state = random_pnlk_state(rng)
+    data = lk_pairs(LK_B)
+    batch = to_device(next(batch_iterator(data, LK_B, seed=SEED)), "cuda")
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = TrainConfig(exp_name="chip_smoke_train_pnlk", task="pointnetlk", batch_size=LK_B, num_points=LK_N,
+                          optimizer="adam", lr=TRAIN_LR, epochs=1, ckpt_dir=ckpt)
+        result = train_one_step("train_pnlk", cfg, lambda: load_nnx_state(
+            PointNetLK(PointNet(emb_dims=LK_EMB, use_bn=True)), state), data, batch, LK_STEP_TOL,
+            LK_ZERO_GRADIENT_BIASES, {"pool_stats_pallas": 2}, k3_last_tile_dropped, "PointNetLK train step")
+    emit("train_pnlk", config={"model": f"PointNetLK(PointNet(1024, use_bn=True)) f32, {LK_ITERS} iterations",
+                               "B": LK_B, "N": LK_N, "optimizer": "adam", "lr": TRAIN_LR, "steps": 1,
+                               "task": "pointnetlk"},
+         tolerance=f"loss, gradients, statistics {LK_STEP_TOL}; the control k3_last_tile_dropped must fail",
+         **result)
+    return result
+
+
+def phase_train_masknet(rng) -> dict:
+    import tempfile
+
+    from learning3d_tpu_torch.data import batch_iterator, to_device
+    from learning3d_tpu_torch.models import MaskNet, PointNet
+    from learning3d_tpu_torch.train import TrainConfig
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    state = random_masknet_state(rng)
+    data = lk_pairs(LK_B, masknet=True)
+    batch = to_device(next(batch_iterator(data, LK_B, seed=SEED)), "cuda")
+    require(len(batch) == 4 and batch[1].shape == (LK_B, LK_NS, 3), "the (template, source, igt, mask) batch")
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = TrainConfig(exp_name="chip_smoke_train_masknet", task="masknet", batch_size=LK_B, num_points=LK_N,
+                          optimizer="adam", lr=TRAIN_LR, epochs=1, masknet_loss="bce", ckpt_dir=ckpt)
+        result = train_one_step("train_masknet", cfg, lambda: load_nnx_state(
+            MaskNet(PointNet(emb_dims=LK_EMB, use_bn=True)), state), data, batch, MASK_STEP_TOL,
+            MASK_ZERO_GRADIENT_BIASES, {"pool_stats_pallas": 1, "pool_bwd_pallas": 1}, k3_misplaced,
+            "MaskNet train step")
+    emit("train_masknet", config={"model": "MaskNet(PointNet(1024, use_bn=True)) f32", "B": LK_B,
+                                  "template": LK_N, "source": LK_NS, "optimizer": "adam", "lr": TRAIN_LR,
+                                  "steps": 1, "loss": "bce"},
+         tolerance=f"loss, gradients, statistics {MASK_STEP_TOL}; the control k3_misplaced must fail", **result)
+    return result
+
+
+def phase_train_seg(rng) -> dict:
+    import tempfile
+
+    from learning3d_tpu_torch.data import SegmentationData, SyntheticPartSegmentation, batch_iterator, to_device
+    from learning3d_tpu_torch.models import PointNet, Segmentation
+    from learning3d_tpu_torch.train import TrainConfig
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    state = random_segmentation_state(rng)
+    data = SegmentationData(SyntheticPartSegmentation(num_points=LK_N, size=LK_B))
+    batch = to_device(next(batch_iterator(data, LK_B, seed=SEED)), "cuda")
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = TrainConfig(exp_name="chip_smoke_train_seg", task="segmentation", batch_size=LK_B, num_points=LK_N,
+                          optimizer="adam", lr=TRAIN_LR, epochs=1, ckpt_dir=ckpt)
+        result = train_one_step("train_seg", cfg, lambda: load_nnx_state(
+            Segmentation(PointNet(emb_dims=LK_EMB, use_bn=True, global_feat=False), SEG_CLASSES), state), data,
+            batch, None, (), {})
+    require(np.isfinite(result["train_loss"]), f"segmentation loss {result['train_loss']}")
+    emit("train_seg", config={"model": "Segmentation(PointNet(1024, use_bn=True, global_feat=False), 40) f32",
+                              "B": LK_B, "N": LK_N, "optimizer": "adam", "lr": TRAIN_LR, "steps": 1},
+         dataset="SyntheticPartSegmentation", **result)
+    return result
+
+
+def k4_f32_errors(got, want) -> dict:
+    errs = {key: (g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+            for key, g, r in (("dx", got[0], want[0]), ("dW", got[1], want[1]))}
+    return {**errs, "abs": max((g - r).abs().max().item() for g, r in zip(got, want))}
+
+
+def over_limits(errs, limits) -> list:
+    return [key for key, tol in limits.items() if errs[key] > tol]
+
+
+def phase_kernel_pool_f32(rng) -> dict:
+    """K3 and K4 in f32 at the shapes of PointNetLK's warm-up and MaskNet's
+    source pool, against their plain versions; the kernels fed bf16-rounded
+    operands must fail the same limits."""
+    from learning3d_tpu_torch.kernels.poolgrad import pool_bwd, pool_bwd_reference, pool_stats, pool_stats_reference
+
+    k3_limits = {"max_min": K3_F32_TOL, "z_at_index": K3_F32_TOL, "G": K3_F32_SUM_TOL, "colsum": K3_F32_SUM_TOL}
+    k4_limits = {"dx": K4_F32_TOL, "dW": K4_F32_TOL}
+    rounded = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    cases = {}
+    with torch.inference_mode():
+        for name, (b, n) in POOL_F32_SHAPES.items():
+            x, w, c = pool_tail_inputs(rng, b, n, LK_EMB, torch.float32)
+            want = pool_stats_reference(x, w, c)
+            got = pool_stats(x, w, c)
+            k3 = pool_stats_gaps(got, want, x, w, c, name)
+            k3_control = pool_stats_gaps(pool_stats(rounded(x), rounded(w), c), want, x, w, c, name)
+            idx = got[2]
+            dsel = torch.from_numpy(rng.normal(size=idx.shape).astype(np.float32)).cuda()
+            want4 = pool_bwd_reference(idx, dsel, w, x)
+            k4 = k4_f32_errors(pool_bwd(idx, dsel, w, x), want4)
+            k4_control = k4_f32_errors(pool_bwd(idx, dsel, rounded(w), rounded(x)), want4)
+            torch.cuda.synchronize()
+            failed = over_limits(k3, k3_limits) + over_limits(k4, k4_limits)
+            require(not failed, f"f32 K3/K4 ({name}) over their limits in {failed}: {k3} {k4}")
+            k3_caught, k4_caught = over_limits(k3_control, k3_limits), over_limits(k4_control, k4_limits)
+            require(bool(k3_caught), f"the control k3_bf16_input ({name}) passed: {k3_control}")
+            require(bool(k4_caught), f"the control k4_bf16_input ({name}) passed: {k4_control}")
+            cases[name] = {
+                "B": b, "N": n, "k3": k3, "k3_bf16_input": {**k3_control, "over": k3_caught},
+                "k4": k4, "k4_bf16_input": {**k4_control, "over": k4_caught},
+                "k3_ms": cuda_ms(lambda: pool_stats(x, w, c)),
+                "k3_plain_ms": cuda_ms(lambda: pool_stats_reference(x, w, c), reps=5, warmup=1),
+                "k3_bound_ms": k3_bound(x, w)[0],
+                "k4_ms": cuda_ms(lambda: pool_bwd(idx, dsel, w, x)),
+                "k4_plain_ms": cuda_ms(lambda: pool_bwd_reference(idx, dsel, w, x), reps=5, warmup=1),
+                "k4_bound_ms": k4_bound(idx, w, x)[0],
+            }
+    emit("kernel_pool_f32", tolerance={"k3": k3_limits, "k4": k4_limits,
+                                       "controls": "k3_bf16_input and k4_bf16_input must fail"},
+         K=K_TAIL, E=LK_EMB, cases=cases)
+    return {
+        "k3_abs": max(case["k3"]["abs"] for case in cases.values()),
+        "k3_rel": max(case["k3"]["max_min"] for case in cases.values()),
+        "k4_abs": max(case["k4"]["abs"] for case in cases.values()),
+        "k4_rel": max(max(case["k4"]["dx"], case["k4"]["dW"]) for case in cases.values()),
+    }
+
+
 def kernel_entry(name, source, replaces, launches, res) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -3653,11 +4134,24 @@ def main() -> None:
     k17 = phase_kernel_k17(rpm_rng)
     serve_rpmnet = phase_serve_rpmnet(rpm_rng)
     train_rpmnet = phase_train_rpmnet(rpm_rng)
+    lk_rng = np.random.default_rng(SEED + 14)
+    serve_lk = phase_serve_masknet_pnlk(lk_rng)
+    train_pnlk = phase_train_pnlk(lk_rng)
+    train_masknet = phase_train_masknet(lk_rng)
+    phase_train_seg(lk_rng)
+    pool_f32 = phase_kernel_pool_f32(np.random.default_rng(SEED + 15))
+    k3["max_abs_err"] = max(k3["max_abs_err"], pool_f32["k3_abs"])
+    k3["max_rel_err"] = max(k3["max_rel_err"], pool_f32["k3_rel"])
+    k4["max_abs_err"] = max(k4["max_abs_err"], pool_f32["k4_abs"])
+    k4["max_rel_err"] = max(k4["max_rel_err"], pool_f32["k4_rel"])
+    k3_launches = train["launches"]["pool_stats_pallas"] + train_pnlk["launches"]["pool_stats_pallas"] + \
+        train_masknet["launches"]["pool_stats_pallas"]
+    k4_launches = train["launches"]["pool_bwd_pallas"] + train_masknet["launches"]["pool_bwd_pallas"]
 
     csrc = "learning3d_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
         kernel_entry("pointnet_pooled_kernel", csrc + "pointnet_fused.cu",
-                     "learning3d_tpu/kernels/pointnet_fused.py:205", launches, k1),
+                     "learning3d_tpu/kernels/pointnet_fused.py:205", launches + serve_lk["launches"], k1),
         kernel_entry("dgcnn_encode_fused", csrc + "dgcnn_fused.cu",
                      "learning3d_tpu/kernels/dgcnn_fused.py:205", dcp_launches["dgcnn_encode_fused"], k5),
         kernel_entry("attention_pallas", csrc + "attention.cu",
@@ -3675,9 +4169,9 @@ def main() -> None:
                      "learning3d_tpu/kernels/transformer_int8.py:289", fused_launches["decoder_layer_int8"],
                      k11["decoder"]),
         kernel_entry("pool_stats_pallas", csrc + "poolgrad.cu", "learning3d_tpu/kernels/poolgrad.py:146",
-                     train["launches"]["pool_stats_pallas"], k3),
+                     k3_launches, k3),
         kernel_entry("pool_bwd_pallas", csrc + "poolgrad.cu", "learning3d_tpu/kernels/poolgrad.py:203",
-                     train["launches"]["pool_bwd_pallas"], k4),
+                     k4_launches, k4),
         kernel_entry("knn_neighbors_pallas", csrc + "dgcnn_select.cu", "learning3d_tpu/kernels/edgeconv.py:73",
                      train_dcp["launches"]["knn_neighbors_pallas"], k7),
         kernel_entry("_nn_oneway_pallas", csrc + "chamfer.cu", "learning3d_tpu/kernels/chamfer.py:65", k12_launches,

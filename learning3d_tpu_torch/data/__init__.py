@@ -1,14 +1,16 @@
 """Data pipeline of the port: the synthetic ModelNet40 stand-in, the
-classification wrapper, the registration pairs and the scene-flow pairs
-(host numpy, as the JAX package's), host batching, prefetch to the card and on-device
-augmentation."""
+classification wrapper, the registration pairs, the scene-flow pairs and
+the part-segmentation sets (host numpy, as the JAX package's), host
+batching, prefetch to the card and on-device augmentation."""
 
 from learning3d_tpu_torch.data.dataloaders import (  # noqa: F401
     ClassificationData,
     FlowData,
     RegistrationData,
     SceneflowDataset,
+    SegmentationData,
     SyntheticModelNet40,
+    SyntheticPartSegmentation,
     SyntheticSceneflow,
 )
 from learning3d_tpu_torch.data.device_pipeline import (  # noqa: F401

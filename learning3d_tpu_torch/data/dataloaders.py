@@ -6,10 +6,11 @@ its pair synthesis (per-algorithm transforms, partial crops, jitter), and
 the scene-flow sets ``SyntheticSceneflow``, ``SceneflowDataset`` (the
 FlyingThings3D npz archive, read from ``root`` or ``$LEARNING3D_DATA``,
 else ``~/.learning3d_tpu/data``, as the JAX package reads it) and
-``FlowData``. Items are numpy arrays, identical to the JAX package's bit for
-bit; batching for the device loop lives in ``device_pipeline``. The
-HDF5-backed ModelNet40, DeepGMR's RRI features and the segmentation
-datasets are not ported yet.
+``FlowData``, and the part-segmentation sets ``SyntheticPartSegmentation``
+and ``SegmentationData``. Items are numpy arrays, identical to the JAX
+package's bit for bit; batching for the device loop lives in
+``device_pipeline``. The HDF5-backed ModelNet40 and DeepGMR's RRI features
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -314,7 +315,7 @@ class RegistrationData:
         self.seed = seed
         if algorithm == "DeepGMR" and self.additional_params.get("nearest_neighbors", 0) > 0:
             raise NotImplementedError("DeepGMR's RRI features (nearest_neighbors > 0) are not ported yet: "
-                                      "they come with DeepGMR's slice (ROADMAP Queue 1 item 8.6)")
+                                      "they come with DeepGMR's slice (ROADMAP Queue 1, the DeepGMR item)")
         self.resample_per_epoch = algorithm not in ("PCRNet", "iPCRNet")
         self._epoch = 0
         self._difficulty = 1.0
@@ -402,6 +403,68 @@ class RegistrationData:
             extras = [m for m in (template_mask, source_mask) if m is not None]
             return (template, source, igt, *extras)
         return template, source, igt
+
+
+class SyntheticPartSegmentation:
+    """Procedural part segmentation: each item is a shape of 2 to
+    ``num_parts`` primitive parts (sphere, cylinder, box surfaces) stacked
+    along z, jittered, centred and scaled into the unit cube, with a part
+    label a point -> (points (N, 3) f32, seg (N,) int32), deterministic per
+    index."""
+
+    def __init__(self, train=True, num_points=1024, size=512, num_parts=4, seed=0):
+        self.num_points = num_points
+        self.size = size
+        self.num_parts = num_parts
+        self.seed = seed + (0 if train else 1_000_003)
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng(self.seed * 2654435761 + idx)
+        k = int(rng.integers(2, self.num_parts + 1))
+        counts = np.full(k, self.num_points // k)
+        counts[: self.num_points - counts.sum()] += 1
+        pts, labels = [], []
+        for part in range(k):
+            n = counts[part]
+            u, v = rng.random(n, np.float32), rng.random(n, np.float32)
+            kind = part % 3
+            if kind == 0:  # sphere
+                th, ph = 2 * np.pi * u, np.arccos(2 * v - 1)
+                p = 0.4 * np.stack([np.sin(ph) * np.cos(th), np.sin(ph) * np.sin(th), np.cos(ph)], -1)
+            elif kind == 1:  # cylinder
+                th = 2 * np.pi * u
+                p = np.stack([0.25 * np.cos(th), 0.25 * np.sin(th), 0.6 * (v - 0.5)], -1)
+            else:  # box
+                face = rng.integers(0, 6, n)
+                p = rng.random((n, 3), np.float32) * 0.6 - 0.3
+                p[np.arange(n), face % 3] = np.where(face < 3, 0.3, -0.3)
+            p = p + np.array([0.0, 0.0, 0.9 * part - 0.45 * (k - 1)], np.float32)
+            pts.append(p.astype(np.float32))
+            labels.append(np.full(n, part, np.int32))
+        pts = np.concatenate(pts)
+        labels = np.concatenate(labels)
+        pts += 0.01 * rng.standard_normal(pts.shape).astype(np.float32)
+        pts -= pts.mean(0, keepdims=True)
+        pts /= np.abs(pts).max() + 1e-6
+        order = rng.permutation(self.num_points)
+        return pts[order], labels[order]
+
+
+class SegmentationData:
+    """Per-point labelled dataset wrapper over a data_class yielding (points
+    (N, 3), seg_labels (N,)), ``SyntheticPartSegmentation()`` by default."""
+
+    def __init__(self, data_class=None):
+        self.data_class = data_class if data_class is not None else SyntheticPartSegmentation()
+
+    def __len__(self):
+        return len(self.data_class)
+
+    def __getitem__(self, idx):
+        return self.data_class[idx]
 
 
 class FlowData:

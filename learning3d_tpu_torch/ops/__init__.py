@@ -1,4 +1,6 @@
 """Numerical primitives of the port, counterparts of ``learning3d_tpu/ops``.
-Ported so far: what DGCNN, DCP and iPCRNet need (``geometry``, ``se3``,
-``transforms``, part of ``quaternion``), and the int8 arithmetic of the
-quantized paths (``int8``)."""
+Ported so far: the Lie-group layer (``sinc``, ``quaternion``, ``so3``,
+``se3``, ``invmat``, ``mean_shift``), most of ``geometry`` and part of
+``grouping``, ``transforms.transform_point_cloud`` (the key-driven
+samplers are not ported yet), and the int8 arithmetic of the quantized
+paths (``int8``)."""

@@ -13,7 +13,9 @@ from dataclasses import dataclass, field
 class TrainConfig:
     # experiment
     exp_name: str = "exp"
-    task: str = "classification"  # classification | registration | completion | masknet | flow | segmentation
+    # a key of train.tasks.TASKS: classification | pointnetlk | rpmnet | ipcrnet | dcp | prnet | pcn | masknet |
+    # flow | segmentation
+    task: str = "classification"
     algorithm: str = ""  # registration transform sampler name, if task == registration
     seed: int = 1234
 

@@ -2,7 +2,8 @@
 Every loss_fn has the signature ``loss_fn(model, batch, generator) ->
 (loss, aux_dict)``; ``generator`` is the Trainer's ``torch.Generator`` on
 the training device, for tasks that draw random numbers. Ported so far:
-classification, DCP, PRNet, iPCRNet, PCN, scene flow and RPMNet."""
+classification, DCP, PRNet, iPCRNet, PointNetLK, PCN, MaskNet, scene flow,
+RPMNet and segmentation; DeepGMR's task is not."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 from torch.nn import functional as F
 
 from learning3d_tpu_torch.losses import losses
-from learning3d_tpu_torch.train.metrics import registration_errors
+from learning3d_tpu_torch.train.metrics import mask_scores, registration_errors
 
 
 def classification(model, batch, generator=None, smoothing: float = 0.0):
@@ -50,6 +51,13 @@ def rpmnet(model, batch, generator=None):
     out = model(template, source)
     loss = losses.frobenius_norm_loss(out["est_T"], igt) + losses.rmse_features_loss(out["r"])
     return loss, registration_errors(out["est_T"], igt)
+
+
+def pointnetlk(model, batch, generator=None):
+    """PointNetLK's loss, the reference's train_PointNetLK: the same as
+    RPMNet's (frobenius_norm_loss(est_T, igt) + rmse_features_loss(r)),
+    with the registration metrics."""
+    return rpmnet(model, batch, generator)
 
 
 def ipcrnet(model, batch, generator=None):
@@ -115,5 +123,36 @@ def flownet(model, batch, generator=None):
     return loss, {"epe": err.mean(), "acc3d_strict": acc_s, "acc3d_relax": acc_r}
 
 
-TASKS = {"classification": classification, "rpmnet": rpmnet, "ipcrnet": ipcrnet, "dcp": dcp, "prnet": prnet,
-         "pcn": pcn, "flow": flownet}
+def masknet(model, batch, generator=None, loss_fn="mse"):
+    """MSE or BCE (``loss_fn`` "bce", the mask clipped to [1e-7, 1 - 1e-7])
+    between the predicted template mask and the ground truth's, the
+    reference's train_masknet loss, with ``mask_scores``. The batch is
+    (template, source, igt, gt_mask); gt_mask marks the template points that
+    survive in the partial source. MaskNet returns (masked_template,
+    template_mask); MaskNet2, not ported yet, returns the template mask
+    first."""
+    if type(model).__name__ == "MaskNet2":
+        raise NotImplementedError("MaskNet2 is not ported yet (ROADMAP Queue 1, the MaskNet2 item)")
+    template, source, igt, gt_mask = batch
+    mask = model(template, source)[1]
+    if loss_fn == "bce":
+        m = torch.clamp(mask, 1e-7, 1 - 1e-7)
+        loss = -torch.mean(gt_mask * torch.log(m) + (1 - gt_mask) * torch.log(1 - m))
+    else:
+        loss = torch.mean((mask - gt_mask) ** 2)
+    return loss, mask_scores(mask, gt_mask)
+
+
+def segmentation(model, batch, generator=None):
+    """Per-point NLL of the log-softmax logits (B, N, C) at the labels
+    (B, N), and the per-point accuracy."""
+    points, labels = batch
+    logits = model(points)
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -torch.mean(torch.gather(logp, -1, labels.long()[..., None])[..., 0])
+    acc = (torch.argmax(logits, -1) == labels).float().mean()
+    return loss, {"accuracy": acc}
+
+
+TASKS = {"classification": classification, "pointnetlk": pointnetlk, "rpmnet": rpmnet, "ipcrnet": ipcrnet,
+         "dcp": dcp, "prnet": prnet, "pcn": pcn, "masknet": masknet, "flow": flownet, "segmentation": segmentation}

@@ -90,10 +90,11 @@ class Trainer:
                  device=DEFAULT_DEVICE):
         if mesh is not None or config.mesh_shape is not None:
             raise NotImplementedError("mesh / mesh_shape: data-parallel training is not ported yet "
-                                      "(ROADMAP Queue 1 item 10, parallel/ -> torch.distributed)")
+                                      "(ROADMAP Queue 1, the parallel/ item: parallel/ -> torch.distributed)")
         if config.remat:
-            raise NotImplementedError("remat: not ported yet (ROADMAP Queue 1 item 12); a torch.utils.checkpoint "
-                                      "recompute would update the BatchNorm running statistics twice")
+            raise NotImplementedError("remat: not ported yet (ROADMAP Queue 1, the Trainer(remat=True) item); a "
+                                      "torch.utils.checkpoint recompute would update the BatchNorm running "
+                                      "statistics twice")
         self.cfg = config
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -108,6 +109,8 @@ class Trainer:
             loss_fn = _tasks.TASKS[config.task]
             if config.task == "classification" and config.label_smoothing:
                 loss_fn = functools.partial(_tasks.classification, smoothing=config.label_smoothing)
+            if config.task == "masknet":
+                loss_fn = functools.partial(_tasks.masknet, loss_fn=config.masknet_loss)
         self.loss_fn = loss_fn
         if augment_fn is None and config.augment and config.task == "classification":
             def augment_fn(generator, batch):

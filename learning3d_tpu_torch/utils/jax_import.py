@@ -16,8 +16,11 @@ Mapping (the port keeps torch's orientation for Linear):
 Entries under ``rngs`` (dropout keys and counters, PRNet's head's Gumbel
 stream) are skipped. Every ported model crosses this way (PointNet, the
 classifier, DGCNN, DCP with either head, PRNet, iPCRNet, PCN, FlowNet3D,
-PPFNet and RPMNet, whose ``nnx.List`` blocks map onto ``nn.ModuleList``
-indices): the port's modules carry the JAX modules' attribute names. PCN's conv5 keeps one
+PPFNet, RPMNet, PointNetLK, MaskNet and Segmentation, whose ``nnx.List``
+blocks map onto ``nn.ModuleList`` indices): the port's modules carry the
+JAX modules' attribute names. PointNetLK's ``dt`` (an ``nnx.Variable``, or
+a ``Param`` under ``learn_delta``) reaches the buffer or the parameter of
+that name. PCN's conv5 keeps one
 (emb + 5, 512) kernel, which the folding decoder splits by linearity in its
 forward, and PRDGCNN's edge convs one (2C, Co) kernel, which its forward
 splits into the neighbor and the center term, as the JAX package does;

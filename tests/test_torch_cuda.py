@@ -2057,3 +2057,104 @@ def test_rpmnet_runs_k16_k17_on_card(cuda, monkeypatch):
         assert bool(torch.isfinite(g).all()), name
         ref = want_grads[name].norm().item()
         assert (g - want_grads[name]).norm().item() <= 1e-3 * max(ref, 1e-12), name
+
+
+def test_masknet_bf16_pools_the_source_on_k1(cuda):
+    """bf16 MaskNet(PointNet(1024)) in eval, chip_smoke's served draw: one
+    forward launches K1 once (the source's pool; the template's per-point
+    pass and PointNetMask's MLP are plain), the mask within chip_smoke's
+    LK_MASK_TOL of the same model on the plain versions, the control
+    k1_half_cloud outside it; the picks in lax.top_k's order of the mask."""
+    import chip_smoke
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.models import MaskNet, PointNet
+    from learning3d_tpu_torch.models.masknet import top_indices
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    state = chip_smoke.random_masknet_state(np.random.default_rng(31))
+    state["maskNet.out.kernel"] *= chip_smoke.MASK_OUT_SCALE
+    bf16 = torch.bfloat16
+    model = load_nnx_state(MaskNet(PointNet(emb_dims=1024, use_bn=True, dtype=bf16, device=cuda), dtype=bf16,
+                                   device=cuda), state).eval()
+    rng = np.random.default_rng(32)
+    template = torch.from_numpy(rng.normal(size=(4, 1024, 3)).astype(np.float32)).to(cuda)
+    source = template[:, :768] + 0.01
+    with torch.inference_mode():
+        before = LAUNCHES["pointnet_pooled_kernel"]
+        masked, mask = model(template, source)
+        torch.cuda.synchronize()
+        assert LAUNCHES["pointnet_pooled_kernel"] - before == 1
+        with chip_smoke.plain_versions():
+            plain = model(template, source)[1]
+        with chip_smoke.k1_half_cloud():
+            control = model(template, source)[1]
+    assert mask.dtype == bf16 and masked.shape == (4, 768, 3)
+    assert (mask.float() - plain.float()).abs().max().item() <= chip_smoke.LK_MASK_TOL
+    assert (control.float() - plain.float()).abs().max().item() > chip_smoke.LK_MASK_TOL
+    idx = top_indices(mask, 768)
+    assert torch.equal(masked, torch.gather(template, 1, idx[..., None].expand(-1, -1, 3)))
+
+
+@pytest.mark.parametrize("family", ["pointnetlk", "masknet"])
+def test_lk_and_masknet_train_steps_match_plain(cuda, tmp_path, family):
+    """One f32 train step through the Trainer on K3/K4 against the same
+    step on their plain versions (chip_smoke's step_agreement, B=8): for
+    PointNetLK K3 twice (the warm-up's template and source, forward only)
+    and K4 never, within LK_STEP_TOL with the control k3_last_tile_dropped;
+    for MaskNet (bce) K3 and K4 once each, within MASK_STEP_TOL with the
+    control k3_misplaced. Launches counted over the kernels' run and the
+    control's."""
+    import chip_smoke
+    from learning3d_tpu_torch.data import batch_iterator, to_device
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.models import MaskNet, PointNet, PointNetLK
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    rng = np.random.default_rng(33)
+    if family == "pointnetlk":
+        state, model = chip_smoke.random_pnlk_state(rng), PointNetLK
+        data, tol, control, zero = (chip_smoke.lk_pairs(8), chip_smoke.LK_STEP_TOL, chip_smoke.k3_last_tile_dropped,
+                                    chip_smoke.LK_ZERO_GRADIENT_BIASES)
+        want = (4, 0)
+    else:
+        state, model = chip_smoke.random_masknet_state(rng), MaskNet
+        data, tol, control, zero = (chip_smoke.lk_pairs(8, masknet=True), chip_smoke.MASK_STEP_TOL,
+                                    chip_smoke.k3_misplaced, chip_smoke.MASK_ZERO_GRADIENT_BIASES)
+        want = (2, 2)
+    cfg = TrainConfig(task=family, batch_size=8, masknet_loss="bce", ckpt_dir=str(tmp_path))
+    batch = to_device(next(batch_iterator(data, 8)), cuda)
+    before = LAUNCHES["pool_stats_pallas"], LAUNCHES["pool_bwd_pallas"]
+    worst = chip_smoke.step_agreement(
+        lambda: Trainer(cfg, load_nnx_state(model(PointNet(emb_dims=1024, use_bn=True, device=cuda), device=cuda),
+                                            state), device=cuda),
+        batch, tol, chip_smoke.plain_poolgrad, zero, chip_smoke.LK_NOISE_TOL, control=control)
+    assert (LAUNCHES["pool_stats_pallas"] - before[0], LAUNCHES["pool_bwd_pallas"] - before[1]) == want
+    assert worst["grad"] <= tol
+
+
+def test_segmentation_trains_on_card_without_a_kernel(cuda, tmp_path):
+    """Segmentation(PointNet(1024, global_feat=False)) in f32: one step
+    through the Trainer launches no kernel, its loss is finite and every
+    weight and running statistic moves."""
+    import chip_smoke
+    from learning3d_tpu_torch.data import SyntheticPartSegmentation, batch_iterator, to_device
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.models import PointNet, Segmentation
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.utils.jax_import import load_nnx_state
+
+    model = load_nnx_state(Segmentation(PointNet(emb_dims=1024, use_bn=True, global_feat=False, device=cuda), 40,
+                                        device=cuda), chip_smoke.random_segmentation_state(np.random.default_rng(34)))
+    tr = Trainer(TrainConfig(task="segmentation", batch_size=4, ckpt_dir=str(tmp_path)), model, device=cuda)
+    tr._ensure_optimizer(1)
+    before = dict(LAUNCHES)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    loss, _ = tr.train_step(to_device(next(batch_iterator(SyntheticPartSegmentation(num_points=1024, size=4), 4)),
+                                      cuda))
+    torch.cuda.synchronize()
+    assert LAUNCHES == before
+    assert np.isfinite(float(loss))
+    assert all(not torch.equal(v, state[k]) for k, v in model.state_dict().items()
+               if k.endswith("weight") or "running" in k)
+    tr.close()

@@ -25,7 +25,7 @@ def port_files(*suffixes):
                   ROOT / "tools" / "torch_cls_step_gaps.py", ROOT / "tools" / "torch_prnet_step_gaps.py",
                   ROOT / "tools" / "torch_flownet_step_gaps.py", ROOT / "tools" / "torch_square_distance_ab.py",
                   ROOT / "tools" / "torch_rpmnet_step_gaps.py", ROOT / "tools" / "torch_attention_ab.py",
-                  ROOT / "tools" / "torch_kernel_ab.py"]
+                  ROOT / "tools" / "torch_kernel_ab.py", ROOT / "tools" / "torch_lk_step_gaps.py"]
     return files
 
 
@@ -73,7 +73,10 @@ def test_no_torch_extension_build_and_no_releases():
 
 def test_entry_points_default_to_cuda():
     from learning3d_tpu_torch import DEFAULT_DEVICE, resolve_device
-    from learning3d_tpu_torch.models import DCP, DGCNN, PCN, PPFNet, RPMNet, Classifier, PointNet, PRNet, iPCRNet
+    from learning3d_tpu_torch.models import (
+        DCP, DGCNN, PCN, MaskNet, PointNetLK, PointNetMask, PPFNet, RPMNet, Classifier, PointNet, PRNet, Segmentation,
+        iPCRNet,
+    )
     from learning3d_tpu_torch.models.dcp import MLPHead
     from learning3d_tpu_torch.models.prnet import PRDGCNN, PRPointNet, PRSVDHead, TemperatureNet
     from learning3d_tpu_torch.models.rpmnet import ParameterPredictionNet
@@ -89,7 +92,8 @@ def test_entry_points_default_to_cuda():
     for entry in (PointNet, Classifier, DGCNN, DCP, Transformer, MultiHeadedAttention, FeedForward,
                   AnnotatedLayerNorm, InferenceEngine, MLP1d, BatchNorm, Linear, resolve_device,
                   load_quant_pointnet, Trainer, Dropout, iPCRNet, PCN, PRNet, PRDGCNN, PRPointNet, PRSVDHead,
-                  TemperatureNet, MLPHead, TemplateRegistrar, PPFNet, RPMNet, ParameterPredictionNet, GroupNorm):
+                  TemperatureNet, MLPHead, TemplateRegistrar, PPFNet, RPMNet, ParameterPredictionNet, GroupNorm,
+                  PointNetLK, MaskNet, PointNetMask, Segmentation):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 
@@ -105,14 +109,17 @@ def test_training_subpackages_are_covered():
                 "data.device_pipeline", "losses", "losses.losses", "kernels.poolgrad", "kernels.edgeconv",
                 "kernels.chamfer", "kernels.emd", "kernels.knn", "models.pcrnet", "models.pcn", "models.prnet",
                 "ops.quaternion", "ops.geometry", "ops.grouping", "kernels.sampling", "kernels.sinkhorn",
-                "models.ppfnet", "models.rpmnet", "utils.rigid"):
+                "models.ppfnet", "models.rpmnet", "utils.rigid", "ops.sinc", "ops.so3", "ops.se3", "ops.invmat",
+                "ops.mean_shift", "models.pointnetlk", "models.masknet", "models.segmentation"):
         assert f"learning3d_tpu_torch.{sub}" in names
     files = {p.relative_to(PORT).as_posix() for p in port_files(".py", ".cu") if PORT in p.parents}
     for f in ("train/trainer.py", "train/metrics.py", "data/dataloaders.py", "losses/losses.py",
               "kernels/csrc/poolgrad.cu", "kernels/edgeconv.py", "kernels/csrc/dgcnn_select.cu",
               "kernels/chamfer.py", "kernels/csrc/chamfer.cu", "kernels/emd.py", "kernels/csrc/emd.cu",
               "kernels/knn.py", "kernels/csrc/knn.cu", "models/prnet.py", "kernels/csrc/ball_group.cu",
-              "kernels/sinkhorn.py", "kernels/csrc/sinkhorn.cu", "models/rpmnet.py"):
+              "kernels/sinkhorn.py", "kernels/csrc/sinkhorn.cu", "models/rpmnet.py", "ops/sinc.py", "ops/so3.py",
+              "ops/invmat.py", "ops/mean_shift.py", "models/pointnetlk.py", "models/masknet.py",
+              "models/segmentation.py"):
         assert f in files
 
 

@@ -535,9 +535,9 @@ def test_best_metric_fallback_warns(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     cfg = TrainConfig(ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="the parallel/ item"):
         Trainer(dataclasses.replace(cfg, mesh_shape=(1, 1)), small_classifier(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="the parallel/ item"):
         Trainer(cfg, small_classifier(), mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
         Trainer(dataclasses.replace(cfg, remat=True), small_classifier(), device="cpu")

@@ -237,7 +237,7 @@ def test_registration_data_epochs_and_difficulty():
     assert dcp._difficulty == 1.0
     with pytest.raises(ValueError, match="not available"):
         RegistrationData("ICP", data)
-    with pytest.raises(NotImplementedError, match="8.6"):
+    with pytest.raises(NotImplementedError, match="the DeepGMR item"):
         RegistrationData("DeepGMR", data, additional_params={"nearest_neighbors": 20})
 
 

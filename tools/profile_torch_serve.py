@@ -2,7 +2,8 @@
 """Where the time of the port's serving goes, on one card.
 
     python3 tools/profile_torch_serve.py [--model pointnet|dcp|pointnet-int8|dcp-int8|dcp-int8-fused|
-                                          dcp-int8-hybrid-fused|ipcrnet|prnet|flownet|rpmnet] [--requests 20]
+                                          dcp-int8-hybrid-fused|ipcrnet|prnet|flownet|rpmnet|masknet|pointnetlk]
+                                         [--requests 20]
 
 ``pointnet``: Classifier(PointNet(emb_dims=1024, use_bn=True)), requests of
 B=256 clouds of N=1024 points. ``dcp``: DCP(DGCNN(emb_dims=512, k=20)) with
@@ -21,7 +22,12 @@ pairs of 768 and 1024 points (K8 and K6). ``flownet``: FlowNet3D() in f32
 eval, requests of B=16 SyntheticSceneflow pairs of N=2048 points (K14, K15
 and K8). ``rpmnet``: RPMNet() (PPFNet emb 96, 2 iterations, 5 Sinkhorn
 iterations) in f32 eval, requests of B=16 RegistrationData("RPMNet") pairs
-of N=1024 points with normals (K16 and K17). All with the numpy-seeded
+of N=1024 points with normals (K16 and K17). ``masknet``:
+MaskNet(PointNet(1024, use_bn=True)) in bf16 eval (the served draw of
+chip_smoke.py's serve_masknet_pnlk), requests of B=32 pairs of a 1024-point
+template and a 768-point partial source (K1 once a forward). ``pointnetlk``:
+PointNetLK(PointNet(1024, use_bn=True)) in f32 eval, 10 iterations, on the
+same pairs (no kernel: f32). All with the numpy-seeded
 weights of chip_smoke.py, served through learning3d_tpu_torch's
 InferenceEngine under torch.profiler. Prints one JSON line: host wall time
 per request, device time per request by kernel (largest first), the
@@ -68,6 +74,20 @@ def build(name: str, rng):
                            dtype=bf16)
         load_nnx_state(model, chip_smoke.random_nnx_state(rng, chip_smoke.EMB, chip_smoke.CLASSES))
         return model, B, [rng.normal(size=(B, N, 3)).astype(np.float32)]
+    if name in ("masknet", "pointnetlk"):
+        from learning3d_tpu_torch.models import MaskNet, PointNetLK
+
+        from learning3d_tpu_torch.data import batch_iterator
+
+        pairs = chip_smoke.lk_pairs(chip_smoke.LK_B, masknet=True)
+        inputs = list(next(batch_iterator(pairs, chip_smoke.LK_B, shuffle=False))[:2])
+        if name == "pointnetlk":
+            return load_nnx_state(PointNetLK(PointNet(emb_dims=chip_smoke.LK_EMB, use_bn=True)),
+                                  chip_smoke.random_pnlk_state(rng)), chip_smoke.LK_B, inputs
+        state = chip_smoke.random_masknet_state(rng)
+        state["maskNet.out.kernel"] *= chip_smoke.MASK_OUT_SCALE
+        model = MaskNet(PointNet(emb_dims=chip_smoke.LK_EMB, use_bn=True, dtype=bf16), dtype=bf16)
+        return load_nnx_state(model, state), chip_smoke.LK_B, inputs
     if name == "rpmnet":
         from learning3d_tpu_torch.models import RPMNet
 
@@ -101,7 +121,8 @@ def build(name: str, rng):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=("pointnet", "dcp", "pointnet-int8", "dcp-int8", "dcp-int8-fused",
-                                            "dcp-int8-hybrid-fused", "ipcrnet", "prnet", "flownet", "rpmnet"),
+                                            "dcp-int8-hybrid-fused", "ipcrnet", "prnet", "flownet", "rpmnet", "masknet",
+                                            "pointnetlk"),
                         default="pointnet")
     parser.add_argument("--requests", type=int, default=20)
     args = parser.parse_args()

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's training step goes, on one card.
 
-    python3 tools/profile_torch_train.py [--model pointnet|dcp|ipcrnet|pcn|prnet|flownet|rpmnet] [--detailed]
+    python3 tools/profile_torch_train.py [--model pointnet|dcp|ipcrnet|pcn|prnet|flownet|rpmnet|pointnetlk|
+                                                  masknet|segmentation] [--detailed]
                                          [--dtype bf16|f32] [--steps 10]
 
 ``--model pointnet`` (the default) is bench.py's training configuration:
@@ -28,7 +29,15 @@ flow MSE, SGD (lr 1e-3, momentum 0.9), in f32. ``--model rpmnet`` is
 examples/train.py's RPMNet() (PPFNet emb 96, 2 iterations) on B=16 pairs of
 N=1024 points with normals from RegistrationData("RPMNet",
 SyntheticModelNet40(use_normals=True)), the Frobenius + feature-residual
-loss, Adam at 1e-3, in f32. All run through
+loss, Adam at 1e-3, in f32. ``--model pointnetlk``, ``masknet`` and
+``segmentation`` are chip_smoke.py's train_pnlk, train_masknet and
+train_seg: PointNetLK(PointNet(1024, use_bn=True)) (10 iterations) on B=32
+RegistrationData("PointNetLK") pairs of N=1024 (K3 twice a step, the
+warm-up), MaskNet(PointNet(1024, use_bn=True)) on B=32 pairs of a 1024-point
+template and a 768-point partial source with the bce loss (K3 and K4 once a
+step), Segmentation(PointNet(1024, use_bn=True, global_feat=False), 40) on
+B=32 SyntheticPartSegmentation clouds of N=1024 (no kernel); Adam at 1e-3,
+f32. All run through
 learning3d_tpu_torch's Trainer (its
 train_step on one device batch), with the numpy-seeded weights of
 chip_smoke.py. After a few warm-up
@@ -59,8 +68,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", choices=("pointnet", "dcp", "ipcrnet", "pcn", "prnet", "flownet", "rpmnet"),
-                        default="pointnet")
+    parser.add_argument("--model", choices=("pointnet", "dcp", "ipcrnet", "pcn", "prnet", "flownet", "rpmnet",
+                                            "pointnetlk", "masknet", "segmentation"), default="pointnet")
     parser.add_argument("--detailed", action="store_true", help="pcn: with the folding decoder")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default=None,
                         help="bf16 for pointnet and f32 for the others unless given")
@@ -120,6 +129,26 @@ def main() -> None:
         data = RegistrationData("RPMNet", chip_smoke.rpm_clouds())
         batch = to_device(next(batch_iterator(data, B, shuffle=False)), "cuda")
         cfg = dict(task="rpmnet")
+    elif args.model in ("pointnetlk", "masknet"):
+        from learning3d_tpu_torch.models import MaskNet, PointNetLK
+
+        B, N, unit = chip_smoke.LK_B, chip_smoke.LK_N, "pairs"
+        masknet = args.model == "masknet"
+        model = (MaskNet if masknet else PointNetLK)(PointNet(emb_dims=chip_smoke.LK_EMB, use_bn=True, dtype=dtype))
+        load_nnx_state(model, (chip_smoke.random_masknet_state if masknet else chip_smoke.random_pnlk_state)(rng))
+        batch = to_device(next(batch_iterator(chip_smoke.lk_pairs(B, masknet=masknet), B, shuffle=False)), "cuda")
+        cfg = dict(task=args.model, masknet_loss="bce")
+    elif args.model == "segmentation":
+        from learning3d_tpu_torch.data import SyntheticPartSegmentation
+        from learning3d_tpu_torch.models import Segmentation
+
+        B, N, unit = chip_smoke.LK_B, chip_smoke.LK_N, "clouds"
+        model = Segmentation(PointNet(emb_dims=chip_smoke.LK_EMB, use_bn=True, global_feat=False, dtype=dtype),
+                             chip_smoke.SEG_CLASSES, dtype=dtype)
+        load_nnx_state(model, chip_smoke.random_segmentation_state(rng))
+        batch = to_device(next(batch_iterator(SyntheticPartSegmentation(num_points=N, size=B), B, shuffle=False)),
+                          "cuda")
+        cfg = dict(task="segmentation")
     elif args.model == "flownet":
         from learning3d_tpu_torch.data import FlowData, SyntheticSceneflow
         from learning3d_tpu_torch.models import FlowNet3D
