@@ -60,7 +60,15 @@ def square_distance(src, dst):
     rounded on its own in float32, the norms by ``torch.sum``. On an H100
     the float64 chain took 327 us a call against 130 at FlowNet3D's (16,
     256, 256) kNN, and 0.46 ms of its 12.0 ms eval forward
-    (``tools/torch_square_distance_ab.py``)."""
+    (``tools/torch_square_distance_ab.py``).
+
+    Float64 operands stay float64 (the JAX package's expansion under x64):
+    the f64 parity tests hold values computed from the distances, such as
+    PointConv's kernel density, to JAX's f64 ones."""
+    if src.dtype == torch.float64 or dst.dtype == torch.float64:
+        src, dst = src.double(), dst.double()
+        dot = torch.einsum("...nc,...mc->...nm", src, dst)
+        return (-2.0 * dot + torch.sum(src * src, -1)[..., :, None]) + torch.sum(dst * dst, -1)[..., None, :]
     src, dst = src.float(), dst.float()
     if src.device.type == "cuda":
         dot = src[..., :, None, 0] * dst[..., None, :, 0]

@@ -16,9 +16,14 @@ Mapping (the port keeps torch's orientation for Linear):
 Entries under ``rngs`` (dropout keys and counters, PRNet's head's Gumbel
 stream) are skipped. Every ported model crosses this way (PointNet, the
 classifier, DGCNN, DCP with either head, PRNet, iPCRNet, PCN, FlowNet3D,
-PPFNet, RPMNet, PointNetLK, MaskNet and Segmentation, whose ``nnx.List``
-blocks map onto ``nn.ModuleList`` indices): the port's modules carry the
-JAX modules' attribute names. PointNetLK's ``dt`` (an ``nnx.Variable``, or
+PPFNet, RPMNet, PointNetLK, MaskNet, Segmentation, PointConv and CurveNet,
+whose ``nnx.List`` blocks map onto ``nn.ModuleList`` indices): the port's
+modules carry the JAX modules' attribute names. A BatchNorm's state is
+per channel whatever the rank of its input (PointConv's and CurveNet's
+BatchNorms over (B, S, K, C) groups), and the one- and two-channel
+BatchNorms of CurveNet's walk cross like any other; a module the JAX model
+holds as None (a CIC block without a shortcut or curves) has no entry on
+either side. PointNetLK's ``dt`` (an ``nnx.Variable``, or
 a ``Param`` under ``learn_delta``) reaches the buffer or the parameter of
 that name. PCN's conv5 keeps one
 (emb + 5, 512) kernel, which the folding decoder splits by linearity in its

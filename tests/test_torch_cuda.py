@@ -2158,3 +2158,132 @@ def test_segmentation_trains_on_card_without_a_kernel(cuda, tmp_path):
     assert all(not torch.equal(v, state[k]) for k, v in model.state_dict().items()
                if k.endswith("weight") or "running" in k)
     tr.close()
+
+
+# -- PointConv, CurveNet and the DGCNN classifier (K8, K14, K15, K5, K7) ---------
+
+def cls_cloud(rng, b, n):
+    """Points in the unit ball with surface-like clusters, as
+    SyntheticModelNet40's normalised clouds: (B, N, 3)."""
+    centers = rng.uniform(-0.7, 0.7, (b, 16, 3))
+    pick = rng.integers(0, 16, (b, n))
+    x = np.take_along_axis(centers, pick[..., None], 1) + 0.08 * rng.normal(size=(b, n, 3))
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("n,npoint", [(1024, 512), (512, 128), (1024, 256), (256, 64), (512, 600)])
+def test_k14_matches_plain_at_classifier_shapes(cuda, n, npoint):
+    """PointConv's 1024 -> 512 -> 128 and CurveNet's 1024 -> 256 -> 64 at
+    B=32, and npoint > N (a PointConv at N=512 asks sa1 for 512, a smaller
+    cloud for more): every point once in the scan's order, then the first
+    of the all-zero distances, index for index."""
+    from learning3d_tpu_torch.kernels.sampling import fps_pallas, fps_reference
+
+    x = torch.from_numpy(cls_cloud(np.random.default_rng(n + npoint), 32, n)).to(cuda)
+    got, want = fps_pallas(x, npoint), fps_reference(x, npoint)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if npoint > n:
+        assert all(len(set(row[:n].tolist())) == n for row in got.cpu())
+
+
+@pytest.mark.parametrize("s,n,k", [(1024, 1024, 21), (512, 1024, 32), (128, 512, 64)])
+def test_k8_matches_plain_at_classifier_shapes(cuda, s, n, k):
+    """CurveNet's self kNN (21 of 1024) and PointConv's (32 of 1024 for 512
+    FPS queries, 64 of 512 for 128) at B=32: indices equal, distances
+    bit-equal."""
+    from learning3d_tpu_torch.kernels.knn import knn_pallas, knn_reference
+    from learning3d_tpu_torch.kernels.sampling import fps_pallas
+    from learning3d_tpu_torch.ops.geometry import index_points
+
+    p = torch.from_numpy(cls_cloud(np.random.default_rng(s + k), 32, n)).to(cuda)
+    q = p if s == n else index_points(p, fps_pallas(p, s).long()).contiguous()
+    (d, i), (want_d, want_i) = knn_pallas(q, p, k), knn_reference(q, p, k)
+    torch.cuda.synchronize()
+    assert torch.equal(i, want_i) and torch.equal(d, want_d)
+
+
+@pytest.mark.parametrize("n,s,radius", [(1024, 256, 0.1), (256, 64, 0.2)])
+def test_k15_matches_plain_at_curvenet_shapes(cuda, n, s, radius):
+    """CurveNet's masked max pools at B=32: 20 members of each FPS center's
+    ball, 256 among 1024 (r 0.1) and 64 among 256 (r 0.2), in both index
+    types."""
+    from learning3d_tpu_torch.kernels.sampling import ball_query_pallas, ball_query_reference, fps_pallas
+    from learning3d_tpu_torch.ops.geometry import index_points
+
+    p = torch.from_numpy(cls_cloud(np.random.default_rng(n), 32, n)).to(cuda)
+    q = index_points(p, fps_pallas(p, s).long()).contiguous()
+    for dtype in (torch.int32, torch.int64):
+        got = ball_query_pallas(radius, 20, p, q, dtype=dtype)
+        want = ball_query_reference(radius, 20, p, q, dtype=dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_pointconv_and_curvenet_run_their_kernels_on_card(cuda, monkeypatch):
+    """PointConvDensityClsSsg (classifier) and CurveNet at B=2, N=1024 in
+    train and eval mode: K14 2 and K8 2 a PointConv forward, K8 1, K14 2
+    and K15 2 a CurveNet forward (one kNN at 1024 points); with the plain
+    versions in their place every output is bit-equal (the same indices,
+    then the same torch ops, the walk's picks included)."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels import knn as knn_mod
+    from learning3d_tpu_torch.kernels import sampling
+    from learning3d_tpu_torch.models import CurveNet, PointConvDensityClsSsg
+
+    x = torch.from_numpy(cls_cloud(np.random.default_rng(3), 2, 1024)).to(cuda)
+    names = ("fps_pallas", "ball_query_pallas", "knn_pallas")
+    for model, want_launches in ((PointConvDensityClsSsg(classifier=True, generator=torch.Generator().manual_seed(4)),
+                                  {"fps_pallas": 2, "ball_query_pallas": 0, "knn_pallas": 2}),
+                                 (CurveNet(generator=torch.Generator().manual_seed(5)),
+                                  {"fps_pallas": 2, "ball_query_pallas": 2, "knn_pallas": 1})):
+        for mode in ("train", "eval"):
+            getattr(model, mode)()
+            for m in model.modules():  # equal dropout masks on both runs: none
+                if hasattr(m, "rate"):
+                    m.rate = 0.0
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+            before = dict(LAUNCHES)
+            got = model(x)
+            torch.cuda.synchronize()
+            assert {k: LAUNCHES[k] - before[k] for k in names} == want_launches
+            assert got.shape == (2, 40) and bool(torch.isfinite(got).all())
+            model.load_state_dict(state)
+            with monkeypatch.context() as m:
+                m.setattr(knn_mod, "knn_pallas", knn_mod.knn_reference)
+                m.setattr(sampling, "fps_pallas", sampling.fps_reference)
+                m.setattr(sampling, "ball_query_pallas", sampling.ball_query_reference)
+                want = model(x)
+            assert torch.equal(got, want)
+
+
+def test_dgcnn_classifier_runs_k5_and_k7_on_card(cuda):
+    """Classifier(DGCNN(1024)) at B=4, N=1024: bf16 eval on K5 (once), its
+    logits within 5e-2 of max of K5's plain version's; f32 train mode on K7
+    (once)."""
+    from learning3d_tpu_torch.kernels import LAUNCHES
+    from learning3d_tpu_torch.kernels import dgcnn_fused
+    from learning3d_tpu_torch.models import DGCNN, Classifier
+    from learning3d_tpu_torch.models import dgcnn as dgcnn_mod
+
+    x = torch.from_numpy(cls_cloud(np.random.default_rng(6), 4, 1024)).to(cuda)
+    bf16 = Classifier(DGCNN(1024, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(7)),
+                      dtype=torch.bfloat16, generator=torch.Generator().manual_seed(8)).eval()
+    before = dict(LAUNCHES)
+    with torch.inference_mode():
+        got = bf16(x).float()
+        torch.cuda.synchronize()
+        assert LAUNCHES["dgcnn_encode_fused"] - before["dgcnn_encode_fused"] == 1
+        kernel = dgcnn_mod.dgcnn_encode_packed
+        dgcnn_mod.dgcnn_encode_packed = lambda x, pack, k, approx_knn=False: dgcnn_fused.dgcnn_encode_reference(
+            x.float(), pack.ws, pack.bs, k, approx_knn=approx_knn)
+        try:
+            want = bf16(x).float()
+        finally:
+            dgcnn_mod.dgcnn_encode_packed = kernel
+    assert (got - want).abs().max().item() <= 5e-2 * want.abs().max().item()
+    f32 = Classifier(DGCNN(1024, generator=torch.Generator().manual_seed(7)), generator=torch.Generator().manual_seed(8))
+    before = LAUNCHES["knn_neighbors_pallas"]
+    out = f32.train()(x)
+    out.sum().backward()
+    assert LAUNCHES["knn_neighbors_pallas"] - before == 1 and bool(torch.isfinite(out).all())

@@ -25,7 +25,8 @@ def port_files(*suffixes):
                   ROOT / "tools" / "torch_cls_step_gaps.py", ROOT / "tools" / "torch_prnet_step_gaps.py",
                   ROOT / "tools" / "torch_flownet_step_gaps.py", ROOT / "tools" / "torch_square_distance_ab.py",
                   ROOT / "tools" / "torch_rpmnet_step_gaps.py", ROOT / "tools" / "torch_attention_ab.py",
-                  ROOT / "tools" / "torch_kernel_ab.py", ROOT / "tools" / "torch_lk_step_gaps.py"]
+                  ROOT / "tools" / "torch_kernel_ab.py", ROOT / "tools" / "torch_lk_step_gaps.py",
+                  ROOT / "tools" / "smoke_phases.py"]
     return files
 
 
@@ -77,12 +78,17 @@ def test_entry_points_default_to_cuda():
         DCP, DGCNN, PCN, MaskNet, PointNetLK, PointNetMask, PPFNet, RPMNet, Classifier, PointNet, PRNet, Segmentation,
         iPCRNet,
     )
+    from learning3d_tpu_torch.models import CurveNet, PointConvDensityClsSsg
     from learning3d_tpu_torch.models.dcp import MLPHead
+    from learning3d_tpu_torch.models.pointconv import DensityNet, PointConvDensitySetAbstraction, WeightNet
     from learning3d_tpu_torch.models.prnet import PRDGCNN, PRPointNet, PRSVDHead, TemperatureNet
     from learning3d_tpu_torch.models.rpmnet import ParameterPredictionNet
     from learning3d_tpu_torch.serve import InferenceEngine, TemplateRegistrar
     from learning3d_tpu_torch.utils.jax_import import load_quant_pointnet
     from learning3d_tpu_torch.train import Trainer
+    from learning3d_tpu_torch.utils.curvenet_blocks import (
+        CIC, LPFA, AttentionBlock, CurveAggregation, CurveGrouping, PointNetFeaturePropagation, Walk,
+    )
     from learning3d_tpu_torch.utils.layers import MLP1d, BatchNorm, Dropout, GroupNorm, Linear
     from learning3d_tpu_torch.utils.transformer import (
         AnnotatedLayerNorm, FeedForward, MultiHeadedAttention, Transformer,
@@ -93,7 +99,9 @@ def test_entry_points_default_to_cuda():
                   AnnotatedLayerNorm, InferenceEngine, MLP1d, BatchNorm, Linear, resolve_device,
                   load_quant_pointnet, Trainer, Dropout, iPCRNet, PCN, PRNet, PRDGCNN, PRPointNet, PRSVDHead,
                   TemperatureNet, MLPHead, TemplateRegistrar, PPFNet, RPMNet, ParameterPredictionNet, GroupNorm,
-                  PointNetLK, MaskNet, PointNetMask, Segmentation):
+                  PointNetLK, MaskNet, PointNetMask, Segmentation, PointConvDensityClsSsg, DensityNet, WeightNet,
+                  PointConvDensitySetAbstraction, CurveNet, CIC, LPFA, AttentionBlock, CurveAggregation, CurveGrouping,
+                  PointNetFeaturePropagation, Walk):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 
@@ -110,7 +118,8 @@ def test_training_subpackages_are_covered():
                 "kernels.chamfer", "kernels.emd", "kernels.knn", "models.pcrnet", "models.pcn", "models.prnet",
                 "ops.quaternion", "ops.geometry", "ops.grouping", "kernels.sampling", "kernels.sinkhorn",
                 "models.ppfnet", "models.rpmnet", "utils.rigid", "ops.sinc", "ops.so3", "ops.se3", "ops.invmat",
-                "ops.mean_shift", "models.pointnetlk", "models.masknet", "models.segmentation"):
+                "ops.mean_shift", "models.pointnetlk", "models.masknet", "models.segmentation", "models.pointconv",
+                "models.curvenet", "utils.curvenet_blocks"):
         assert f"learning3d_tpu_torch.{sub}" in names
     files = {p.relative_to(PORT).as_posix() for p in port_files(".py", ".cu") if PORT in p.parents}
     for f in ("train/trainer.py", "train/metrics.py", "data/dataloaders.py", "losses/losses.py",
@@ -119,7 +128,8 @@ def test_training_subpackages_are_covered():
               "kernels/knn.py", "kernels/csrc/knn.cu", "models/prnet.py", "kernels/csrc/ball_group.cu",
               "kernels/sinkhorn.py", "kernels/csrc/sinkhorn.cu", "models/rpmnet.py", "ops/sinc.py", "ops/so3.py",
               "ops/invmat.py", "ops/mean_shift.py", "models/pointnetlk.py", "models/masknet.py",
-              "models/segmentation.py"):
+              "models/segmentation.py", "models/pointconv.py", "models/curvenet.py", "utils/curvenet_blocks.py",
+              "ops/grouping.py"):
         assert f in files
 
 

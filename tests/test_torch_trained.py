@@ -7,6 +7,10 @@ synthetic pairs at the trained width (emb 1024) and N <= 256.
 - ``r4_pnlk``: PointNetLK's est_T, est_T_series and r.
 - ``r4b_masknet``: MaskNet's mask and its picks, whose trained sigmoid
   saturates to exactly 1.0 on many points (the tie order).
+- ``r4b_curvenet`` and ``r5b_curvenet_hard``: CurveNet's logits at B=1,
+  N=1024 (its architecture's npoints), the argmax equal; one JAX CurveNet
+  is built for both and its forward jitted.
+- ``r5b_dgcnn_hard``: Classifier(DGCNN(1024))'s logits at N=256.
 
 The restoring Trainer writes its run.log and tb/ into a fresh directory
 under pytest's tmp_path whose ``best`` entry links to the release, so
@@ -28,7 +32,7 @@ from learning3d_tpu import models as jmodels
 from learning3d_tpu.data import dataloaders as jdata
 from learning3d_tpu.train import TrainConfig as JTrainConfig
 from learning3d_tpu.train import Trainer as JTrainer
-from learning3d_tpu_torch.models import MaskNet, PointNet, PointNetLK
+from learning3d_tpu_torch.models import DGCNN, Classifier, CurveNet, MaskNet, PointNet, PointNetLK
 from learning3d_tpu_torch.models.masknet import top_indices
 from learning3d_tpu_torch.train.metrics import registration_errors
 from learning3d_tpu_torch.utils.jax_import import load_nnx_state
@@ -136,3 +140,64 @@ def test_trained_masknet_matches_jax(tmp_path):
     assert firm.mean() > 0.5  # measured 0.755: the unsaturated scores near 1 crowd within 2e-5
     np.testing.assert_array_equal(got_idx[firm], want_idx[firm])
     assert not (RELEASES / "r4b_masknet" / "run.log").exists()
+
+
+@pytest.fixture(scope="module")
+def jax_curvenet():
+    """One JAX CurveNet (k 20, the default curves) that each CurveNet
+    release is restored into."""
+    return jmodels.CurveNet(rngs=nnx.Rngs(0))
+
+
+def classification_clouds(n, b, hard):
+    """b test-split SyntheticModelNet40 clouds of n points (the hard set
+    for the r5b releases, as trained) and their labels."""
+    data = jdata.SyntheticModelNet40(train=False, num_points=n, size=b, hard=hard)
+    return (np.stack([data[i][0] for i in range(b)]).astype(np.float32),
+            np.array([data[i][1] for i in range(b)]).reshape(b))
+
+
+def release_files(name):
+    """(path, size, mtime) of every file of a release (these releases hold
+    a run.log of their own): the restore writes none of them."""
+    return sorted((str(p), p.stat().st_size, p.stat().st_mtime_ns) for p in (RELEASES / name).rglob("*") if p.is_file())
+
+
+# CurveNet's trained logits at B=1, N=1024 (eval mode; its walk's picks
+# agree or the logits would part), to CURVE_TOL of max; the argmax equal
+CURVE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("name,hard", [("r4b_curvenet", False), ("r5b_curvenet_hard", True)])
+def test_trained_curvenet_matches_jax(tmp_path, jax_curvenet, name, hard):
+    before = release_files(name)
+    jm = restore(tmp_path, name, "classification", jax_curvenet)
+    jm.eval()
+    x, _ = classification_clouds(1024, 1, hard)
+    want = np.asarray(nnx.jit(lambda m, a: m(a))(jm, jnp.asarray(x)))
+    tm = load_nnx_state(CurveNet(device="cpu"), nnx_flat(jm)).eval()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
+    assert rel(got, want) <= CURVE_TOL
+    np.testing.assert_array_equal(got.argmax(-1).numpy(), want.argmax(-1))
+    assert release_files(name) == before
+
+
+# Classifier(DGCNN(1024))'s trained logits at N=256 in f32 eval mode, to
+# DGCNN_TOL of max; the argmax equal
+DGCNN_TOL = 1e-5
+
+
+def test_trained_dgcnn_classifier_matches_jax(tmp_path):
+    before = release_files("r5b_dgcnn_hard")
+    jm = restore(tmp_path, "r5b_dgcnn_hard", "classification",
+                 jmodels.Classifier(jmodels.DGCNN(emb_dims=EMB, rngs=nnx.Rngs(0)), rngs=nnx.Rngs(1)))
+    jm.eval()
+    x, _ = classification_clouds(N, B, True)
+    want = np.asarray(nnx.jit(lambda m, a: m(a))(jm, jnp.asarray(x)))
+    tm = load_nnx_state(Classifier(DGCNN(emb_dims=EMB, device="cpu"), device="cpu"), nnx_flat(jm)).eval()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
+    assert rel(got, want) <= DGCNN_TOL
+    np.testing.assert_array_equal(got.argmax(-1).numpy(), want.argmax(-1))
+    assert release_files("r5b_dgcnn_hard") == before

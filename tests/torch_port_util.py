@@ -2,10 +2,15 @@
 package: weights move as numpy arrays under nnx's dotted paths, inputs are
 made with numpy from a seed."""
 
+import copy
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 from flax import nnx
+
+from learning3d_tpu_torch.utils.jax_import import nnx_to_torch as _nnx_to_torch
 
 
 def nnx_flat(module):
@@ -129,3 +134,64 @@ def check_adam_first_step(model, before, grads, jax_grads, jax_after, lr):
         assert firm.mean() >= 0.9, name
         np.testing.assert_allclose(p.detach().numpy()[firm], jax_after[name][firm], rtol=0,
                                    atol=1e-2 * lr + 2e-7 * scale, err_msg=name)
+
+
+def jax_both(module, *args, x64=True):
+    """(JAX's f32 output, its f64 output under x64 or None, the flat state
+    after the f32 call) of ``module`` called jitted on clones (train mode
+    updates the statistics), numpy."""
+    call = nnx.jit(lambda m, *a: m(*a))  # one compile: JAX's eager first call takes 10x longer here
+    m32 = nnx.clone(module)
+    out32 = jax.tree.map(np.asarray, call(m32, *(None if a is None else jnp.asarray(a) for a in args)))
+    after = _nnx_to_torch(nnx_flat(m32))
+    if not x64:
+        return out32, None, after, None
+    with jax.enable_x64(True):
+        m64 = nnx.clone(module)
+        out64 = call(m64, *(None if a is None else jnp.asarray(_f64(a)) for a in args))
+        after64 = {k: np.asarray(v, np.float64) for k, v in _nnx_to_torch(nnx_flat(m64)).items()}
+    return out32, jax.tree.map(lambda a: np.asarray(a, np.float64), out64), after, after64
+
+
+def _f64(a):
+    """A float array as float64, an integer one (indices) as it is."""
+    a = np.array(a)
+    return a.astype(np.float64) if a.dtype.kind == "f" else a
+
+
+def hold_to_jax(port, module, mode, *args, tol, f64_tol, train_f32_tol):
+    """``port`` (torch, in ``mode``) against the JAX ``module`` on ``args``
+    (numpy, None passes through), for layers whose train-mode BatchNorms
+    make f32 ill-conditioned: in eval mode f32 to ``tol``; in train mode f64
+    to ``f64_tol`` and f32 within twice JAX's own f32 gap to its f64, plus
+    ``train_f32_tol``; the running statistics after the call the same way.
+    Errors are max |got - want| / max |want|. -> (the port's f32 output,
+    JAX's)."""
+    want32, want64, after, after64 = jax_both(module, *args, x64=mode == "train")
+    with torch.no_grad():
+        if mode == "train":
+            port64 = copy.deepcopy(port).train().double()
+            got64 = port64(*(None if a is None else torch.from_numpy(_f64(a)) for a in args))
+        got = getattr(port, mode)()(*(None if a is None else torch.from_numpy(np.array(a)) for a in args))
+    as_tuple = lambda v: v if isinstance(v, tuple) else (v,)  # noqa: E731
+    pairs = list(zip(as_tuple(got), as_tuple(want32)))
+    if mode == "eval":
+        for i, (g, w) in enumerate(pairs + [(b, after[n]) for n, b in port.named_buffers()]):
+            assert max_rel(g, w) <= tol, i
+        return got, want32
+    pairs64 = list(zip(as_tuple(got64), as_tuple(want64)))
+    for n, b in port.named_buffers():
+        pairs.append((b, after[n]))
+        pairs64.append((dict(port64.named_buffers())[n], after64[n]))
+    for i, ((g, w), (g64, w64)) in enumerate(zip(pairs, pairs64)):
+        assert max_rel(g64, w64) <= f64_tol, i
+        assert max_rel(g, w64) <= 2 * max_rel(w, w64) + train_f32_tol, (i, max_rel(g, w64), max_rel(w, w64))
+    return got, want32
+
+
+def max_rel(got, want):
+    """max |got - want| / max |want| in float64 (torch or numpy)."""
+    got = got.detach().double().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float64)
+    want = want.detach().double().numpy() if isinstance(want, torch.Tensor) else np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))

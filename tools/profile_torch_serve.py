@@ -2,7 +2,8 @@
 """Where the time of the port's serving goes, on one card.
 
     python3 tools/profile_torch_serve.py [--model pointnet|dcp|pointnet-int8|dcp-int8|dcp-int8-fused|
-                                          dcp-int8-hybrid-fused|ipcrnet|prnet|flownet|rpmnet|masknet|pointnetlk]
+                                          dcp-int8-hybrid-fused|ipcrnet|prnet|flownet|rpmnet|masknet|pointnetlk|
+                                          pointconv|curvenet|dgcnn-cls]
                                          [--requests 20]
 
 ``pointnet``: Classifier(PointNet(emb_dims=1024, use_bn=True)), requests of
@@ -27,7 +28,12 @@ MaskNet(PointNet(1024, use_bn=True)) in bf16 eval (the served draw of
 chip_smoke.py's serve_masknet_pnlk), requests of B=32 pairs of a 1024-point
 template and a 768-point partial source (K1 once a forward). ``pointnetlk``:
 PointNetLK(PointNet(1024, use_bn=True)) in f32 eval, 10 iterations, on the
-same pairs (no kernel: f32). All with the numpy-seeded
+same pairs (no kernel: f32). ``pointconv``: PointConvDensityClsSsg(
+classifier=True) in f32 eval (K14 and K8 twice a forward); ``curvenet``:
+CurveNet() in f32 eval (K8 once, K14 and K15 twice); ``dgcnn-cls``:
+Classifier(DGCNN(1024, k=20)) in bf16 eval (K5 once); each on requests of
+B=32 SyntheticModelNet40 clouds of 1024 points, with the seeded weights of
+chip_smoke.py's serve phases for these models. All with the numpy-seeded
 weights of chip_smoke.py, served through learning3d_tpu_torch's
 InferenceEngine under torch.profiler. Prints one JSON line: host wall time
 per request, device time per request by kernel (largest first), the
@@ -88,6 +94,14 @@ def build(name: str, rng):
         state["maskNet.out.kernel"] *= chip_smoke.MASK_OUT_SCALE
         model = MaskNet(PointNet(emb_dims=chip_smoke.LK_EMB, use_bn=True, dtype=bf16), dtype=bf16)
         return load_nnx_state(model, state), chip_smoke.LK_B, inputs
+    if name in ("pointconv", "curvenet", "dgcnn-cls"):
+        import functools
+
+        make = {"pointconv": chip_smoke.make_pointconv, "curvenet": chip_smoke.make_curvenet,
+                "dgcnn-cls": functools.partial(chip_smoke.make_dgcnn_cls, dtype=bf16)}[name]
+        state = chip_smoke.pointconv_state(rng) if name == "pointconv" else chip_smoke.seeded_state(make, rng)
+        clouds = np.stack([chip_smoke.cls_data()[i][0] for i in range(chip_smoke.CLS_B)]).astype(np.float32)
+        return chip_smoke.from_state(make, state), chip_smoke.CLS_B, [clouds]
     if name == "rpmnet":
         from learning3d_tpu_torch.models import RPMNet
 
@@ -122,7 +136,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=("pointnet", "dcp", "pointnet-int8", "dcp-int8", "dcp-int8-fused",
                                             "dcp-int8-hybrid-fused", "ipcrnet", "prnet", "flownet", "rpmnet", "masknet",
-                                            "pointnetlk"),
+                                            "pointnetlk", "pointconv", "curvenet", "dgcnn-cls"),
                         default="pointnet")
     parser.add_argument("--requests", type=int, default=20)
     args = parser.parse_args()

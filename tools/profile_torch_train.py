@@ -2,7 +2,7 @@
 """Where the time of the port's training step goes, on one card.
 
     python3 tools/profile_torch_train.py [--model pointnet|dcp|ipcrnet|pcn|prnet|flownet|rpmnet|pointnetlk|
-                                                  masknet|segmentation] [--detailed]
+                                                  masknet|segmentation|pointconv|curvenet|dgcnn-cls] [--detailed]
                                          [--dtype bf16|f32] [--steps 10]
 
 ``--model pointnet`` (the default) is bench.py's training configuration:
@@ -37,7 +37,14 @@ warm-up), MaskNet(PointNet(1024, use_bn=True)) on B=32 pairs of a 1024-point
 template and a 768-point partial source with the bce loss (K3 and K4 once a
 step), Segmentation(PointNet(1024, use_bn=True, global_feat=False), 40) on
 B=32 SyntheticPartSegmentation clouds of N=1024 (no kernel); Adam at 1e-3,
-f32. All run through
+f32. ``pointconv``, ``curvenet`` and ``dgcnn-cls`` are chip_smoke.py's
+train_pointconv, train_curvenet and train_dgcnn_cls:
+PointConvDensityClsSsg(classifier=True) (K14 and K8 twice a step, Adam at
+1e-3), CurveNet() (K8 once, K14 and K15 twice; SGD 0.1 with momentum 0.9,
+weight decay 1e-4, cosine decay, label smoothing 0.2 and augmentation, as
+examples/train_curvenet.py) and Classifier(DGCNN(1024, k=20)) (K7 once,
+Adam at 1e-3), on B=32 SyntheticModelNet40 clouds of N=1024, f32, with the
+seeded weights of those phases. All run through
 learning3d_tpu_torch's Trainer (its
 train_step on one device batch), with the numpy-seeded weights of
 chip_smoke.py. After a few warm-up
@@ -69,7 +76,8 @@ ROOT = Path(__file__).resolve().parents[1]
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=("pointnet", "dcp", "ipcrnet", "pcn", "prnet", "flownet", "rpmnet",
-                                            "pointnetlk", "masknet", "segmentation"), default="pointnet")
+                                            "pointnetlk", "masknet", "segmentation", "pointconv", "curvenet",
+                                            "dgcnn-cls"), default="pointnet")
     parser.add_argument("--detailed", action="store_true", help="pcn: with the folding decoder")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default=None,
                         help="bf16 for pointnet and f32 for the others unless given")
@@ -149,6 +157,17 @@ def main() -> None:
         batch = to_device(next(batch_iterator(SyntheticPartSegmentation(num_points=N, size=B), B, shuffle=False)),
                           "cuda")
         cfg = dict(task="segmentation")
+    elif args.model in ("pointconv", "curvenet", "dgcnn-cls"):
+        B, N, unit = chip_smoke.CLS_B, chip_smoke.CLS_N, "clouds"
+        make = {"pointconv": chip_smoke.make_pointconv, "curvenet": chip_smoke.make_curvenet,
+                "dgcnn-cls": chip_smoke.make_dgcnn_cls}[args.model]
+        state = chip_smoke.pointconv_state(rng) if args.model == "pointconv" else chip_smoke.seeded_state(make, rng)
+        model = chip_smoke.from_state(make, state)
+        batch = chip_smoke.cls_batch()
+        cfg = dict(task="classification")
+        if args.model == "curvenet":
+            cfg.update(optimizer="sgd", momentum=0.9, weight_decay=chip_smoke.CURVE_WD, cosine_decay=True,
+                       label_smoothing=chip_smoke.CURVE_SMOOTHING, augment=True)
     elif args.model == "flownet":
         from learning3d_tpu_torch.data import FlowData, SyntheticSceneflow
         from learning3d_tpu_torch.models import FlowNet3D
@@ -166,7 +185,8 @@ def main() -> None:
         batch = to_device(next(batch_iterator(data, B, shuffle=False)), "cuda")
         cfg = dict(task="dcp")
     with tempfile.TemporaryDirectory() as ckpt:
-        trainer = Trainer(TrainConfig(batch_size=B, num_points=N, lr=chip_smoke.TRAIN_LR, ckpt_dir=ckpt, **cfg), model)
+        lr = chip_smoke.CURVE_LR if args.model == "curvenet" else chip_smoke.TRAIN_LR
+        trainer = Trainer(TrainConfig(batch_size=B, num_points=N, lr=lr, ckpt_dir=ckpt, **cfg), model)
         trainer._ensure_optimizer(1)
         for _ in range(3):
             trainer.train_step(batch)
