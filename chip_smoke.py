@@ -10,8 +10,9 @@ serving of iPCRNet with multi-start registration, f32 serving of PRNet
 (with multi-start registration), of FlowNet3D and of RPMNet, MaskNet filtering for PointNetLK, f32
 serving of PointConv and CurveNet, bf16 serving of the DGCNN classifier, and training
 of the PointNet-1024 classifier, DCP, iPCRNet, PCN, PRNet, FlowNet3D,
-RPMNet, PointNetLK, MaskNet, part segmentation, PointConv, CurveNet and the
-DGCNN classifier through the Trainer, and
+RPMNet, PointNetLK, MaskNet, part segmentation, PointConv, CurveNet, the
+DGCNN classifier, DeepGMR and MaskNet2 (both also served) through the
+Trainer, and
 holds every CUDA kernel of those paths against its plain PyTorch version.
 Phases, one JSON line each with the seconds since start:
 
@@ -151,11 +152,13 @@ Phases, one JSON line each with the seconds since start:
    directions), on a ragged pair and on lattice clouds with tied nearest
    points; times of the kernel, the plain version, torch.cdist + min
    (``library_ms``) and the bound;
-20. kernel_k13 (_emd_fwd_pallas): K13 against its plain version at PCN's
-   coarse EMD (B=32, N=M=1024) and at N > M and N < M: the cost to
+20. kernel_k13 (_emd_fwd_pallas): K13 (one launch a call: a cluster of
+   CTAs a cloud) against its plain version at PCN's coarse EMD (B=32,
+   N=M=1024), at N > M and N < M, at B=1 (N=M=1024 and the gate's 4096:
+   the largest resident clouds) and at ragged N and M: the cost to
    EMD_COST_TOL, g1 and g2 to a mean relative error below EMD_GRAD_TOL;
-   times and the bound (no PyTorch call computes approxmatch:
-   ``library_ms`` null);
+   times, the device launches a call (torch.profiler) and the bound (no
+   PyTorch call computes approxmatch: ``library_ms`` null);
 21. serve_ipcrnet: iPCRNet(PointNet(1024, use_bn=False)) in bf16 eval (8
    steps) with numpy-seeded weights through InferenceEngine(batch_size=32)
    on 32, 10 and 70 pairs: K1 nine times a chunk, every output finite,
@@ -340,6 +343,27 @@ Phases, one JSON line each with the seconds since start:
    its logits within CLS_BF16_TOL of the plain versions' and the control
    k5_half_neighbours outside; an f32 Adam step on K7 (once), held within
    CLS_STEP_TOL with the control k7_kth_swapped;
+44. serve_deepgmr and train_deepgmr: examples/train.py's DeepGMR(use_rri=True,
+   nearest_neighbors=20) (d_model 1024, 16 clusters) in f32 with seeded
+   weights, on 32 RegistrationData("DeepGMR") pairs of 1024
+   SyntheticModelNet40 points (the family's clouds of phase 40), the RRI
+   features computed in the forward: one request through InferenceEngine
+   (no kernel launched, in either package), every output finite, est_R and
+   est_R_inverse rotations within ROT_TOL; one Adam (1e-3) step through
+   Trainer.fit on the deepgmr task with jittered sources (examples/train.py
+   --noise: a clean source is its template moved, which the rotation-
+   invariant features register exactly, so the loss would be rounding
+   alone): the loss finite, every weight and statistic changed; model_ms,
+   pairs/s, the step's parts. A generator of its own;
+45. serve_masknet2 and train_masknet2: examples/test_masknet2.py's
+   MaskNet2() in f32 with seeded weights and every attention gate beta
+   drawn from N(0, 0.5) (at its initial 0 each attention is a dead
+   branch), on 32 RegistrationData("DCP", partial_source=True) pairs as
+   the masknet task draws them (a 1024-point template, a 768-point source,
+   the template's ground-truth mask): one request (no kernel), both masks
+   finite and in [0, 1]; one Adam (1e-3) step on the masknet task (bce):
+   the loss finite, every weight and statistic changed; model_ms, pairs/s,
+   the step's parts. A generator of its own;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``. Any
 failed check raises, so the script exits non-zero and prints no result. It
@@ -354,6 +378,7 @@ import ctypes
 import functools
 import importlib
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -2073,10 +2098,13 @@ IPC_REQUESTS = (32, 10, 70)
 IPC_TRAIN_B, IPC_TRAIN_STEPS = 20, 4  # examples/train_pcrnet.py's batch
 PCN_B, PCN_N, PCN_EMB, PCN_COARSE, PCN_TRAIN_STEPS = 32, 1024, 1024, 1024, 4
 SFU_BOUND_EXPS_PER_PAIR_LEVEL = 2  # the TPU kernel's two passes a level, one exponential a pair each
-# csrc/emd.cu's note counts 43 f32 operations a pair and level (11 in phase
-# A, 32 in phase B/C), each product and each sum on its own: the two squared
-# distances are 16 instructions that cannot fuse (written __fsub_rn,
-# __fmul_rn, __fadd_rn); the other 27 are counted as flops, an FMA as two
+# The TPU kernel's two passes a level take 43 f32 operations a pair (11 in
+# phase A: d^2, the level, a product and a sum; 32 in phase B/C: d^2, the
+# level, sumr, W, C, the cost, W / C, and the row and column sums of W, W / C
+# and W / C times the coordinates), each product and each sum on its own:
+# the two squared distances are 16 instructions that cannot fuse (written
+# __fsub_rn, __fmul_rn, __fadd_rn); the other 27 are counted as flops, an
+# FMA as two (csrc/emd.cu's header states the same bound)
 EMD_F32_INSTRUCTIONS_PER_PAIR_LEVEL = 16
 EMD_F32_FLOPS_PER_PAIR_LEVEL = 27
 EMD_LEVELS = 10
@@ -2236,13 +2264,32 @@ def emd_errors(got, want, what) -> dict:
             "g2_mean_rel": grads["g2"]}
 
 
+K13_SHAPES = {"pcn": (PCN_B, PCN_N, PCN_COARSE), "n_gt_m": (3, 1000, 300), "n_lt_m": (2, 250, 1000),
+              "b1": (1, 1024, 1024), "max": (1, 4096, 4096), "ragged": (5, 1001, 777)}
+
+
+def device_launches(fn) -> dict:
+    """{kernel name: launches} of one call of ``fn`` under torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    def name(key):  # "void (anonymous namespace)::emd_cluster_kernel<128, ...>(float const*, ...)" -> the name
+        found = re.search(r"(\w+)(?:<[^()]*>)?\(", key)
+        return found.group(1) if found else key
+
+    return {name(e.key): e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and getattr(e, "self_device_time_total", 0.0) > 0}
+
+
 def phase_kernel_k13(rng) -> dict:
     from learning3d_tpu_torch.kernels.emd import _emd_fwd_reference, emd_kernel
 
-    shapes = {"pcn": (PCN_B, PCN_N, PCN_COARSE), "n_gt_m": (3, 1000, 300), "n_lt_m": (2, 250, 1000)}
-    errs = {}
+    errs, times = {}, {}
     with torch.inference_mode():
-        for name, (b, n, m) in shapes.items():
+        for name, (b, n, m) in K13_SHAPES.items():
             x, y = (torch.from_numpy(rng.normal(size=(b, k, 3)).astype(np.float32)).cuda() for k in (n, m))
             got = emd_kernel(x, y)
             want = _emd_fwd_reference(x, y)
@@ -2250,14 +2297,21 @@ def phase_kernel_k13(rng) -> dict:
             errs[name] = emd_errors(got, want, name)
             if name == "pcn":
                 full = (x, y)
+            else:
+                times[name] = cuda_ms(lambda: emd_kernel(x, y), reps=3, runs=1)
+            del want
         k_ms = cuda_ms(lambda: emd_kernel(*full), reps=5)
         p_ms = cuda_ms(lambda: _emd_fwd_reference(*full), reps=2, warmup=1)
+        per_call = device_launches(lambda: emd_kernel(*full))
+    require(sum(per_call.values()) == 1, f"K13: device launches a call {per_call}, want one")
     bound_ms, bound_by = k13_bound(PCN_B, PCN_N, PCN_COARSE)
     result = {"max_abs_err": max(e["abs"] for e in errs.values()), "max_rel_err": max(e["rel"] for e in errs.values()),
               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
     emit("kernel_k13", name="_emd_fwd_pallas",
          tolerance=f"cost rel <= {EMD_COST_TOL}; g1, g2 mean rel < {EMD_GRAD_TOL}", errors=errs,
          shape={"B": PCN_B, "N": PCN_N, "M": PCN_COARSE, "note": "PCN's coarse EMD loss"},
+         shapes={k: dict(zip("BNM", v)) for k, v in K13_SHAPES.items()}, kernel_ms_at=times,
+         bounds_at={k: k13_bound(*v)[0] for k, v in K13_SHAPES.items()}, device_launches_per_call=per_call,
          library="none: no one PyTorch call computes approxmatch", **result)
     return result
 
@@ -4442,6 +4496,138 @@ def phase_kernel_cls() -> dict:
     return {"knn_pallas": k8, "fps_pallas": k14, "ball_query_pallas": k15}
 
 
+GMR_K = 20  # examples/train.py's --nearest_neighbors
+M2_NS = 768  # the masknet task's partial source (farthest_subsample_points)
+M2_BETA_STD = 0.5  # MaskNet2's attention gates beta, drawn (0 at init: a dead branch)
+
+
+def make_deepgmr(gen):
+    from learning3d_tpu_torch.models import DeepGMR
+
+    return DeepGMR(use_rri=True, nearest_neighbors=GMR_K, generator=gen)
+
+
+def make_masknet2(gen):
+    from learning3d_tpu_torch.models import MaskNet2
+
+    return MaskNet2(generator=gen)
+
+
+def masknet2_state(rng) -> dict:
+    """seeded_state of MaskNet2 with every beta drawn from N(0, M2_BETA_STD)."""
+    state = seeded_state(make_masknet2, rng)
+    for key, value in state.items():
+        if key.endswith("beta"):
+            value.copy_(torch.from_numpy(rng.normal(0.0, M2_BETA_STD, value.shape).astype(np.float32)))
+    return state
+
+
+def registration_data(name):
+    """The pairs of phases 44 and 45 over the family's SyntheticModelNet40
+    clouds (phase 40's, made once): DeepGMR's (clean, for serving), DeepGMR's
+    with jittered sources (training), MaskNet2's (a partial source and the
+    template's mask)."""
+    from learning3d_tpu_torch.data import RegistrationData
+
+    clouds = cls_data().data_class
+    if name == "deepgmr":
+        return RegistrationData("DeepGMR", clouds)
+    if name == "deepgmr_noise":
+        return RegistrationData("DeepGMR", clouds, noise=True)
+    return RegistrationData("DCP", clouds, partial_source=True, additional_params={"use_masknet": True})
+
+
+def serve_registration(phase, model, data, check, config) -> dict:
+    """One request of CLS_B pairs through InferenceEngine: no kernel
+    launched, ``check`` on the output; model_ms and pairs/s. The phase's
+    line is printed before its gates are required."""
+    from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
+    from learning3d_tpu_torch.serve import InferenceEngine
+
+    template, source = (np.stack([data[i][j] for i in range(CLS_B)]) for j in range(2))
+    engine = InferenceEngine(model, batch_size=CLS_B)
+    reset_launches()
+    out = engine(template, source)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    inputs = (torch.from_numpy(template).cuda(), torch.from_numpy(source).cuda())
+    with torch.inference_mode():
+        model_ms = cuda_ms(lambda: model(*inputs), reps=3, warmup=1, runs=1)
+    engine(template, source)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine(template, source)
+    host_s = time.perf_counter() - t0
+    gates = check(out)
+    emit(phase, config=config, B=CLS_B, template=list(template.shape[1:]), source=list(source.shape[1:]),
+         launches=launches, checks=gates, model_ms=model_ms, engine_ms=1e3 * host_s, pairs_per_s=CLS_B / host_s,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    require(not launches, f"{phase}: kernels launched {launches} (the model reaches none)")
+    for what, ok in gates.items():
+        require(ok is not False, f"{phase}: {what}")
+    return {"launches": launches, "model_ms": model_ms}
+
+
+def train_registration(phase, task, make, state, data, config) -> dict:
+    """One Adam (TRAIN_LR) step through Trainer.fit on ``task`` (no
+    kernel), the checks of check_trained, and the step's parts."""
+    import tempfile
+
+    from learning3d_tpu_torch.data import batch_iterator, to_device
+    from learning3d_tpu_torch.train import TrainConfig
+
+    batch = to_device(next(batch_iterator(data, CLS_B, seed=SEED)), "cuda")
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = TrainConfig(exp_name=f"chip_smoke_{phase}", task=task, batch_size=CLS_B, num_points=CLS_N,
+                          optimizer="adam", lr=TRAIN_LR, epochs=1, masknet_loss="bce", ckpt_dir=ckpt)
+        result = train_one_step(phase, cfg, lambda: from_state(make, state), data, batch, 0.0, (), {})
+    require(np.isfinite(result["train_loss"]), f"{phase}: loss {result['train_loss']}")
+    emit(phase, config={**config, "B": CLS_B, "optimizer": "adam", "lr": TRAIN_LR, "steps": 1, "task": task},
+         **result)
+    return result
+
+
+def phase_serve_deepgmr(rng) -> dict:
+    model = from_state(make_deepgmr, seeded_state(make_deepgmr, rng)).eval()
+
+    def check(out):
+        finite = all(bool(np.isfinite(v).all()) for v in out.values())
+        rot = max(rotation_error(out["est_R"]), rotation_error(out["est_R_inverse"]))
+        return {"outputs finite": finite, f"est_R, est_R_inverse rotations within {ROT_TOL}": rot <= ROT_TOL,
+                "rotation_error": rot, "est_T (32, 4, 4)": out["est_T"].shape == (CLS_B, 4, 4)}
+
+    return serve_registration("serve_deepgmr", model, registration_data("deepgmr"), check,
+                              {"model": f"DeepGMR(use_rri=True, nearest_neighbors={GMR_K}) f32 eval, d_model 1024, "
+                                         "16 clusters, RRI in the forward"})
+
+
+def phase_train_deepgmr(rng) -> dict:
+    return train_registration("train_deepgmr", "deepgmr", make_deepgmr, seeded_state(make_deepgmr, rng),
+                              registration_data("deepgmr_noise"),
+                              {"model": f"DeepGMR(use_rri=True, nearest_neighbors={GMR_K}) f32",
+                               "data": "RegistrationData('DeepGMR', noise=True)"})
+
+
+def phase_serve_masknet2(rng) -> dict:
+    model = from_state(make_masknet2, masknet2_state(rng)).eval()
+
+    def check(out):
+        tmask, smask = out
+        return {"masks finite": bool(np.isfinite(tmask).all() and np.isfinite(smask).all()),
+                "masks in [0, 1]": bool(((tmask >= 0) & (tmask <= 1)).all() and ((smask >= 0) & (smask <= 1)).all()),
+                "shapes": tmask.shape == (CLS_B, CLS_N) and smask.shape == (CLS_B, M2_NS),
+                "template_mask_mean": float(tmask.mean()), "template_mask_std": float(tmask.std())}
+
+    return serve_registration("serve_masknet2", model, registration_data("masknet2"), check,
+                              {"model": f"MaskNet2() f32 eval, betas drawn from N(0, {M2_BETA_STD})"})
+
+
+def phase_train_masknet2(rng) -> dict:
+    return train_registration("train_masknet2", "masknet", make_masknet2, masknet2_state(rng),
+                              registration_data("masknet2"),
+                              {"model": f"MaskNet2() f32, betas drawn from N(0, {M2_BETA_STD})", "loss": "bce"})
+
+
 def kernel_entry(name, source, replaces, launches, res) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -4587,6 +4773,12 @@ def main() -> None:
     serve_dg = phase_serve_dgcnn_cls(dgcnn_cls)
     del dgcnn_cls
     train_dg = phase_train_dgcnn_cls(cls_rng)
+    gmr_rng = np.random.default_rng(SEED + 18)
+    phase_serve_deepgmr(gmr_rng)
+    phase_train_deepgmr(gmr_rng)
+    m2_rng = np.random.default_rng(SEED + 19)
+    phase_serve_masknet2(m2_rng)
+    phase_train_masknet2(m2_rng)
     family = (serve_pc, train_pc, serve_cn, train_cn, serve_dg, train_dg)
     added = {name: sum(r["launches"].get(name, 0) for r in family) for name in (
         "dgcnn_encode_fused", "knn_neighbors_pallas", "knn_pallas", "fps_pallas", "ball_query_pallas")}

@@ -8,9 +8,9 @@ FlyingThings3D npz archive, read from ``root`` or ``$LEARNING3D_DATA``,
 else ``~/.learning3d_tpu/data``, as the JAX package reads it) and
 ``FlowData``, and the part-segmentation sets ``SyntheticPartSegmentation``
 and ``SegmentationData``. Items are numpy arrays, identical to the JAX
-package's bit for bit; batching for the device loop lives in
-``device_pipeline``. The HDF5-backed ModelNet40 and DeepGMR's RRI features
-are not ported yet.
+package's bit for bit (DeepGMR's RRI features, from the port's own
+``ops.geometry.get_rri``, to float32 rounding); batching for the device loop
+lives in ``device_pipeline``. The HDF5-backed ModelNet40 is not ported yet.
 """
 
 from __future__ import annotations
@@ -283,6 +283,17 @@ def planar_crop(points, p_keep=0.7, rng=None):
     return points[mask, :3], np.nonzero(mask)[0]
 
 
+def get_rri_numpy(pts, k):
+    """DeepGMR's RRI features of one centred cloud on the host: pts (N, 3)
+    -> (N, 4k) float32, by the port's ``ops.geometry.get_rri`` on a CPU
+    tensor."""
+    import torch
+
+    from learning3d_tpu_torch.ops.geometry import get_rri
+
+    return get_rri(torch.from_numpy(np.ascontiguousarray(pts, dtype=np.float32)[None]), k)[0].numpy()
+
+
 class RegistrationData:
     """Per-algorithm registration pair synthesis over a classification
     dataset: items (template, source, igt), igt (4, 4) mapping template ->
@@ -298,7 +309,9 @@ class RegistrationData:
     the difficulty. ``set_epoch`` gives fresh pairs per training epoch (not
     for the PCRNet family, which keeps one transform per index);
     ``set_difficulty`` scales the rotation and translation draws (the
-    Trainer's curriculum)."""
+    Trainer's curriculum). DeepGMR with ``additional_params
+    ["nearest_neighbors"]`` k > 0 appends each cloud's RRI features (4k
+    channels, of the cloud centred) to its points."""
 
     ALGORITHMS = ("PCRNet", "PointNetLK", "DCP", "PRNet", "iPCRNet", "RPMNet", "DeepGMR")
 
@@ -313,9 +326,7 @@ class RegistrationData:
         self.noise = noise
         self.additional_params = additional_params or {}
         self.seed = seed
-        if algorithm == "DeepGMR" and self.additional_params.get("nearest_neighbors", 0) > 0:
-            raise NotImplementedError("DeepGMR's RRI features (nearest_neighbors > 0) are not ported yet: "
-                                      "they come with DeepGMR's slice (ROADMAP Queue 1, the DeepGMR item)")
+        self.use_rri = algorithm == "DeepGMR" and self.additional_params.get("nearest_neighbors", 0) > 0
         self.resample_per_epoch = algorithm not in ("PCRNet", "iPCRNet")
         self._epoch = 0
         self._difficulty = 1.0
@@ -398,6 +409,11 @@ class RegistrationData:
 
         if self.noise:
             source = jitter_pointcloud(source, rng=rng)
+
+        if self.use_rri:
+            k = self.additional_params["nearest_neighbors"]
+            template = np.concatenate([template, get_rri_numpy(template - template.mean(0), k)], 1)
+            source = np.concatenate([source, get_rri_numpy(source - source.mean(0), k)], 1)
 
         if self.additional_params.get("use_masknet", False):
             extras = [m for m in (template_mask, source_mask) if m is not None]

@@ -57,6 +57,7 @@ SIGNATURES = {
     "knn_neighbors": ([_P] * 2 + [_I] * 3 + [_P], ctypes.c_int),
     "nn_oneway": ([_P] * 4 + [_I] * 3 + [_P], ctypes.c_int),
     "emd_fwd": ([_P] * 6 + [_I] * 3 + [_F] * 2 + [_P], ctypes.c_int),
+    "emd_plan": ([_I, _I], ctypes.c_int),
     "knn_select": ([_P] * 4 + [_I] * 5 + [_P], ctypes.c_int),
     "fps_default_threads": ([_I], ctypes.c_int),
     "fps_scratch_needed": ([_I], ctypes.c_int),

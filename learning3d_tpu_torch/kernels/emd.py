@@ -17,8 +17,10 @@ g2 likewise over n.
 
 ``emd_fwd(x, y)`` returns (cost (B,), g1 (B, N, 3), g2 (B, M, 3)) in f32
 without any (N, M) matrix in device memory: on a CUDA tensor within the JAX
-package's gate (``emd_kernel_ok``: N, M <= 4096, 3 channels) the kernels
-recompute the distances from the coordinates in every pass; on a CPU tensor,
+package's gate (``emd_kernel_ok``: N, M <= 4096, 3 channels) one launch of
+the kernel, a thread-block cluster a cloud that holds both clouds in shared
+memory and recomputes the distances in every pass (the C entry's
+``plan`` chooses the cluster's size); on a CPU tensor,
 or off the gate on any device (where the JAX package runs ``_emd_fwd_impl``
 on its accelerator too), the plain version ``_emd_fwd_reference`` runs. Both
 take d^2 from exact per-coordinate differences, (d0*d0 + d1*d1) + d2*d2,
@@ -32,7 +34,12 @@ K ratioL, s_c = sum_n K ratioL / C and s_cx = sum_n K ratioL / C x_n, from
 which ratioR follows and then the column sums of W / C are ratioR * s_c and
 ratioR * s_cx; the row pass computes, per row n, sums over m of K ratioR,
 K ratioR C, K ratioR / C and K ratioR / C y_m, which times ratioL are the row
-sums of W, W C, W / C and W / C y. 1 / C is taken once per pair.
+sums of W, W C, W / C and W / C y. 1 / C is taken once per pair. The
+kernel rounds three steps otherwise: its row pass takes a level's K as the
+fourth power of the next level's (the levels step by 4), 1 / C comes from
+a reciprocal square root (C as max(d^2, 1e-20) times it), both a few ulp
+off, and exp(level d^2) from the card's ex2.approx of (level log2 e) d^2,
+up to |level d^2| 2^-24 relative off (and flushed to 0 below e^-87).
 """
 
 from __future__ import annotations
@@ -140,10 +147,9 @@ def _check(x, y):
 
 
 def emd_kernel(x, y):
-    """The CUDA kernels: x (B, N, 3), y (B, M, 3) f32 on the card, N, M <=
-    4096 -> (cost (B,), g1 (B, N, 3), g2 (B, M, 3)). One call makes 22
-    launches: the first row pass, a column and a row pass a level, and the
-    cost's sum."""
+    """The CUDA kernel: x (B, N, 3), y (B, M, 3) f32 on the card, N, M <=
+    4096 -> (cost (B,), g1 (B, N, 3), g2 (B, M, 3)), one launch a call in
+    the clusters ``csrc/emd.cu``'s ``plan`` chooses from N and M."""
     _check(x, y)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
@@ -158,10 +164,10 @@ def emd_kernel(x, y):
     g2 = torch.empty((B, M, 3), device=x.device, dtype=torch.float32)
     if B == 0:
         return cost, g1, g2
-    scratch = torch.empty((B * (3 * N + 2 * M),), device=x.device, dtype=torch.float32)
+    scratch = torch.empty((B * 2 * N,), device=x.device, dtype=torch.float32)  # remainL and each row's cost
     mult_l, mult_r = _multipliers(N, M)
-    _build.launch("emd_fwd", x.device, x.data_ptr(), y.data_ptr(), cost.data_ptr(), g1.data_ptr(), g2.data_ptr(),
-                  scratch.data_ptr(), B, N, M, mult_l, mult_r)
+    _build.launch("emd_fwd", x.device, x.data_ptr(), y.data_ptr(), cost.data_ptr(), g1.data_ptr(),
+                  g2.data_ptr(), scratch.data_ptr(), B, N, M, mult_l, mult_r)
     LAUNCHES["_emd_fwd_pallas"] += 1
     return cost, g1, g2
 
@@ -173,7 +179,6 @@ def emd_fwd(x, y):
     if x.device.type == "cuda" and emd_kernel_ok(x, y):
         return emd_kernel(x, y)
     return _emd_fwd_reference(x, y)
-
 
 
 class _EMD(torch.autograd.Function):

@@ -1,9 +1,10 @@
 """Point-cloud geometry primitives, counterpart of
 ``learning3d_tpu/ops/geometry.py``. Ported so far: what DGCNN, PRNet,
-FlowNet3D and PPFNet need (squared distances, exact kNN of a cloud and of
-queries among another cloud, neighbor gather, edge features, farthest-point
-sampling, ball query, three-NN inverse-distance interpolation, the robust
-angle between vectors).
+FlowNet3D, PPFNet and DeepGMR need (squared distances, exact kNN of a cloud
+and of queries among another cloud, neighbor gather, edge features,
+farthest-point sampling, ball query, three-NN inverse-distance
+interpolation, the robust angle between vectors, the rotation-invariant
+representation ``get_rri``).
 
 All functions are channel-last (B, N, C). Neighbor selection follows
 ``jax.lax.top_k``: nearest first, exact ties to the smaller index.
@@ -264,3 +265,34 @@ def angle(v1, v2, eps=1e-12):
     y = torch.where(degen, torch.zeros_like(cross_norm), cross_norm)
     x = torch.where(degen, torch.ones_like(dot), dot)
     return torch.atan2(y, x)
+
+
+def get_rri(pts, k):
+    """DeepGMR's rotation-invariant representation: pts (B, N, 3), centred
+    -> (B, N, 4k), for each of a point's k nearest others (|p|, |q|,
+    theta(p, q), phi), phi the smallest in-plane angle from the neighbour's
+    projection to any other neighbour's, about p. The JAX package's
+    ``get_rri`` op for op: the k + 1 nearest by ``square_distance`` in
+    ``lax.top_k``'s order (a stable sort), the first dropped; norms as
+    sqrt(sum(v * v)); psi = atan2(sin, cos) mod 2 pi as ``jnp.remainder``
+    takes it (fmod, then + 2 pi where negative). No kernel: the JAX package
+    reaches none."""
+    idx = _smallest(square_distance(pts, pts), k + 1)[1][..., 1:]  # (B, N, k)
+    q = index_points(pts, idx)  # (B, N, k, 3)
+    p = pts[:, :, None, :].expand(q.shape)
+    rp = torch.sqrt(torch.sum(p * p, -1, keepdim=True))
+    rq = torch.sqrt(torch.sum(q * q, -1, keepdim=True))
+    pn = p / torch.clamp(rp, min=1e-12)
+    qn = q / torch.clamp(rq, min=1e-12)
+    dot = torch.sum(pn * qn, -1, keepdim=True)
+    theta = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    t_q = q - dot * p  # the reference's projection (p not normalised)
+    a, b = t_q[:, :, :, None, :], t_q[:, :, None, :, :]  # [.., i, j]: neighbour i against neighbour j
+    sin_psi = torch.sum(torch.linalg.cross(b, a, dim=-1) * pn[:, :, None, :, :], -1)
+    cos_psi = torch.sum(b * a, -1)
+    psi = torch.fmod(torch.atan2(sin_psi, cos_psi), 2.0 * np.pi)
+    psi = torch.where(psi < 0, psi + 2.0 * np.pi, psi)
+    eye = torch.eye(k, dtype=torch.bool, device=pts.device)
+    phi = torch.amin(torch.where(eye, torch.full_like(psi, float("inf")), psi), -1, keepdim=True)
+    feat = torch.cat([rp, rq, theta, phi], -1)  # (B, N, k, 4)
+    return feat.reshape(pts.shape[0], pts.shape[1], 4 * k)

@@ -1,9 +1,10 @@
 """Per-task loss functions, counterpart of ``learning3d_tpu/train/tasks.py``.
 Every loss_fn has the signature ``loss_fn(model, batch, generator) ->
 (loss, aux_dict)``; ``generator`` is the Trainer's ``torch.Generator`` on
-the training device, for tasks that draw random numbers. Ported so far:
-classification, DCP, PRNet, iPCRNet, PointNetLK, PCN, MaskNet, scene flow,
-RPMNet and segmentation; DeepGMR's task is not."""
+the training device, for tasks that draw random numbers. Every task of the
+JAX package's table is here: classification, PointNetLK, RPMNet, iPCRNet,
+DCP, PRNet, DeepGMR, PCN, MaskNet (and MaskNet2), scene flow and
+segmentation."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 from torch.nn import functional as F
 
 from learning3d_tpu_torch.losses import losses
+from learning3d_tpu_torch.ops.so3 import matmul3
 from learning3d_tpu_torch.train.metrics import mask_scores, registration_errors
 
 
@@ -92,6 +94,19 @@ def prnet(model, batch, generator=None):
     return out["loss"], registration_errors(out["est_T"], igt)
 
 
+def deepgmr(model, batch, generator=None):
+    """MSE(est_T_inverse igt^-1, I) + MSE(est_T igt, I), the reference's
+    train_deepgmr loss, with the registration metrics; the 4 x 4 products
+    summed elementwise (no TF32), the inverse by ``torch.linalg.inv`` as
+    the JAX package's ``jnp.linalg.inv``."""
+    template, source, igt = batch
+    out = model(template, source)
+    eye = torch.eye(4, dtype=igt.dtype, device=igt.device)
+    mse1 = torch.mean((matmul3(out["est_T_inverse"], torch.linalg.inv(igt)) - eye) ** 2)
+    mse2 = torch.mean((matmul3(out["est_T"], igt) - eye) ** 2)
+    return mse1 + mse2, registration_errors(out["est_T"], igt)
+
+
 def pcn(model, batch, generator=None):
     """Chamfer(points, coarse_output), the reference's train_pcn loss; with
     the folding decoder (PCN(detailed_output=True)) the fine stage's Chamfer
@@ -129,12 +144,11 @@ def masknet(model, batch, generator=None, loss_fn="mse"):
     reference's train_masknet loss, with ``mask_scores``. The batch is
     (template, source, igt, gt_mask); gt_mask marks the template points that
     survive in the partial source. MaskNet returns (masked_template,
-    template_mask); MaskNet2, not ported yet, returns the template mask
-    first."""
-    if type(model).__name__ == "MaskNet2":
-        raise NotImplementedError("MaskNet2 is not ported yet (ROADMAP Queue 1, the MaskNet2 item)")
+    template_mask), MaskNet2 (template_mask, source_mask): the template mask
+    either way."""
     template, source, igt, gt_mask = batch
-    mask = model(template, source)[1]
+    out = model(template, source)
+    mask = out[0] if type(model).__name__ == "MaskNet2" else out[1]
     if loss_fn == "bce":
         m = torch.clamp(mask, 1e-7, 1 - 1e-7)
         loss = -torch.mean(gt_mask * torch.log(m) + (1 - gt_mask) * torch.log(1 - m))
@@ -155,4 +169,5 @@ def segmentation(model, batch, generator=None):
 
 
 TASKS = {"classification": classification, "pointnetlk": pointnetlk, "rpmnet": rpmnet, "ipcrnet": ipcrnet,
-         "dcp": dcp, "prnet": prnet, "pcn": pcn, "masknet": masknet, "flow": flownet, "segmentation": segmentation}
+         "dcp": dcp, "prnet": prnet, "deepgmr": deepgmr, "pcn": pcn, "masknet": masknet, "flow": flownet,
+         "segmentation": segmentation}

@@ -16,8 +16,9 @@ Mapping (the port keeps torch's orientation for Linear):
 Entries under ``rngs`` (dropout keys and counters, PRNet's head's Gumbel
 stream) are skipped. Every ported model crosses this way (PointNet, the
 classifier, DGCNN, DCP with either head, PRNet, iPCRNet, PCN, FlowNet3D,
-PPFNet, RPMNet, PointNetLK, MaskNet, Segmentation, PointConv and CurveNet,
-whose ``nnx.List`` blocks map onto ``nn.ModuleList`` indices): the port's
+PPFNet, RPMNet, PointNetLK, MaskNet, Segmentation, PointConv, CurveNet,
+DeepGMR and MaskNet2, whose ``nnx.List`` blocks map onto ``nn.ModuleList``
+indices; MaskNet2's attention gates ``beta`` (1,) are plain Params): the port's
 modules carry the JAX modules' attribute names. A BatchNorm's state is
 per channel whatever the rank of its input (PointConv's and CurveNet's
 BatchNorms over (B, S, K, C) groups), and the one- and two-channel

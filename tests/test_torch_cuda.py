@@ -1260,10 +1260,15 @@ def emd_close(got, want):
         assert ((g - w).abs().mean() / w.abs().mean()).item() < 0.05
 
 
-# PCN's coarse EMD (B=32, N=M=1024); N > M and N < M (the multipliers);
-# the gate's limit, 4096 points
+# PCN's coarse EMD (B=32, N=M=1024: clusters of 16 CTAs of 64 rows); N > M and N < M (the
+# multipliers); the gate's limit, 4096 points (the largest resident
+# clouds, a cluster of 16); B=1 at PCN's size (16 CTAs of 64 rows); ragged
+# N and M that no cluster size divides, both ways, at clusters of 16, 8 and
+# 2; fewer points than CTAs (CTAs that own no row)
 @pytest.mark.parametrize("case,batch,n,m", [
-    ("pcn", 32, 1024, 1024), ("n_gt_m", 3, 1000, 300), ("n_lt_m", 2, 250, 1000), ("max", 1, 4096, 4096)])
+    ("pcn", 32, 1024, 1024), ("n_gt_m", 3, 1000, 300), ("n_lt_m", 2, 250, 1000), ("max", 1, 4096, 4096),
+    ("b1", 1, 1024, 1024), ("ragged", 5, 1001, 777), ("ragged_lt", 9, 333, 1237), ("ragged_b40", 40, 517, 263),
+    ("tiny", 2, 5, 11)])
 def test_k13_matches_plain(cuda, case, batch, n, m):
     from learning3d_tpu_torch.kernels import LAUNCHES
     from learning3d_tpu_torch.kernels.emd import _emd_fwd_reference, emd_fwd
@@ -1276,6 +1281,53 @@ def test_k13_matches_plain(cuda, case, batch, n, m):
     torch.cuda.synchronize()
     assert LAUNCHES["_emd_fwd_pallas"] == before + 1
     emd_close(got, want)
+
+
+# (case, B, N, M, the C entry's plan: cluster size * 100 + instance)
+@pytest.mark.parametrize("case,batch,n,m,planned", [
+    ("v64", 4, 1024, 1024, 1600), ("v64_ragged", 3, 1000, 300, 1600), ("v64_cluster_4", 2, 250, 100, 400),
+    ("one_cta", 2, 50, 33, 100), ("v128", 3, 2048, 300, 1601), ("v128_ragged", 2, 1500, 1999, 1601),
+    ("v256", 1, 4096, 4096, 1602), ("v256_ragged", 2, 2049, 3001, 1602)])
+def test_k13_variants_match_plain(cuda, case, batch, n, m, planned):
+    """Every instance of csrc/emd.cu (up to 64, 128 and 256 rows a CTA),
+    each at the shapes for which ``plan`` chooses it, and clusters of 16, 4
+    and 1 (one CTA holds both clouds)."""
+    from learning3d_tpu_torch.kernels import _build
+    from learning3d_tpu_torch.kernels.emd import _emd_fwd_reference, emd_kernel
+
+    assert _build.library().emd_plan(n, m) == planned
+    rng = np.random.default_rng(n * 11 + m)
+    x, y = (torch.from_numpy(rng.normal(size=(batch, k, 3)).astype(np.float32)).to(cuda) for k in (n, m))
+    want = _emd_fwd_reference(x, y)
+    got = emd_kernel(x, y)
+    torch.cuda.synchronize()
+    emd_close(got, want)
+
+
+def test_k13_is_deterministic(cuda):
+    """No atomics: two calls give the same bits."""
+    from learning3d_tpu_torch.kernels.emd import emd_kernel
+
+    rng = np.random.default_rng(3)
+    x, y = (torch.from_numpy(rng.normal(size=(32, 1024, 3)).astype(np.float32)).to(cuda) for _ in range(2))
+    a, b = emd_kernel(x, y), emd_kernel(x, y)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_k13_plan_is_the_stated_plan(cuda):
+    """The C entry's cluster size and instance (cluster * 100 + instance)
+    follow the rule tests/test_torch_k13_layout.py emulates: the smallest
+    power of two up to 16 (the largest cluster an H100 holds) that leaves a
+    CTA at most 64 of the larger cloud's points, then the instance by the
+    rows a CTA owns (up to 64, 128, 256)."""
+    from learning3d_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    stated = {(1, 1): 100, (5, 11): 100, (64, 1): 100, (65, 1): 200, (250, 300): 800, (300, 1): 800,
+              (777, 1024): 1600, (1000, 300): 1600, (1024, 1024): 1600, (1025, 4): 1601, (2048, 300): 1601,
+              (2049, 1): 1602, (1, 4096): 1602, (4096, 4096): 1602}
+    assert {k: lib.emd_plan(*k) for k in stated} == stated
 
 
 def test_k13_gate(cuda):

@@ -324,12 +324,18 @@ def test_trainer_picks_the_configured_masknet_loss(jax_task, tmp_path):
     assert TrainConfig().masknet_loss == "bce"
 
 
-def test_masknet_task_refuses_masknet2():
+def test_masknet_task_reads_masknet2_template_mask():
+    """The task takes MaskNet2's tuple the other way round: its template
+    mask first (MaskNet's is second); a stand-in whose second output is
+    garbage shows which one is read."""
     class MaskNet2(torch.nn.Module):
-        pass
+        def forward(self, template, source):
+            return torch.full(template.shape[:2], 0.25), torch.full(source.shape[:2], float("nan"))
 
-    with pytest.raises(NotImplementedError, match="MaskNet2"):
-        tasks.masknet(MaskNet2(), masknet_batch(13))
+    batch = tuple(map(torch.from_numpy, masknet_batch(13)))
+    loss, aux = tasks.masknet(MaskNet2(), batch, loss_fn="mse")
+    assert loss.item() == pytest.approx(torch.mean((0.25 - batch[3]) ** 2).item())
+    assert np.isfinite(aux["accuracy"].item())
 
 
 def test_masknet_f32_train_step_in_the_kernel_gate_matches_jax():

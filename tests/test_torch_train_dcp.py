@@ -237,8 +237,12 @@ def test_registration_data_epochs_and_difficulty():
     assert dcp._difficulty == 1.0
     with pytest.raises(ValueError, match="not available"):
         RegistrationData("ICP", data)
-    with pytest.raises(NotImplementedError, match="the DeepGMR item"):
-        RegistrationData("DeepGMR", data, additional_params={"nearest_neighbors": 20})
+    gmr = RegistrationData("DeepGMR", data, additional_params={"nearest_neighbors": 20})
+    plain = RegistrationData("DeepGMR", data)
+    (t1, s1, g1), (t2, s2, g2) = gmr[1], plain[1]
+    assert t1.shape == s1.shape == (64, 3 + 80)  # the RRI features of 20 neighbours appended
+    for a, b in ((t1[:, :3], t2), (s1[:, :3], s2), (g1, g2)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_registration_helpers_match_jax():

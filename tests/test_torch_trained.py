@@ -11,6 +11,8 @@ synthetic pairs at the trained width (emb 1024) and N <= 256.
   N=1024 (its architecture's npoints), the argmax equal; one JAX CurveNet
   is built for both and its forward jitted.
 - ``r5b_dgcnn_hard``: Classifier(DGCNN(1024))'s logits at N=256.
+- ``r3c_deepgmr``: DeepGMR(use_rri=True, nearest_neighbors=20)'s est_T
+  (and the rest of its outputs) on jittered DeepGMR pairs at N=256.
 
 The restoring Trainer writes its run.log and tb/ into a fresh directory
 under pytest's tmp_path whose ``best`` entry links to the release, so
@@ -32,7 +34,7 @@ from learning3d_tpu import models as jmodels
 from learning3d_tpu.data import dataloaders as jdata
 from learning3d_tpu.train import TrainConfig as JTrainConfig
 from learning3d_tpu.train import Trainer as JTrainer
-from learning3d_tpu_torch.models import DGCNN, Classifier, CurveNet, MaskNet, PointNet, PointNetLK
+from learning3d_tpu_torch.models import DGCNN, Classifier, CurveNet, DeepGMR, MaskNet, PointNet, PointNetLK
 from learning3d_tpu_torch.models.masknet import top_indices
 from learning3d_tpu_torch.train.metrics import registration_errors
 from learning3d_tpu_torch.utils.jax_import import load_nnx_state
@@ -201,3 +203,44 @@ def test_trained_dgcnn_classifier_matches_jax(tmp_path):
     assert rel(got, want) <= DGCNN_TOL
     np.testing.assert_array_equal(got.argmax(-1).numpy(), want.argmax(-1))
     assert release_files("r5b_dgcnn_hard") == before
+
+
+# Measured on these pairs: with the same RRI features on both sides (JAX's,
+# appended to the clouds) the poses lie 6.3e-6 of max apart; with each side
+# computing its own in the forward, the features' rounding (angles 1.4e-5
+# apart, arccos and atan2 of the two libraries) is carried by the trained
+# weights to 2.7e-3 of est_T's max
+GMR_TOL, GMR_RRI_TOL = 5e-5, 1e-2
+
+
+def test_trained_deepgmr_matches_jax(tmp_path):
+    """The trained DeepGMR on 4 test-split DeepGMR pairs of 256 points with
+    the source jittered (a clean source is its template moved, which the
+    rotation-invariant features register exactly whatever the weights): the
+    poses to GMR_TOL given the same features, to GMR_RRI_TOL from the raw
+    clouds. On the clean pairs (the release's evaluation) it registers to
+    its reported accuracy."""
+    from learning3d_tpu.ops import geometry as jgeo
+
+    jm = restore(tmp_path, "r3c_deepgmr", "deepgmr", jmodels.DeepGMR(use_rri=True, nearest_neighbors=20,
+                                                                      rngs=nnx.Rngs(0)))
+    jm.eval()
+    data = jdata.RegistrationData("DeepGMR", jdata.SyntheticModelNet40(train=False, num_points=N, size=B),
+                                  noise=True)
+    t, s, igt = (np.stack([data[i][j] for i in range(B)]) for j in range(3))
+    rri = jax.jit(jgeo.get_rri, static_argnums=1)
+    feats = [np.concatenate([a, np.asarray(rri(jnp.asarray(a - a.mean(1, keepdims=True)), 20))], -1) for a in (t, s)]
+    tm = load_nnx_state(DeepGMR(use_rri=True, nearest_neighbors=20, device="cpu"), nnx_flat(jm)).eval()
+    call = nnx.jit(lambda m, a, b: m(a, b))
+    for (a, b), tol in (((t, s), GMR_RRI_TOL), (feats, GMR_TOL)):
+        want = jax.tree.map(np.asarray, call(jm, jnp.asarray(a), jnp.asarray(b)))
+        with torch.no_grad():
+            got = tm(torch.from_numpy(a), torch.from_numpy(b))
+        for key in ("est_T", "est_R", "est_t", "est_T_inverse", "transformed_source"):
+            assert rel(got[key], want[key]) <= tol, key
+    clean = jdata.RegistrationData("DeepGMR", jdata.SyntheticModelNet40(train=False, num_points=N, size=B))
+    t, s, igt = (np.stack([clean[i][j] for i in range(B)]) for j in range(3))
+    with torch.no_grad():
+        err = registration_errors(tm(torch.from_numpy(t), torch.from_numpy(s))["est_T"], torch.from_numpy(igt))
+    assert err["rot_deg"].max().item() < 0.5 and err["trans"].max().item() < 1e-2
+    assert not (RELEASES / "r3c_deepgmr" / "run.log").exists()

@@ -2,7 +2,7 @@
 """Where the time of the port's serving goes, on one card.
 
     python3 tools/profile_torch_serve.py [--model pointnet|dcp|pointnet-int8|dcp-int8|dcp-int8-fused|
-                                          dcp-int8-hybrid-fused|ipcrnet|prnet|flownet|rpmnet|masknet|pointnetlk|
+                                          dcp-int8-hybrid-fused|ipcrnet|prnet|flownet|rpmnet|masknet|pointnetlk|deepgmr|masknet2|
                                           pointconv|curvenet|dgcnn-cls]
                                          [--requests 20]
 
@@ -33,7 +33,10 @@ classifier=True) in f32 eval (K14 and K8 twice a forward); ``curvenet``:
 CurveNet() in f32 eval (K8 once, K14 and K15 twice); ``dgcnn-cls``:
 Classifier(DGCNN(1024, k=20)) in bf16 eval (K5 once); each on requests of
 B=32 SyntheticModelNet40 clouds of 1024 points, with the seeded weights of
-chip_smoke.py's serve phases for these models. All with the numpy-seeded
+chip_smoke.py's serve phases for these models. ``deepgmr``:
+DeepGMR(use_rri=True, nearest_neighbors=20) and ``masknet2``: MaskNet2()
+(its attention gates drawn), both in f32 eval on requests of B=32 pairs of
+chip_smoke.py's serve_deepgmr and serve_masknet2 (no kernel). All with the numpy-seeded
 weights of chip_smoke.py, served through learning3d_tpu_torch's
 InferenceEngine under torch.profiler. Prints one JSON line: host wall time
 per request, device time per request by kernel (largest first), the
@@ -102,6 +105,12 @@ def build(name: str, rng):
         state = chip_smoke.pointconv_state(rng) if name == "pointconv" else chip_smoke.seeded_state(make, rng)
         clouds = np.stack([chip_smoke.cls_data()[i][0] for i in range(chip_smoke.CLS_B)]).astype(np.float32)
         return chip_smoke.from_state(make, state), chip_smoke.CLS_B, [clouds]
+    if name in ("deepgmr", "masknet2"):
+        make, state = ((chip_smoke.make_deepgmr, chip_smoke.seeded_state(chip_smoke.make_deepgmr, rng))
+                       if name == "deepgmr" else (chip_smoke.make_masknet2, chip_smoke.masknet2_state(rng)))
+        data = chip_smoke.registration_data(name)
+        pairs = [np.stack([data[i][j] for i in range(chip_smoke.CLS_B)]) for j in range(2)]
+        return chip_smoke.from_state(make, state).eval(), chip_smoke.CLS_B, pairs
     if name == "rpmnet":
         from learning3d_tpu_torch.models import RPMNet
 
@@ -136,7 +145,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=("pointnet", "dcp", "pointnet-int8", "dcp-int8", "dcp-int8-fused",
                                             "dcp-int8-hybrid-fused", "ipcrnet", "prnet", "flownet", "rpmnet", "masknet",
-                                            "pointnetlk", "pointconv", "curvenet", "dgcnn-cls"),
+                                            "pointnetlk", "pointconv", "curvenet", "dgcnn-cls", "deepgmr",
+                                            "masknet2"),
                         default="pointnet")
     parser.add_argument("--requests", type=int, default=20)
     args = parser.parse_args()

@@ -2,7 +2,8 @@
 """Where the time of the port's training step goes, on one card.
 
     python3 tools/profile_torch_train.py [--model pointnet|dcp|ipcrnet|pcn|prnet|flownet|rpmnet|pointnetlk|
-                                                  masknet|segmentation|pointconv|curvenet|dgcnn-cls] [--detailed]
+                                                  masknet|segmentation|pointconv|curvenet|dgcnn-cls|deepgmr|
+                                                  masknet2] [--detailed]
                                          [--dtype bf16|f32] [--steps 10]
 
 ``--model pointnet`` (the default) is bench.py's training configuration:
@@ -29,7 +30,9 @@ flow MSE, SGD (lr 1e-3, momentum 0.9), in f32. ``--model rpmnet`` is
 examples/train.py's RPMNet() (PPFNet emb 96, 2 iterations) on B=16 pairs of
 N=1024 points with normals from RegistrationData("RPMNet",
 SyntheticModelNet40(use_normals=True)), the Frobenius + feature-residual
-loss, Adam at 1e-3, in f32. ``--model pointnetlk``, ``masknet`` and
+loss, Adam at 1e-3, in f32. ``--model deepgmr`` and ``masknet2`` are
+chip_smoke.py's train_deepgmr (jittered DeepGMR pairs, Adam 1e-3) and
+train_masknet2 (bce), B=32, no kernel. ``--model pointnetlk``, ``masknet`` and
 ``segmentation`` are chip_smoke.py's train_pnlk, train_masknet and
 train_seg: PointNetLK(PointNet(1024, use_bn=True)) (10 iterations) on B=32
 RegistrationData("PointNetLK") pairs of N=1024 (K3 twice a step, the
@@ -77,7 +80,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", choices=("pointnet", "dcp", "ipcrnet", "pcn", "prnet", "flownet", "rpmnet",
                                             "pointnetlk", "masknet", "segmentation", "pointconv", "curvenet",
-                                            "dgcnn-cls"), default="pointnet")
+                                            "dgcnn-cls", "deepgmr", "masknet2"), default="pointnet")
     parser.add_argument("--detailed", action="store_true", help="pcn: with the folding decoder")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default=None,
                         help="bf16 for pointnet and f32 for the others unless given")
@@ -168,6 +171,15 @@ def main() -> None:
         if args.model == "curvenet":
             cfg.update(optimizer="sgd", momentum=0.9, weight_decay=chip_smoke.CURVE_WD, cosine_decay=True,
                        label_smoothing=chip_smoke.CURVE_SMOOTHING, augment=True)
+    elif args.model in ("deepgmr", "masknet2"):
+        B, N, unit = chip_smoke.CLS_B, chip_smoke.CLS_N, "pairs"
+        deepgmr = args.model == "deepgmr"
+        make = chip_smoke.make_deepgmr if deepgmr else chip_smoke.make_masknet2
+        model = chip_smoke.from_state(make, chip_smoke.seeded_state(make, rng) if deepgmr else
+                                      chip_smoke.masknet2_state(rng))
+        data = chip_smoke.registration_data("deepgmr_noise" if deepgmr else "masknet2")
+        batch = to_device(next(batch_iterator(data, B, shuffle=False)), "cuda")
+        cfg = dict(task="deepgmr" if deepgmr else "masknet", masknet_loss="bce")
     elif args.model == "flownet":
         from learning3d_tpu_torch.data import FlowData, SyntheticSceneflow
         from learning3d_tpu_torch.models import FlowNet3D

@@ -5,8 +5,9 @@ the whole script.
 
     python3 tools/smoke_phases.py kernel_cls serve_pointconv train_curvenet
 
-Phases: kernel_cls, serve_pointconv, train_pointconv, serve_curvenet,
-train_curvenet, serve_dgcnn_cls, train_dgcnn_cls. They run in
+Phases: kernel_k13, kernel_cls, serve_pointconv, train_pointconv,
+serve_curvenet, train_curvenet, serve_dgcnn_cls, train_dgcnn_cls,
+serve_deepgmr, train_deepgmr, serve_masknet2, train_masknet2. They run in
 chip_smoke.py's order whatever the order given, on a generator seeded as
 chip_smoke.py seeds theirs; a phase left out draws nothing, so the weights
 of the later ones can differ from chip_smoke.py's. Each prints its JSON
@@ -25,8 +26,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-ORDER = ("kernel_cls", "serve_pointconv", "train_pointconv", "serve_curvenet", "train_curvenet", "serve_dgcnn_cls",
-         "train_dgcnn_cls")
+ORDER = ("kernel_k13", "kernel_cls", "serve_pointconv", "train_pointconv", "serve_curvenet", "train_curvenet",
+         "serve_dgcnn_cls", "train_dgcnn_cls", "serve_deepgmr", "train_deepgmr", "serve_masknet2", "train_masknet2")
 
 
 def main(argv) -> None:
@@ -45,7 +46,9 @@ def main(argv) -> None:
     rng = np.random.default_rng(cs.SEED + 17)
     make_bf16 = functools.partial(cs.make_dgcnn_cls, dtype=torch.bfloat16)
     dgcnn_cls = cs.from_state(make_bf16, cs.seeded_state(make_bf16, rng)).eval()
+    gmr_rng, m2_rng = np.random.default_rng(cs.SEED + 18), np.random.default_rng(cs.SEED + 19)
     run = {
+        "kernel_k13": lambda: cs.phase_kernel_k13(np.random.default_rng(cs.SEED)),
         "kernel_cls": cs.phase_kernel_cls,
         "serve_pointconv": lambda: cs.phase_serve_pointconv(rng),
         "train_pointconv": lambda: cs.phase_train_pointconv(rng),
@@ -53,6 +56,10 @@ def main(argv) -> None:
         "train_curvenet": lambda: cs.phase_train_curvenet(rng),
         "serve_dgcnn_cls": lambda: cs.phase_serve_dgcnn_cls(dgcnn_cls),
         "train_dgcnn_cls": lambda: cs.phase_train_dgcnn_cls(rng),
+        "serve_deepgmr": lambda: cs.phase_serve_deepgmr(gmr_rng),
+        "train_deepgmr": lambda: cs.phase_train_deepgmr(gmr_rng),
+        "serve_masknet2": lambda: cs.phase_serve_masknet2(m2_rng),
+        "train_masknet2": lambda: cs.phase_train_masknet2(m2_rng),
     }
     failed = []
     for name in ORDER:

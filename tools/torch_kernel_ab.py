@@ -10,7 +10,7 @@ layers K11a/K11b, K8 (knn_pallas), K1 (pointnet_pooled_kernel), K14
 
     python3 tools/torch_kernel_ab.py [--root TREE] [--label NAME]
         [--parts k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8,k5,k17,dcp_bf16,rpmnet,
-                 k7,k3,dcp_f32,k2,k16,pointnet_int8,k15,k4,cls_step]
+                 k7,k3,dcp_f32,k2,k16,pointnet_int8,k15,k4,cls_step,k13]
 
 (``tools/torch_attention_ab.py`` is the same script under its former name.)
 ``--root`` names the checkout whose ``learning3d_tpu_torch`` and
@@ -80,7 +80,9 @@ the allocation, the device and stream lookups, the C entry alone). ``k4``:
 K4 at the classifier step's shape (B=256, N=1024, K=128, E=1024) in bf16
 and f32 on K3's picks, device time by kernel (the wrapper's transpose of W
 beside K4) and the transpose's host time, with the SHA-256 of dx_sp's and
-dW_sel's bytes. ``cls_step``: the classifier
+dW_sel's bytes. ``k13``: K13 (_emd_fwd_pallas) at PCN's coarse EMD (B=32,
+N=M=1024), at B=1 (N=M=1024 and the gate's 4096) and at N > M (3, 1000,
+300), its device time and launches a call by kernel. ``cls_step``: the classifier
 train step (``chip_smoke.time_train_step``, bench.py's configuration, B=256)
 in bf16 and f32. The SHA-256 values tell whether two trees' kernels agree
 bit for bit on the same seeded inputs. Inputs are
@@ -110,7 +112,7 @@ def main() -> None:
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1])
     parser.add_argument("--label", default="")
     parser.add_argument("--parts", default="k6,k10,k11,serve,k8,k1,prnet,ipcrnet,k14,k9,flownet,dcp_int8,"
-                        "k5,k17,dcp_bf16,rpmnet,k7,k3,dcp_f32,k2,k16,pointnet_int8,k15,k4,cls_step")
+                        "k5,k17,dcp_bf16,rpmnet,k7,k3,dcp_f32,k2,k16,pointnet_int8,k15,k4,cls_step,k13")
     args = parser.parse_args()
     parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
@@ -201,6 +203,8 @@ def main() -> None:
             times.update(k15_times(chip_smoke))
         if "k4" in parts:
             times.update(k4_times(chip_smoke))
+        if "k13" in parts:
+            times.update(k13_times(chip_smoke))
     if "cls_step" in parts:
         times.update(cls_step_times(chip_smoke))
     if parts & {"prnet", "ipcrnet", "flownet", "dcp_int8", "dcp_bf16", "rpmnet", "dcp_f32", "pointnet_int8"}:
@@ -567,6 +571,23 @@ def k4_times(chip_smoke) -> dict:
         digest.update(dw.contiguous().cpu().numpy().tobytes())
         times[f"k4/{name}/sha256"] = digest.hexdigest()
         del x, dx
+    return times
+
+
+def k13_times(chip_smoke) -> dict:
+    """K13 at PCN's coarse EMD and the other shapes of the docstring, device
+    time and launches a call."""
+    from learning3d_tpu_torch.kernels import emd
+
+    rng = np.random.default_rng(chip_smoke.SEED + 13)
+    times = {}
+    for name, (b, n, m) in {"pcn": (32, 1024, 1024), "b1": (1, 1024, 1024), "max": (1, 4096, 4096),
+                            "n_gt_m": (3, 1000, 300)}.items():
+        x, y = (torch.from_numpy(rng.normal(size=(b, k, 3)).astype(np.float32)).cuda() for k in (n, m))
+        times[f"k13/{name}"] = chip_smoke.cuda_ms(lambda: emd.emd_kernel(x, y), reps=10)
+        dev, counts = device_ms(lambda: emd.emd_kernel(x, y), reps=5, by_kernel=True, counts=True)
+        times[f"k13/{name}/device"] = sum(dev.values())
+        times[f"k13/{name}/launches"] = sum(counts.values())
     return times
 
 
