@@ -12,7 +12,8 @@ serving of PointConv and CurveNet, bf16 serving of the DGCNN classifier, and tra
 of the PointNet-1024 classifier, DCP, iPCRNet, PCN, PRNet, FlowNet3D,
 RPMNet, PointNetLK, MaskNet, part segmentation, PointConv, CurveNet, the
 DGCNN classifier, DeepGMR and MaskNet2 (both also served) through the
-Trainer, and
+Trainer, runs the port's train and evaluate entry points (the trained
+PointNet classifier held to the JAX package's predictions), and
 holds every CUDA kernel of those paths against its plain PyTorch version.
 Phases, one JSON line each with the seconds since start:
 
@@ -364,11 +365,35 @@ Phases, one JSON line each with the seconds since start:
    finite and in [0, 1]; one Adam (1e-3) step on the masknet task (bce):
    the loss finite, every weight and statistic changed; model_ms, pairs/s,
    the step's parts. A generator of its own;
+46. cli_train: the port's entry points as a user runs them, in this
+   process with --device cuda, into a temporary directory:
+   ``examples.train`` with the r4_pointnet_cls recipe (--cosine --augment
+   --label_smoothing 0.2 --export_feature) at the scripts' full width (emb
+   1024, N=1024, B=32) for one epoch of --dataset_size 64 (two steps), then
+   ``--model ipcrnet --task ipcrnet`` the same way, then ``examples.evaluate``
+   on the iPCRNet checkpoint with --multistart 8; the checkpoints, the
+   exported feature model and run.log written, every printed metric finite,
+   and the launches the code implies: K3 and K4 once a classifier step (its
+   f32 eval pass none), K12 twice an iPCRNet loss (steps and eval batches)
+   and twice a multistart batch. Its weights come from the CLI's own seed;
+47. cli_trained_cls: the trained classifier r4_pointnet_cls, converted from
+   the JAX package's release into a port checkpoint
+   (``learning3d_tpu_torch/trained``, tools/convert_release_torch.py),
+   evaluated by ``examples.evaluate --quantize`` on the card on its 2048-cloud
+   synthetic test set (f32 with no kernel, int8 through K2 once a batch),
+   then served in bf16 through InferenceEngine(batch_size=256) (K1 once a
+   chunk): the f32 argmax equal to the JAX package's stored argmax on every
+   cloud whose JAX margin exceeds TRAINED_MARGIN, the int8 argmax agreeing
+   with JAX's int8 on >= TRAINED_INT8_AGREE, the bf16 argmax with the port's
+   f32 on >= AGREE; the control (two classes' logit rows swapped) fails each
+   of the three. The card's accuracy, int8 accuracy and agreement are printed
+   beside the JAX package's on the CPU and its manifest's TPU figures;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``. Any
 failed check raises, so the script exits non-zero and prints no result. It
-needs a CUDA card and the repository's checkout around it; it reads no
-release checkpoint and writes only into the kernels' build directory.
+needs a CUDA card and the repository's checkout around it; the one
+checkpoint it reads is the port's own under ``learning3d_tpu_torch/trained``,
+and it writes into the kernels' build directory and temporary directories.
 """
 
 from __future__ import annotations
@@ -4628,6 +4653,239 @@ def phase_train_masknet2(rng) -> dict:
                               {"model": f"MaskNet2() f32, betas drawn from N(0, {M2_BETA_STD})", "loss": "bce"})
 
 
+CLI_B, CLI_SIZE = 32, 64  # the entry points' default batch; --dataset_size 64: two steps and two eval batches
+CLI_STEPS = CLI_SIZE // CLI_B
+CLI_STARTS = 8  # evaluate --multistart
+# r4_pointnet_cls as the r4 recipe trained it (--cosine --augment
+# --label_smoothing 0.2 --export_feature), at full width for one epoch
+CLI_CLS_ARGS = ["--model", "pointnet", "--task", "classification", "--cosine", "--augment", "--label_smoothing", "0.2",
+                "--export_feature"]
+CLI_IPC_ARGS = ["--model", "ipcrnet", "--task", "ipcrnet"]
+TRAINED = Path(__file__).resolve().parent / "learning3d_tpu_torch" / "trained"
+TRAINED_CLS = "r4_pointnet_cls"
+TRAINED_N, TRAINED_SIZE = 1024, 2048  # the release's eval set: 64 batches of 32 for the CLI, 8 chunks of 256 served
+# The JAX package's figures for the release on the TPU (its manifest's eval
+# lines), printed beside the card's for the record, not held to
+TPU_MANIFEST = {"accuracy": 0.9761, "int8_acc": 0.9829, "top1_agreement": 0.9883}
+# The f32 argmax is held equal to the stored JAX predictions on every cloud
+# whose JAX top-1 minus top-2 logit exceeds TRAINED_MARGIN. On the CPU
+# (tools/convert_release_torch.py --predictions) the port's f32 logits lie
+# within 4.3e-6 of JAX's (largest |logit| 5.8) and every argmax agrees; the
+# card sums in another order, so the limit sits 230x above that gap. It
+# leaves out one cloud of the 2048 (margin 1.45e-5; the next is 2.2e-3).
+TRAINED_MARGIN = 1e-3
+# The int8 argmax against JAX's int8 argmax: 2048 of 2048 agree on the CPU
+# (the same calibration clouds, the port's plain K2). On the card the
+# calibration pass replays the f32 chain in cuBLAS's sum order, so the static
+# scales can move by a rounding and a cloud near an int8 tie can flip (JAX's
+# own int8 and f32 argmaxes differ on 15 of these clouds); 0.99 allows 20.
+TRAINED_INT8_AGREE = 0.99
+SWAPPED_CLASSES = (0, 1)  # the control: the head's last layer with these two classes' rows swapped
+
+
+def run_entry_point(module, argv):
+    """``module.main(argv)`` in this process: (its result, its printed
+    lines), the lines echoed to stderr (stdout carries the JSON lines)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = module.main(argv)
+    sys.stderr.write(out.getvalue())
+    return result, out.getvalue().splitlines()
+
+
+def printed_metrics(line) -> dict:
+    """The numbers of an entry point's line: ``key=value`` tokens (the
+    epoch and test lines, the quantized line) or ``key: value`` fields (the
+    registration summary)."""
+    pairs = re.findall(r"(\w+)=(\S+)", line) or re.findall(r"(\w+): ([^,\s]+)", line)
+    return {k: float(v) for k, v in pairs if re.fullmatch(r"-?(\d+\.?\d*(e[-+]?\d+)?|nan|inf)", v)}
+
+
+def launched() -> dict:
+    from learning3d_tpu_torch.kernels import LAUNCHES
+
+    torch.cuda.synchronize()
+    return {k: v for k, v in LAUNCHES.items() if v}
+
+
+def phase_cli_train() -> dict:
+    """Phase 46: the port's train CLI twice and its evaluate CLI once, in
+    this process, on the card, in a temporary directory."""
+    import tempfile
+
+    from learning3d_tpu_torch.examples import evaluate, train
+    from learning3d_tpu_torch.kernels import reset_launches
+
+    common = ["--device", "cuda", "--epochs", "1", "--batch_size", str(CLI_B), "--dataset_size", str(CLI_SIZE)]
+    # launches the code implies: a classifier step runs K3 in its
+    # train-mode pool and K4 in its backward, its f32 eval pass no kernel;
+    # each iPCRNet loss (a step or an eval batch) and each multistart
+    # batch's rescoring runs K12 twice (both directions)
+    want = {"classifier": {"pool_stats_pallas": CLI_STEPS, "pool_bwd_pallas": CLI_STEPS},
+            "ipcrnet": {"_nn_oneway_pallas": 2 * (CLI_STEPS + CLI_SIZE // CLI_B)},
+            "evaluate": {"_nn_oneway_pallas": 2 * (CLI_SIZE // CLI_B) * 2}}
+    runs, gates, lines = {}, {}, {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name, argv, module in (("classifier", CLI_CLS_ARGS + common, train),
+                                   ("ipcrnet", CLI_IPC_ARGS + common, train),
+                                   ("evaluate", CLI_IPC_ARGS + ["--ckpt", "exp_ipcrnet", "--multistart",
+                                                                str(CLI_STARTS)] + common[:2] + common[4:], evaluate)):
+            reset_launches()
+            t0 = time.perf_counter()
+            _, out = run_entry_point(module, argv + ["--ckpt_dir", ckpt])
+            runs[name] = {"seconds": time.perf_counter() - t0, "launches": launched()}
+            lines[name] = [ln for ln in out if ln.startswith(("epoch", "test_loss=", "Stage:"))]
+            values = {k: v for ln in lines[name] for k, v in printed_metrics(ln).items()}
+            runs[name]["metrics"] = values
+            gates[f"{name}: metrics printed and finite"] = bool(values) and all(np.isfinite(list(values.values())))
+            gates[f"{name}: launches {want[name]}"] = runs[name]["launches"] == want[name]
+        root = Path(ckpt)
+        files = [root / "exp_pointnet" / "run.log", root / "exp_ipcrnet" / "run.log",
+                 root / "exp_pointnet" / "feature_model" / "model.pt"] + [
+            root / exp / snap / f for exp in ("exp_pointnet", "exp_ipcrnet") for snap in ("best", "latest")
+            for f in ("model.pt", "opt.pt", "meta.json")]
+        gates["checkpoints, feature model and run.log written"] = all(f.is_file() for f in files)
+        gates["evaluate printed the summary line"] = len(lines["evaluate"]) == 2 and \
+            lines["evaluate"][1].startswith("Stage: test, Rot_MSE: ")
+    emit("cli_train", config={"classifier": " ".join(CLI_CLS_ARGS + common), "ipcrnet": " ".join(CLI_IPC_ARGS + common),
+                              "evaluate": f"--ckpt exp_ipcrnet --multistart {CLI_STARTS}",
+                              "width": "emb 1024, N=1024 (the scripts' defaults)"},
+         steps=CLI_STEPS, want_launches=want, runs=runs, lines=lines, checks=gates)
+    for what, ok in gates.items():
+        require(ok, f"cli_train: {what}")
+    return {"launches": {k: sum(r["launches"].get(k, 0) for r in runs.values())
+                         for k in ("pool_stats_pallas", "pool_bwd_pallas", "_nn_oneway_pallas")}}
+
+
+class StackedClouds:
+    """A classification set held as arrays (the items of another, made
+    once), so that the controls iterate it without making them again."""
+
+    def __init__(self, clouds, labels):
+        self.clouds, self.labels = clouds, labels
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, i):
+        return self.clouds[i], int(self.labels[i])
+
+
+def trained_gates(f32, int8, bf16, f32_served, ref, firm) -> dict:
+    """The three gates of phase 47 on argmaxes over the eval set: ``f32``
+    and ``int8`` against the stored JAX predictions, ``bf16`` (served on
+    K1) against ``f32_served``, the port's f32 argmax."""
+    agree = float((int8 == ref["pred_int8"]).mean())
+    return {f"f32 argmax equal to JAX's on the {int(firm.sum())} clouds of margin > {TRAINED_MARGIN}":
+            bool((f32[firm] == ref["pred"][firm]).all()),
+            f"int8 argmax agrees with JAX's int8 on >= {TRAINED_INT8_AGREE}": agree >= TRAINED_INT8_AGREE,
+            f"bf16 (K1) argmax agrees with the port's f32 on >= {AGREE}": float((bf16 == f32_served).mean()) >= AGREE}
+
+
+def swapped_head(model):
+    """The control: a copy of ``model`` whose logits layer has the rows of
+    SWAPPED_CLASSES exchanged."""
+    import copy
+
+    bad = copy.deepcopy(model)
+    a, b = SWAPPED_CLASSES
+    with torch.no_grad():
+        for t in (bad.linear3.weight, bad.linear3.bias):
+            t[[a, b]] = t[[b, a]].clone()
+    return bad
+
+
+def phase_cli_trained_cls() -> dict:
+    """Phase 47: the trained r4_pointnet_cls, converted from the JAX
+    release, evaluated by the port's evaluate CLI on the card and served in
+    bf16, held to the JAX package's stored predictions."""
+    from types import SimpleNamespace
+
+    from learning3d_tpu_torch.data import ClassificationData, SyntheticModelNet40, batch_iterator
+    from learning3d_tpu_torch.examples import evaluate
+    from learning3d_tpu_torch.examples.train import build_model
+    from learning3d_tpu_torch.kernels import reset_launches
+    from learning3d_tpu_torch.models import Classifier, PointNet
+    from learning3d_tpu_torch.serve import InferenceEngine
+
+    best = TRAINED / TRAINED_CLS / "best"
+    # items are made per index, so a smaller set is a prefix of the
+    # release's, and its predictions a prefix of the stored ones
+    ref = {k: v[:TRAINED_SIZE] for k, v in np.load(best / "reference_predictions.npz").items()}
+    argv = ["--model", "pointnet", "--task", "classification", "--ckpt", TRAINED_CLS, "--ckpt_dir", str(TRAINED),
+            "--quantize", "--device", "cuda", "--dataset_size", str(TRAINED_SIZE)]
+    reset_launches()
+    t0 = time.perf_counter()
+    result, out = run_entry_point(evaluate, argv)
+    cli_s = time.perf_counter() - t0
+    cli_launches = launched()
+    q = result["quantized"]
+    test_line = [ln for ln in out if ln.startswith("test_loss=")]
+    q_line = [ln for ln in out if ln.startswith("bf16_acc=")]
+    printed = {k: v for ln in test_line + q_line for k, v in printed_metrics(ln).items()}
+
+    t0 = time.perf_counter()
+    data = ClassificationData(SyntheticModelNet40(train=False, num_points=TRAINED_N, size=TRAINED_SIZE))
+    clouds, labels = (np.concatenate(a) for a in zip(*batch_iterator(data, CLI_B, shuffle=False, seed=0)))
+    build_s = time.perf_counter() - t0
+    stacked = StackedClouds(clouds, labels.reshape(-1))
+
+    state = torch.load(best / "model.pt", map_location="cpu", weights_only=True)
+    bf16 = torch.bfloat16
+    served = Classifier(PointNet(emb_dims=EMB, use_bn=True, dtype=bf16), CLASSES, dtype=bf16)
+    served.load_state_dict(state)
+    served.eval()
+    engine = InferenceEngine(served, batch_size=B)
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = engine(clouds)
+    serve_s = time.perf_counter() - t0
+    serve_launches = launched()
+    pred_bf16 = logits.argmax(-1)
+
+    firm = ref["margin"] > TRAINED_MARGIN
+    gates = {"the clouds and labels are the stored ones, in order": bool((q["labels"] == ref["labels"]).all() and
+                                                                         (stacked.labels == ref["labels"]).all()),
+             f"K2 launched once a batch ({TRAINED_SIZE // CLI_B})":
+                 cli_launches == {"pointnet_pooled_int8": TRAINED_SIZE // CLI_B},
+             f"K1 launched once a chunk ({TRAINED_SIZE // B})":
+                 serve_launches == {"pointnet_pooled_kernel": TRAINED_SIZE // B},
+             "logits finite": bool(np.isfinite(logits).all()),
+             "the two lines printed, their numbers finite": len(test_line) == len(q_line) == 1 and
+                 all(np.isfinite(list(printed.values()))),
+             **trained_gates(q["pred"], q["pred_int8"], pred_bf16, q["pred"], ref, firm)}
+
+    # the control: every agreement gate must fail with two classes' logit
+    # rows swapped (f32 and int8 through the same evaluate function, bf16
+    # served), the served one still held to the unswapped f32 argmax
+    model = build_model("pointnet", SimpleNamespace(emb_dims=EMB, seed=0), None, "cuda")
+    model.load_state_dict(state)
+    with contextlib.redirect_stdout(sys.stderr):
+        bq = evaluate.evaluate_classification_quantized(swapped_head(model.eval()), stacked,
+                                                        SimpleNamespace(batch_size=CLI_B))
+    bad_bf16 = InferenceEngine(swapped_head(served), batch_size=B)(clouds).argmax(-1)
+    control = trained_gates(bq["pred"], bq["pred_int8"], bad_bf16, q["pred"], ref, firm)
+    figures = {"accuracy": q["bf16_acc"], "int8_acc": q["int8_acc"], "top1_agreement": q["top1_agreement"],
+               "bf16_served_accuracy": float((pred_bf16 == ref["labels"]).mean())}
+    jax_cpu = {"accuracy": float((ref["pred"] == ref["labels"]).mean()),
+               "int8_acc": float((ref["pred_int8"] == ref["labels"]).mean()),
+               "top1_agreement": float((ref["pred"] == ref["pred_int8"]).mean())}
+    emit("cli_trained_cls", release=TRAINED_CLS, argv=" ".join(argv), clouds=int(len(labels)),
+         build_clouds_s=build_s, cli_s=cli_s, serve_s=serve_s, clouds_per_s=len(labels) / serve_s,
+         printed=printed, card=figures, jax_cpu=jax_cpu, tpu_manifest=TPU_MANIFEST,
+         below_margin=int((~firm).sum()), f32_flips_below_margin=int((q["pred"] != ref["pred"])[~firm].sum()),
+         f32_flips=int((q["pred"] != ref["pred"]).sum()), int8_flips=int((q["pred_int8"] != ref["pred_int8"]).sum()),
+         bf16_vs_f32_flips=int((pred_bf16 != q["pred"]).sum()), launches={**cli_launches, **serve_launches},
+         checks=gates, control={"swapped_classes": list(SWAPPED_CLASSES), **control})
+    for what, ok in gates.items():
+        require(ok, f"cli_trained_cls: {what}")
+    for what, ok in control.items():
+        require(not ok, f"cli_trained_cls: the control passed {what}")
+    return {"launches": {**cli_launches, **serve_launches}}
+
+
 def kernel_entry(name, source, replaces, launches, res) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -4779,24 +5037,29 @@ def main() -> None:
     m2_rng = np.random.default_rng(SEED + 19)
     phase_serve_masknet2(m2_rng)
     phase_train_masknet2(m2_rng)
+    cli = phase_cli_train()["launches"]
+    trained = phase_cli_trained_cls()["launches"]
     family = (serve_pc, train_pc, serve_cn, train_cn, serve_dg, train_dg)
     added = {name: sum(r["launches"].get(name, 0) for r in family) for name in (
         "dgcnn_encode_fused", "knn_neighbors_pallas", "knn_pallas", "fps_pallas", "ball_query_pallas")}
     k3_launches = train["launches"]["pool_stats_pallas"] + train_pnlk["launches"]["pool_stats_pallas"] + \
-        train_masknet["launches"]["pool_stats_pallas"]
-    k4_launches = train["launches"]["pool_bwd_pallas"] + train_masknet["launches"]["pool_bwd_pallas"]
+        train_masknet["launches"]["pool_stats_pallas"] + cli["pool_stats_pallas"]
+    k4_launches = train["launches"]["pool_bwd_pallas"] + train_masknet["launches"]["pool_bwd_pallas"] + \
+        cli["pool_bwd_pallas"]
 
     csrc = "learning3d_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
         kernel_entry("pointnet_pooled_kernel", csrc + "pointnet_fused.cu",
-                     "learning3d_tpu/kernels/pointnet_fused.py:205", launches + serve_lk["launches"], k1),
+                     "learning3d_tpu/kernels/pointnet_fused.py:205",
+                     launches + serve_lk["launches"] + trained["pointnet_pooled_kernel"], k1),
         kernel_entry("dgcnn_encode_fused", csrc + "dgcnn_fused.cu",
                      "learning3d_tpu/kernels/dgcnn_fused.py:205",
                      dcp_launches["dgcnn_encode_fused"] + added["dgcnn_encode_fused"], k5),
         kernel_entry("attention_pallas", csrc + "attention.cu",
                      "learning3d_tpu/kernels/attention.py:61", dcp_launches["attention_pallas"], k6),
         kernel_entry("pointnet_pooled_int8", csrc + "pointnet_int8.cu",
-                     "learning3d_tpu/kernels/pointnet_fused.py:128", int8_launches, k2),
+                     "learning3d_tpu/kernels/pointnet_fused.py:128", int8_launches + trained["pointnet_pooled_int8"],
+                     k2),
         kernel_entry("dgcnn_encode_fused_int8", csrc + "dgcnn_int8.cu",
                      "learning3d_tpu/kernels/dgcnn_fused.py:455", dcp_int8_launches["dgcnn_encode_fused_int8"], k9),
         kernel_entry("attention_int8", csrc + "attention_int8.cu",
@@ -4813,8 +5076,8 @@ def main() -> None:
                      k4_launches, k4),
         kernel_entry("knn_neighbors_pallas", csrc + "dgcnn_select.cu", "learning3d_tpu/kernels/edgeconv.py:73",
                      train_dcp["launches"]["knn_neighbors_pallas"] + added["knn_neighbors_pallas"], k7),
-        kernel_entry("_nn_oneway_pallas", csrc + "chamfer.cu", "learning3d_tpu/kernels/chamfer.py:65", k12_launches,
-                     k12),
+        kernel_entry("_nn_oneway_pallas", csrc + "chamfer.cu", "learning3d_tpu/kernels/chamfer.py:65",
+                     k12_launches + cli["_nn_oneway_pallas"], k12),
         kernel_entry("_emd_fwd_pallas", csrc + "emd.cu", "learning3d_tpu/kernels/emd.py:264",
                      train_pcn["launches"]["emd"], k13),
         kernel_entry("knn_pallas", csrc + "knn.cu", "learning3d_tpu/kernels/knn.py:192",

@@ -10,7 +10,10 @@ else ``~/.learning3d_tpu/data``, as the JAX package reads it) and
 and ``SegmentationData``. Items are numpy arrays, identical to the JAX
 package's bit for bit (DeepGMR's RRI features, from the port's own
 ``ops.geometry.get_rri``, to float32 rounding); batching for the device loop
-lives in ``device_pipeline``. The HDF5-backed ModelNet40 is not ported yet.
+lives in ``device_pipeline``. ``ModelNet40Data`` reads the HDF5 archive
+(``h5py``, imported in its constructor) from ``root_dir`` or the same data
+directory; ``download_modelnet40`` fetches it, and ``create_random_transform``
+draws the reference's random 7-vector pose.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
+_MODELNET_URL = "https://shapenet.cs.stanford.edu/media/modelnet40_ply_hdf5_2048.zip"
 _DATA_DIR = Path(os.environ.get("LEARNING3D_DATA", Path.home() / ".learning3d_tpu" / "data"))
 
 SHAPE_NAMES = [
@@ -31,6 +35,106 @@ SHAPE_NAMES = [
     "range_hood", "sink", "sofa", "stairs", "stool", "table", "tent",
     "toilet", "tv_stand", "vase", "wardrobe", "xbox",
 ]
+
+
+def create_random_transform(rng=None, max_rotation_deg=45.0, max_translation=1.0, dtype=np.float32):
+    """A random 7-vector pose [quaternion (w, x, y, z), translation], the
+    reference's public helper (data_utils/dataloaders.py:52-61): xyz Euler
+    angles uniform in +-max_rotation_deg, a translation uniform in
+    +-max_translation, the quaternion by ``ops.quaternion.euler_to_quaternion``
+    in float32. ``rng`` is a np.random.Generator (a fresh one if omitted) and
+    the draws are the JAX package's. -> (1, 7) numpy."""
+    import torch
+
+    from learning3d_tpu_torch.ops.quaternion import euler_to_quaternion
+
+    rng = np.random.default_rng() if rng is None else rng
+    max_rotation = deg_to_rad(max_rotation_deg)
+    rot = rng.uniform(-max_rotation, max_rotation, (1, 3))
+    trans = rng.uniform(-max_translation, max_translation, (1, 3))
+    quat = euler_to_quaternion(torch.from_numpy(rot.astype(np.float32)), "xyz").numpy()
+    return np.concatenate([quat, trans], axis=1).astype(dtype)
+
+
+def download_modelnet40(root: str | os.PathLike | None = None) -> Path:
+    """Download and unzip modelnet40_ply_hdf5_2048 under ``root`` (the data
+    directory by default; reference dataloaders.py:19-29). Needs network
+    access and raises otherwise; an existing copy is returned as it is."""
+    import urllib.request
+    import zipfile
+
+    root = Path(root or _DATA_DIR)
+    target = root / "modelnet40_ply_hdf5_2048"
+    if target.exists():
+        return target
+    root.mkdir(parents=True, exist_ok=True)
+    zpath = root / "modelnet40.zip"
+    try:
+        urllib.request.urlretrieve(_MODELNET_URL, zpath)
+    except Exception as e:
+        raise RuntimeError(
+            f"could not download ModelNet40 ({e}); place the extracted "
+            f"modelnet40_ply_hdf5_2048 directory under {root} or use "
+            "SyntheticModelNet40 for offline runs"
+        ) from e
+    with zipfile.ZipFile(zpath) as z:
+        z.extractall(root)
+    zpath.unlink()
+    return target
+
+
+class ModelNet40Data:
+    """HDF5-backed ModelNet40 (reference dataloaders.py:184-226): the
+    ``ply_data_{train,test}*.h5`` files of ``<root_dir>/modelnet40_ply_hdf5_2048``
+    in name order, each item (the first ``num_points`` points, with the
+    normals as channels 3-5 for ``use_normals``, optionally permuted by
+    ``rng`` first, label). ``unseen`` keeps the first 20 classes for
+    training and the last 20 for testing. Where the directory is missing it
+    is downloaded if ``download``, else ``FileNotFoundError`` is raised."""
+
+    def __init__(self, train: bool = True, num_points: int = 1024, download: bool = True,
+                 root_dir: str | None = None, randomize_data: bool = False, use_normals: bool = False,
+                 unseen: bool = False, rng: np.random.Generator | None = None):
+        import h5py
+
+        root = Path(root_dir or _DATA_DIR) / "modelnet40_ply_hdf5_2048"
+        if not root.exists() and download:
+            root = download_modelnet40(root_dir)
+        split = "train" if train else "test"
+        files = sorted(glob.glob(str(root / f"ply_data_{split}*.h5")))
+        if not files:
+            raise FileNotFoundError(f"no ModelNet40 h5 files under {root}")
+        pts, normals, labels = [], [], []
+        for f in files:
+            with h5py.File(f, "r") as h:
+                pts.append(h["data"][:].astype(np.float32))
+                labels.append(h["label"][:].astype(np.int64))
+                if use_normals:
+                    normals.append(h["normal"][:].astype(np.float32))
+        self.data = np.concatenate(pts, 0)
+        if use_normals:
+            self.data = np.concatenate([self.data, np.concatenate(normals, 0)], -1)
+        self.labels = np.concatenate(labels, 0).reshape(-1)
+        if unseen:
+            keep = self.labels < 20 if train else self.labels >= 20
+            self.data = self.data[keep]
+            self.labels = self.labels[keep]
+        self.num_points = num_points
+        self.randomize_data = randomize_data
+        self.rng = rng or np.random.default_rng(0)
+        self.shapes = SHAPE_NAMES
+
+    def __len__(self):
+        return self.data.shape[0]
+
+    def __getitem__(self, idx):
+        pts = self.data[idx]
+        if self.randomize_data:
+            pts = pts[self.rng.permutation(pts.shape[0])]
+        return pts[: self.num_points].copy(), int(self.labels[idx])
+
+    def get_shape(self, label):
+        return self.shapes[int(label)]
 
 
 class SyntheticModelNet40:

@@ -31,19 +31,25 @@ from learning3d_tpu_torch.train.config import TrainConfig
 
 
 class IOStream:
-    """Append-to-file + stdout text logger (the reference's IOStream)."""
+    """Append-to-file + stdout text logger (the reference's IOStream). The
+    file is opened at the first line, so a Trainer that only loads and
+    evaluates writes nothing beside its checkpoint."""
 
     def __init__(self, path):
-        Path(path).parent.mkdir(parents=True, exist_ok=True)
-        self.f = open(path, "a")
+        self.path = Path(path)
+        self.f = None
 
     def cprint(self, text):
         print(text)
+        if self.f is None:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self.f = open(self.path, "a")
         self.f.write(text + "\n")
         self.f.flush()
 
     def close(self):
-        self.f.close()
+        if self.f is not None:
+            self.f.close()
 
 
 def _dataset_version(ds, depth=4):
@@ -131,13 +137,7 @@ class Trainer:
         self._warned_metric = False
         self.history = []  # one dict of losses and metrics per epoch of fit()
         self.textio = IOStream(Path(config.ckpt_dir) / config.exp_name / "run.log")
-        self.writer = None
-        try:  # tensorboard scalars, like the reference's SummaryWriter
-            from tensorboardX import SummaryWriter
-
-            self.writer = SummaryWriter(logdir=str(Path(config.ckpt_dir) / config.exp_name / "tb"))
-        except Exception:
-            pass
+        self.writer = None  # tensorboard scalars, opened by fit
 
     # -- the step -----------------------------------------------------
     def _params(self):
@@ -320,6 +320,13 @@ class Trainer:
         start = self.epoch
         cur = int(self.cfg.curriculum_epochs or 0)
         metric = self.cfg.best_metric or "loss"
+        if self.writer is None:
+            try:  # tensorboard scalars, like the reference's SummaryWriter
+                from tensorboardX import SummaryWriter
+
+                self.writer = SummaryWriter(logdir=str(Path(self.cfg.ckpt_dir) / self.cfg.exp_name / "tb"))
+            except Exception:
+                pass
         for ep in range(start, epochs):
             self.epoch = ep
             if cur > 0 and hasattr(train_data, "set_difficulty"):

@@ -83,6 +83,7 @@ def test_entry_points_default_to_cuda():
     from learning3d_tpu_torch.models.masknet2 import (
         AttnPointNet, BasicConv1D, PointNetMask2, SelfAttentionFC, SelfAttn,
     )
+    from learning3d_tpu_torch.examples.train import build_model
     from learning3d_tpu_torch.models.dcp import MLPHead
     from learning3d_tpu_torch.models.pointconv import DensityNet, PointConvDensitySetAbstraction, WeightNet
     from learning3d_tpu_torch.models.prnet import PRDGCNN, PRPointNet, PRSVDHead, TemperatureNet
@@ -106,7 +107,7 @@ def test_entry_points_default_to_cuda():
                   PointNetLK, MaskNet, PointNetMask, Segmentation, PointConvDensityClsSsg, DensityNet, WeightNet,
                   PointConvDensitySetAbstraction, CurveNet, CIC, LPFA, AttentionBlock, CurveAggregation, CurveGrouping,
                   PointNetFeaturePropagation, Walk, DeepGMR, ClusterNet, Conv1dBNReLU, TNet, MaskNet2, AttnPointNet,
-                  BasicConv1D, PointNetMask2, SelfAttentionFC, SelfAttn):
+                  BasicConv1D, PointNetMask2, SelfAttentionFC, SelfAttn, build_model):
         assert inspect.signature(entry).parameters["device"].default == "cuda", entry
 
 
@@ -124,7 +125,8 @@ def test_training_subpackages_are_covered():
                 "ops.quaternion", "ops.geometry", "ops.grouping", "kernels.sampling", "kernels.sinkhorn",
                 "models.ppfnet", "models.rpmnet", "utils.rigid", "ops.sinc", "ops.so3", "ops.se3", "ops.invmat",
                 "ops.mean_shift", "models.pointnetlk", "models.masknet", "models.segmentation", "models.pointconv",
-                "models.curvenet", "utils.curvenet_blocks", "models.deepgmr", "models.masknet2"):
+                "models.curvenet", "utils.curvenet_blocks", "models.deepgmr", "models.masknet2", "examples",
+                "examples.train", "examples.evaluate"):
         assert f"learning3d_tpu_torch.{sub}" in names
     files = {p.relative_to(PORT).as_posix() for p in port_files(".py", ".cu") if PORT in p.parents}
     for f in ("train/trainer.py", "train/metrics.py", "data/dataloaders.py", "losses/losses.py",
@@ -134,7 +136,8 @@ def test_training_subpackages_are_covered():
               "kernels/sinkhorn.py", "kernels/csrc/sinkhorn.cu", "models/rpmnet.py", "ops/sinc.py", "ops/so3.py",
               "ops/invmat.py", "ops/mean_shift.py", "models/pointnetlk.py", "models/masknet.py",
               "models/segmentation.py", "models/pointconv.py", "models/curvenet.py", "utils/curvenet_blocks.py",
-              "ops/grouping.py", "models/deepgmr.py", "models/masknet2.py"):
+              "ops/grouping.py", "models/deepgmr.py", "models/masknet2.py", "examples/train.py",
+              "examples/evaluate.py"):
         assert f in files
 
 

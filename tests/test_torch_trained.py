@@ -13,6 +13,21 @@ synthetic pairs at the trained width (emb 1024) and N <= 256.
 - ``r5b_dgcnn_hard``: Classifier(DGCNN(1024))'s logits at N=256.
 - ``r3c_deepgmr``: DeepGMR(use_rri=True, nearest_neighbors=20)'s est_T
   (and the rest of its outputs) on jittered DeepGMR pairs at N=256.
+- ``r4_pointnet_cls``: Classifier(PointNet(1024))'s logits in f32 and
+  int8 (the port's ``quantize_pointnet_classifier`` against JAX's); the
+  port checkpoint committed under ``learning3d_tpu_torch/trained`` equal to
+  the release, tensor for tensor, and its ``reference_predictions.npz``
+  equal to JAX's predictions on the first clouds of the eval set.
+- ``r3c_dcp``: DCP(DGCNN(512))'s result dict in f32 at N=128 (below the
+  attention kernel's gate, where both packages compute in f32 on the CPU),
+  and its int8 pointer at N=256, where K11's plain version runs: the JAX
+  clone's state carried over, held to the layers' tie-flip profile; the
+  port's own ``quantize_dcp`` within the int8 slice's tolerances.
+
+The eval set of the trained classifier's card check (SyntheticModelNet40,
+test split, 2048 clouds of 1024 points, batches of 32 in order) is checked
+item for item against the JAX package's, and its labels against the stored
+predictions', without the releases.
 
 The restoring Trainer writes its run.log and tb/ into a fresh directory
 under pytest's tmp_path whose ``best`` entry links to the release, so
@@ -20,8 +35,10 @@ nothing is written under ``releases/``. The tests skip only when the
 release is absent.
 """
 
+import json
 import os
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -34,13 +51,18 @@ from learning3d_tpu import models as jmodels
 from learning3d_tpu.data import dataloaders as jdata
 from learning3d_tpu.train import TrainConfig as JTrainConfig
 from learning3d_tpu.train import Trainer as JTrainer
+from learning3d_tpu_torch import quant as tquant
+from learning3d_tpu_torch.examples.train import build_model
 from learning3d_tpu_torch.models import DGCNN, Classifier, CurveNet, DeepGMR, MaskNet, PointNet, PointNetLK
 from learning3d_tpu_torch.models.masknet import top_indices
 from learning3d_tpu_torch.train.metrics import registration_errors
-from learning3d_tpu_torch.utils.jax_import import load_nnx_state
-from torch_port_util import nnx_flat
+from learning3d_tpu_torch.train import TrainConfig, Trainer
+from learning3d_tpu_torch.utils.jax_import import load_nnx_state, load_quant_dcp, nnx_to_torch
+from torch_port_util import assert_tie_flip_profile, nnx_flat, quant_dcp_scales, rel_err
 
-RELEASES = Path(__file__).resolve().parents[1] / "releases"
+ROOT = Path(__file__).resolve().parents[1]
+RELEASES = ROOT / "releases"
+TRAINED = ROOT / "learning3d_tpu_torch" / "trained"
 EMB, N, NS, B = 1024, 256, 192, 4
 
 
@@ -244,3 +266,189 @@ def test_trained_deepgmr_matches_jax(tmp_path):
         err = registration_errors(tm(torch.from_numpy(t), torch.from_numpy(s))["est_T"], torch.from_numpy(igt))
     assert err["rot_deg"].max().item() < 0.5 and err["trans"].max().item() < 1e-2
     assert not (RELEASES / "r3c_deepgmr" / "run.log").exists()
+
+
+# r4_pointnet_cls in f32 on 4 test clouds of 256 points: measured 5.6e-7 of
+# max; int8 with both sides calibrated on these clouds: 2.2e-8 (the same
+# scales, the same integers), held to the int8 tie-flip profile
+CLS_TOL = 1e-5
+CLS_ARGS = SimpleNamespace(emb_dims=EMB, nearest_neighbors=20, seed=0)
+
+
+def jax_script_model(name):
+    import importlib
+    import sys
+
+    sys.path.insert(0, str(ROOT))
+    return importlib.import_module("examples.train").build_model(name, CLS_ARGS, nnx.Rngs(0))
+
+
+def test_trained_pointnet_classifier_matches_jax(tmp_path):
+    before = release_files("r4_pointnet_cls")
+    jm = restore(tmp_path, "r4_pointnet_cls", "classification", jax_script_model("pointnet"))
+    jm.eval()
+    x, _ = classification_clouds(N, B, False)
+    want = np.asarray(nnx.jit(lambda m, a: m(a))(jm, jnp.asarray(x)))
+    tm = load_nnx_state(build_model("pointnet", CLS_ARGS, None, "cpu"), nnx_flat(jm)).eval()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
+    assert rel(got, want) <= CLS_TOL
+    np.testing.assert_array_equal(got.argmax(-1).numpy(), want.argmax(-1))
+    from learning3d_tpu import quant as jquant
+
+    want_q = np.asarray(jax.jit(lambda q, a: q(a))(jquant.quantize_pointnet_classifier(jm, jnp.asarray(x)),
+                                                    jnp.asarray(x)))
+    qm = tquant.quantize_pointnet_classifier(tm, torch.from_numpy(x))
+    with torch.no_grad():
+        for fwd in (qm, tquant.make_fused_quant_forward(qm)):  # the plain chain and K2's plain version
+            assert_tie_flip_profile(fwd(torch.from_numpy(x)).numpy(), want_q)
+    assert release_files("r4_pointnet_cls") == before
+
+
+def test_committed_port_checkpoint_is_the_release(tmp_path):
+    """learning3d_tpu_torch/trained/r4_pointnet_cls/best (written by
+    tools/convert_release_torch.py): every tensor equal to the release's,
+    the release's meta.json fields, under 4 MB, and loaded by the port's
+    own Trainer (torch.load with weights_only, no JAX)."""
+    best = TRAINED / "r4_pointnet_cls" / "best"
+    assert sum(p.stat().st_size for p in best.iterdir()) < 4 * 2**20
+    jm = restore(tmp_path, "r4_pointnet_cls", "classification", jax_script_model("pointnet"))
+    want = nnx_to_torch(nnx_flat(jm))
+    state = torch.load(best / "model.pt", map_location="cpu", weights_only=True)
+    assert set(state) == set(want)
+    for key, value in state.items():
+        assert value.dtype == torch.float32, key
+        np.testing.assert_array_equal(value.numpy(), want[key], err_msg=key)
+    meta = json.loads((best / "meta.json").read_text())
+    release_meta = json.loads((RELEASES / "r4_pointnet_cls" / "best" / "meta.json").read_text())
+    assert meta == {k: release_meta[k] for k in ("epoch", "best_loss", "dataset_version")}
+    assert meta["dataset_version"] == "synthetic-v2"
+    (tmp_path / "port" / "r4_pointnet_cls").mkdir(parents=True)
+    os.symlink(best, tmp_path / "port" / "r4_pointnet_cls" / "best")
+    model = build_model("pointnet", CLS_ARGS, None, "cpu")
+    trainer = Trainer(TrainConfig(exp_name="r4_pointnet_cls", ckpt_dir=str(tmp_path / "port")), model, device="cpu")
+    trainer.load("best")
+    assert trainer.epoch == release_meta["epoch"]
+    assert all(torch.equal(v, state[k]) for k, v in model.state_dict().items())
+    assert not (tmp_path / "port" / "r4_pointnet_cls" / "run.log").exists()
+
+
+def eval_batches(n_batches):
+    """The first batches of the release's eval set in both packages, as the
+    evaluate scripts iterate it."""
+    from learning3d_tpu.data.device_pipeline import batch_iterator as jbatches
+    from learning3d_tpu_torch.data import ClassificationData, SyntheticModelNet40, batch_iterator
+
+    jit = jbatches(jdata.ClassificationData(jdata.SyntheticModelNet40(train=False, num_points=EMB, size=2048)), 32,
+                   shuffle=False, seed=0)
+    tit = batch_iterator(ClassificationData(SyntheticModelNet40(train=False, num_points=EMB, size=2048)), 32,
+                         shuffle=False, seed=0)
+    return [next(jit) for _ in range(n_batches)], [next(tit) for _ in range(n_batches)]
+
+
+def test_eval_set_is_the_same_in_both_packages():
+    """Every cloud and label of the trained classifier's 2048-cloud eval set,
+    in batch order, equal in both packages; the labels those of
+    reference_predictions.npz (no release needed)."""
+    jb, tb = eval_batches(64)
+    for (jx, jy), (tx, ty) in zip(jb, tb):
+        np.testing.assert_array_equal(tx, jx)
+        np.testing.assert_array_equal(ty, jy)
+    ref = np.load(TRAINED / "r4_pointnet_cls" / "best" / "reference_predictions.npz")
+    np.testing.assert_array_equal(ref["labels"], np.concatenate([np.asarray(y).reshape(-1) for _, y in tb]))
+    assert {k: ref[k].shape for k in ref.files} == {k: (2048,) for k in ("labels", "pred", "margin", "pred_int8")}
+
+
+# The stored predictions against JAX on the first 4 clouds: the same f32
+# argmax and margin (to 1e-5, the f32 logits' rounding), and the int8 argmax
+# of JAX's quantization calibrated on the first batch's 32 clouds
+FIRST = 4
+
+
+def test_reference_predictions_are_jax_predictions(tmp_path):
+    jm = restore(tmp_path, "r4_pointnet_cls", "classification", jax_script_model("pointnet"))
+    jm.eval()
+    x = eval_batches(1)[0][0][0]
+    logits = np.asarray(nnx.jit(lambda m, a: m(a))(jm, jnp.asarray(x[:FIRST])))
+    from learning3d_tpu import quant as jquant
+
+    qm = jquant.quantize_pointnet_classifier(jm, jnp.asarray(x))
+    pred_q = np.asarray(jax.jit(lambda q, a: q(a))(qm, jnp.asarray(x[:FIRST]))).argmax(-1)
+    ref = np.load(TRAINED / "r4_pointnet_cls" / "best" / "reference_predictions.npz")
+    np.testing.assert_array_equal(ref["pred"][:FIRST], logits.argmax(-1))
+    top = np.sort(logits, -1)
+    np.testing.assert_allclose(ref["margin"][:FIRST], top[:, -1] - top[:, -2], atol=1e-5)
+    np.testing.assert_array_equal(ref["pred_int8"][:FIRST], pred_q)
+
+
+# r3c_dcp in f32 at N=128 on 4 DCP pairs: measured 8.1e-6 of max (est_R);
+# at N >= 256 the port's attention takes K6's plain version (bf16 operands,
+# as the JAX package's TPU kernel) where JAX's CPU path stays f32, so f32
+# parity is held below that gate
+DCP_TOL, DCP_N, DCP_INT8_N = 5e-5, 128, 256
+DCP_KEYS = ("est_R", "est_t", "est_R_", "est_t_", "est_T", "r", "transformed_source")
+# the int8 slice's tolerances (tests/test_torch_quant_dcp.py) for the port's
+# own quantization of the pointer (``quantize_dcp``'s int8 part for an f32
+# encoder), whose scales come from its own calibration pass
+DCP_INT8_TOL = 3e-2
+# K11's tie-flip profile (tests/test_torch_transformer_int8.py), layer by
+# layer on the same inputs: under 1% of a layer's outputs more than 2e-4
+# apart, none 0.08 (measured on the trained layers: 0 to 0.38%, at most
+# 0.065). Through the whole pointer a flipped int8 value spreads to its
+# whole batch item (15% of the second pair's outputs), so the profile is
+# held where the JAX package holds it, a layer at a time
+LAYER_ATOL, LAYER_MAX, LAYER_FRAC = 2e-4, 0.08, 0.01
+
+
+def test_trained_dcp_matches_jax(tmp_path, monkeypatch):
+    """f32 est_T (and the whole dict) at N=128; the int8 pointer at N=256
+    with JAX's fused-layer gate opened as its accelerator opens it (the
+    layer kernels' calls routed to their ``*_reference`` functions): each
+    layer of the port's K11 plain version on the JAX clone's carried state
+    within the tie-flip profile, the port's own clone's pointer within
+    DCP_INT8_TOL."""
+    import learning3d_tpu.kernels.transformer_int8 as jk11
+    from learning3d_tpu import quant as jquant
+
+    jd = restore(tmp_path, "r3c_dcp", "dcp", jax_script_model("dcp"))
+    jd.eval()
+    td = load_nnx_state(build_model("dcp", CLS_ARGS, None, "cpu"), nnx_flat(jd)).eval()
+    data = jdata.RegistrationData("DCP", jdata.SyntheticModelNet40(train=False, num_points=DCP_N, size=B))
+    t, s = (np.stack([data[i][j] for i in range(B)]) for j in range(2))
+    want = jax.tree.map(np.asarray, nnx.jit(lambda m, a, b: m(a, b))(jd, jnp.asarray(t), jnp.asarray(s)))
+    with torch.no_grad():
+        got = td(torch.from_numpy(t), torch.from_numpy(s))
+    for key in DCP_KEYS:
+        assert rel(got[key], want[key]) <= DCP_TOL, key
+
+    monkeypatch.setattr(jquant, "_fused_ok", lambda x, h: jk11.fused_layer_ok(x.shape[1], x.shape[2], h))
+    monkeypatch.setattr(jk11, "encoder_layer_int8",
+                        lambda x, w, sc, *, interpret=False, **kw: jk11.encoder_layer_int8_reference(x, w, sc, **kw))
+    monkeypatch.setattr(jk11, "decoder_layer_int8", lambda x, m, w, sc, *, interpret=False, **kw:
+                        jk11.decoder_layer_int8_reference(x, m, w, sc, **kw))
+    data = jdata.RegistrationData("DCP", jdata.SyntheticModelNet40(train=False, num_points=DCP_INT8_N, size=2))
+    t, s = (np.stack([data[i][j] for i in range(2)]).astype(np.float32) for j in range(2))
+    # the pointer alone: the f32 encoder takes no int8 path in either package
+    jq = jquant.quantize_dcp_pointer(jd, jnp.asarray(t), jnp.asarray(s), fused_layers=False)
+    jf = jquant.quantize_dcp_pointer(jd, jnp.asarray(t), jnp.asarray(s), fused_layers=True)
+    emb_t, emb_s = (np.asarray(jd.emb_nn(jnp.asarray(a))) for a in (t, s))
+    carried = load_quant_dcp(td, nnx_flat(jq), quant_dcp_scales(jq))
+    tquant._fuse_layers(carried.pointer, int8_pv=False)
+    calls = []
+    for name in ("encoder_layer_int8_reference", "decoder_layer_int8_reference"):
+        fn = getattr(tquant, name)
+        monkeypatch.setattr(tquant, name, lambda *a, _fn=fn, _n=name, **kw: calls.append(_n[:3]) or _fn(*a, **kw))
+    for side, inputs in (("enc", (emb_s,)), ("enc", (emb_t,)), ("dec", (emb_t, emb_s)), ("dec", (emb_s, emb_t))):
+        layers = "enc_layers" if side == "enc" else "dec_layers"
+        want = np.asarray(getattr(jf.pointer, layers)[0](*(jnp.asarray(a) for a in inputs)))
+        with torch.inference_mode():
+            got = getattr(carried.pointer, layers)[0](*(torch.from_numpy(a) for a in inputs)).float().numpy()
+        d = np.abs(got - want)
+        assert d.max() < LAYER_MAX and (d > LAYER_ATOL).mean() < LAYER_FRAC, (side, d.max(), (d > LAYER_ATOL).mean())
+    assert calls == ["enc", "enc", "dec", "dec"]  # K11a's and K11b's plain versions
+    own = tquant.quantize_dcp_pointer(td, torch.from_numpy(t), torch.from_numpy(s))
+    want = [np.asarray(a) for a in jf.pointer(jnp.asarray(emb_s), jnp.asarray(emb_t))]
+    with torch.inference_mode():
+        mine = own.pointer(torch.from_numpy(emb_s), torch.from_numpy(emb_t))
+    for m, w in zip(mine, want):
+        assert rel_err(m, w) <= DCP_INT8_TOL

@@ -7,7 +7,8 @@ the whole script.
 
 Phases: kernel_k13, kernel_cls, serve_pointconv, train_pointconv,
 serve_curvenet, train_curvenet, serve_dgcnn_cls, train_dgcnn_cls,
-serve_deepgmr, train_deepgmr, serve_masknet2, train_masknet2. They run in
+serve_deepgmr, train_deepgmr, serve_masknet2, train_masknet2, cli_train,
+cli_trained_cls. They run in
 chip_smoke.py's order whatever the order given, on a generator seeded as
 chip_smoke.py seeds theirs; a phase left out draws nothing, so the weights
 of the later ones can differ from chip_smoke.py's. Each prints its JSON
@@ -27,7 +28,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 ORDER = ("kernel_k13", "kernel_cls", "serve_pointconv", "train_pointconv", "serve_curvenet", "train_curvenet",
-         "serve_dgcnn_cls", "train_dgcnn_cls", "serve_deepgmr", "train_deepgmr", "serve_masknet2", "train_masknet2")
+         "serve_dgcnn_cls", "train_dgcnn_cls", "serve_deepgmr", "train_deepgmr", "serve_masknet2", "train_masknet2",
+         "cli_train", "cli_trained_cls")
 
 
 def main(argv) -> None:
@@ -60,6 +62,8 @@ def main(argv) -> None:
         "train_deepgmr": lambda: cs.phase_train_deepgmr(gmr_rng),
         "serve_masknet2": lambda: cs.phase_serve_masknet2(m2_rng),
         "train_masknet2": lambda: cs.phase_train_masknet2(m2_rng),
+        "cli_train": cs.phase_cli_train,
+        "cli_trained_cls": cs.phase_cli_trained_cls,
     }
     failed = []
     for name in ORDER:
