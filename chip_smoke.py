@@ -13,7 +13,8 @@ of the PointNet-1024 classifier, DCP, iPCRNet, PCN, PRNet, FlowNet3D,
 RPMNet, PointNetLK, MaskNet, part segmentation, PointConv, CurveNet, the
 DGCNN classifier, DeepGMR and MaskNet2 (both also served) through the
 Trainer, runs the port's train and evaluate entry points (the trained
-PointNet classifier held to the JAX package's predictions), and
+PointNet classifier held to the JAX package's predictions), runs the
+trained RPMNet and FlowNet3D against the JAX package's stored results, and
 holds every CUDA kernel of those paths against its plain PyTorch version.
 Phases, one JSON line each with the seconds since start:
 
@@ -126,7 +127,10 @@ Phases, one JSON line each with the seconds since start:
    step skipped, parameters and BN running statistics changed; one step on
    the kernels against the same step on their plain versions (same weights,
    batch and dropout generator) in bf16 and f32: loss, every gradient and
-   the running statistics; a save -> load round trip that restores the
+   the running statistics; the same two checks on the trained
+   r4_pointnet_cls (the port checkpoint of phase 47) with the control
+   k3_misplaced outside them, and beside each the plain step with K3's sums
+   exact (reported); a save -> load round trip that restores the
    parameters and the optimizer state exactly; the step's forward, backward
    and optimizer times (CUDA events) and clouds/s;
 17. kernel (K7, knn_neighbors_pallas): the edge features against the plain
@@ -388,11 +392,32 @@ Phases, one JSON line each with the seconds since start:
    f32 on >= AGREE; the control (two classes' logit rows swapped) fails each
    of the three. The card's accuracy, int8 accuracy and agreement are printed
    beside the JAX package's on the CPU and its manifest's TPU figures;
+48. trained_rpmnet: the trained r4b_rpmnet (a port checkpoint, with the JAX
+   package's CPU results on the first 16 pairs of its eval set) on those
+   pairs, rebuilt by the port's RegistrationData("RPMNet") over
+   SyntheticModelNet40(train=False, use_normals=True) (their igt the stored
+   one): one forward at B=16, N=1024 launching K16 3 and K17 2 times; est_T
+   on the kernels against the plain versions at one iteration within
+   RPM_TOL and at two within RPM_TRAINED_TOL, against the JAX package's
+   stored est_T pair by pair within RPM_JAX_TOL (the pair named in
+   RPM_JAX_FLIPS within its own limit), the control k17_bf16_output outside
+   each; phase 34's step check at one iteration on these weights and pairs
+   (RPM_STEP_TOL; the weight network's gradients, which rounding decides at a
+   trained minimum, set apart and measured) with the same control; and,
+   reported, how far
+   one ulp of the plain Sinkhorn's output moves est_T and the step at one and
+   two iterations, and the two-iteration step on the kernels;
+49. trained_flownet: the trained r4_flownet on the first 16 pairs of its
+   eval set (SyntheticSceneflow at the release's 1024 points, the flow's
+   ground truth the stored one): one forward launching K14 6, K15 6 and K8
+   once; the flow against the plain versions within FLOW_TOL and against the
+   JAX package's stored flow within FLOW_JAX_TOL, the control
+   k15_nearest_first outside both; EPE and Acc3D beside JAX's on the CPU;
 
 then the ``kernels`` line and, last, ``{"ok": true, "device": ...}``. Any
 failed check raises, so the script exits non-zero and prints no result. It
-needs a CUDA card and the repository's checkout around it; the one
-checkpoint it reads is the port's own under ``learning3d_tpu_torch/trained``,
+needs a CUDA card and the repository's checkout around it; the
+checkpoints it reads are the port's own under ``learning3d_tpu_torch/trained``,
 and it writes into the kernels' build directory and temporary directories.
 """
 
@@ -1786,6 +1811,36 @@ def plain_poolgrad():
         layers.pool_stats, layers.pool_bwd = saved
 
 
+def pool_stats_f64(x, W, c):
+    """K3's function with exact sums: z, G and the column sum in f64, each
+    rounded to f32 once; argmax/argmin the first of equal f32 values."""
+    f64 = torch.float64
+    B, N, K = x.shape
+    z = (torch.matmul(x.to(f64), W.to(f64)) + c.to(f64)).float()
+    mx, mn = z.amax(1), z.amin(1)
+    row = torch.arange(N, device=x.device).view(1, N, 1)
+    amax = torch.where(z == mx[:, None, :], row, N).amin(1).to(torch.int32)
+    amin = torch.where(z == mn[:, None, :], row, N).amin(1).to(torch.int32)
+    flat = x.to(f64).reshape(B * N, K)
+    return mx, mn, amax, amin, (flat.t() @ flat).float(), flat.sum(0).float()
+
+
+@contextlib.contextmanager
+def plain_f64_sums():
+    """The plain versions of K3 and K4 with K3's sums exact
+    (``pool_stats_f64``): how far the step moves when only the rounding of
+    the Gram matrix and the column sums changes."""
+    from learning3d_tpu_torch.kernels import poolgrad
+    from learning3d_tpu_torch.utils import layers
+
+    saved = layers.pool_stats, layers.pool_bwd
+    layers.pool_stats, layers.pool_bwd = pool_stats_f64, poolgrad.pool_bwd_reference
+    try:
+        yield
+    finally:
+        layers.pool_stats, layers.pool_bwd = saved
+
+
 @contextlib.contextmanager
 def k6_bf16_output():
     """The control of the DCP step's check: K6 with its f32 output rounded
@@ -1935,14 +1990,29 @@ def check_round_trip(trainer, make_resumed, data) -> None:
     again.close()
 
 
+def train_data():
+    """Phase 16's data: one epoch of TRAIN_STEPS batches of SyntheticModelNet40."""
+    from learning3d_tpu_torch.data import ClassificationData, SyntheticModelNet40
+
+    return ClassificationData(SyntheticModelNet40(num_points=N, size=TRAIN_STEPS * B))
+
+
+def train_config(ckpt):
+    """Phase 16's configuration: bench.py's training step, Adam, augmentation on."""
+    from learning3d_tpu_torch.train import TrainConfig
+
+    return TrainConfig(exp_name="chip_smoke_train", batch_size=B, num_points=N, optimizer="adam", lr=TRAIN_LR,
+                       epochs=1, augment=True, ckpt_dir=ckpt)
+
+
 def phase_train(rng) -> dict:
     import dataclasses
     import tempfile
 
-    from learning3d_tpu_torch.data import ClassificationData, SyntheticModelNet40, batch_iterator, to_device
+    from learning3d_tpu_torch.data import batch_iterator, to_device
     from learning3d_tpu_torch.kernels import LAUNCHES, reset_launches
     from learning3d_tpu_torch.models import Classifier, PointNet
-    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.train import Trainer
     from learning3d_tpu_torch.utils.jax_import import load_nnx_state
 
     state = random_nnx_state(rng, EMB, CLASSES)
@@ -1952,11 +2022,10 @@ def phase_train(rng) -> dict:
                            dropout_generator=torch.Generator(device="cuda").manual_seed(SEED))
         return load_nnx_state(model, state)
 
-    data = ClassificationData(SyntheticModelNet40(num_points=N, size=TRAIN_STEPS * B))
+    data = train_data()
     kinds = {"bf16": torch.bfloat16, "f32": None}
     with tempfile.TemporaryDirectory() as ckpt:
-        cfg = TrainConfig(exp_name="chip_smoke_train", batch_size=B, num_points=N, optimizer="adam", lr=TRAIN_LR,
-                          epochs=1, augment=True, ckpt_dir=ckpt)
+        cfg = train_config(ckpt)
         trainer = Trainer(cfg, build(torch.bfloat16))
         before = {k: v.clone() for k, v in trainer.model.state_dict().items()}
         reset_launches()
@@ -1976,6 +2045,7 @@ def phase_train(rng) -> dict:
             agreement[kind] = step_agreement(lambda: Trainer(cfg, build(dtype)), batch, STEP_TOL[kind], plain_poolgrad,
                                              what=f"train step {kind}")
 
+        trained = trained_cls_steps(cfg, batch)
         check_round_trip(trainer, lambda: Trainer(dataclasses.replace(cfg, resume="latest"), build(torch.bfloat16)),
                          data)
         timing = time_train_step(trainer, batch)
@@ -1990,8 +2060,55 @@ def phase_train(rng) -> dict:
                           "lr": TRAIN_LR, "augment": True, "steps": TRAIN_STEPS},
          dataset=data.data_class.version_tag(), skipped_steps=skipped, tensors_changed=sum(changed.values()),
          tensors=len(changed), step_vs_plain={k: {"tolerance": STEP_TOL[k], **v} for k, v in agreement.items()},
-         roundtrip="exact", **result)
+         trained=trained, roundtrip="exact", **result)
     return result
+
+
+def trained_cls_steps(cfg, batch) -> dict:
+    """Phase 16's step check on the trained r4_pointnet_cls (the port
+    checkpoint of phase 47) in bf16 and f32: the step on K3/K4 against the
+    step on their plain versions within STEP_TOL with the control
+    k3_misplaced outside it, and (reported) the plain step with K3's sums
+    exact (``plain_f64_sums``) against the plain step: how far the rounding
+    of the Gram matrix alone moves the trained step."""
+    from learning3d_tpu_torch.models import Classifier, PointNet
+    from learning3d_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    state = torch.load(TRAINED / TRAINED_CLS / "best" / "model.pt", map_location="cpu", weights_only=True)
+
+    def build(dtype):
+        model = Classifier(PointNet(emb_dims=EMB, use_bn=True, dtype=dtype), CLASSES, dtype=dtype,
+                           dropout_generator=torch.Generator(device="cuda").manual_seed(SEED))
+        model.load_state_dict(state)
+        return model
+
+    out = {}
+    for kind, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        make = functools.partial(lambda d: Trainer(cfg, build(d)), dtype)
+        worst = step_agreement(make, batch, STEP_TOL[kind], plain_poolgrad, what=f"trained train step {kind}",
+                               control=k3_misplaced)
+        runs = step_runs(make, batch, (plain_poolgrad, plain_f64_sums))
+        exact, _ = step_differences(runs[1], runs[0], STEP_TOL[kind], ZERO_GRADIENT_BIASES, NOISE_TOL)
+        out[kind] = {"tolerance": STEP_TOL[kind], **worst,
+                     "f64_sums_vs_plain": {k: exact[k] for k in ("loss", "grad", "grad_tensor", "zero_gradient_bias",
+                                                                 "running")}}
+    return {"release": TRAINED_CLS, "control": "k3_misplaced", "seconds": time.perf_counter() - t0, **out}
+
+
+def phase_train_trained_cls() -> dict:
+    """Phase 16's trained-weight step checks alone, on its data and
+    configuration (``tools/smoke_phases.py``; chip_smoke.py runs them inside
+    phase 16)."""
+    import tempfile
+
+    from learning3d_tpu_torch.data import batch_iterator, to_device
+
+    batch = to_device(next(batch_iterator(train_data(), B, seed=SEED)), "cuda")
+    with tempfile.TemporaryDirectory() as ckpt:
+        trained = trained_cls_steps(train_config(ckpt), batch)
+    emit("train_trained_cls", trained=trained)
+    return trained
 
 
 def library_edges(x, k):
@@ -4886,6 +5003,263 @@ def phase_cli_trained_cls() -> dict:
     return {"launches": {**cli_launches, **serve_launches}}
 
 
+# -- trained RPMNet and FlowNet3D -----------------------------------------------
+TRAINED_RPM, TRAINED_FLOW = "r4b_rpmnet", "r4_flownet"
+TRAINED_PAIRS = 16  # the stored results' pairs: the first batch of 16 of each eval set, in order
+TRAINED_RPM_SIZE = 2048  # examples/evaluate.py's RegistrationData("RPMNet") over 2048 test clouds with normals
+# r4_flownet was trained and evaluated at examples/train.py's and
+# evaluate.py's default of 1024 points on SyntheticSceneflow(size=256)
+# (its meta.json: synthetic-v2+size256); at 2048 points its radii see twice
+# the density, and JAX's own EPE on these pairs is 0.220 against 0.064
+TRAINED_FLOW_N, TRAINED_FLOW_SIZE = 1024, 256
+# Trained RPMNet's est_T against the plain versions, max |k - p| / max |p|.
+# With trained weights beta ~ 100 and alpha ~ 27 put the log-affinities near
+# 2,700, where an f32 ulp is 2.4e-4, and the second iteration's grouping of
+# the moved source turns a rounding-sized move of the first transform into
+# other neighbours on the radius. On the CPU (tools/trained_cpu_gaps.py
+# rpmnet, these 16 pairs) K17's correctly rounded output in place of the
+# plain version's moved est_T by 4.4e-6 at one iteration and 2.3e-3 at two,
+# the plain output moved up one ulp by 2.3e-5 and 1.8e-3. One iteration is
+# held at RPM_TOL, two at RPM_TRAINED_TOL, 4x above; the control
+# k17_bf16_output moved them 1.0 and 1.6.
+RPM_TRAINED_TOL = 1e-2
+# est_T on the card against the JAX package's stored CPU est_T, pair by
+# pair: max |k - j| over the pair / max |j| over the 16. beta * alpha ~
+# 2,800 turns the weight network's rounding of alpha (the two packages sum
+# in other orders) into shifts of the log-affinity against the slack's zero.
+# On the CPU (tools/trained_cpu_gaps.py rpmnet) the port's plain path lay
+# 2.0e-2 from JAX's on pair 4 (2.3e-2 with the kernels' selection
+# arithmetic) and at most 4.4e-3 on the other 15 (the median 1.6e-3); on
+# the card pair 4 read 2.6e-2 and the rest at most 3.4e-3. So pair 4 is
+# named and held at 1e-1, 4x its CPU reading, and the other 15 at 1e-2,
+# above both of their worst readings; the control (1.0 to 1.8) must fail
+RPM_JAX_TOL = 1e-2
+RPM_JAX_FLIPS = {4: 1e-1}  # pair: its limit
+# The trained step: the weight network's gradient is the gradient of a
+# trained loss with respect to beta and alpha, at a minimum, and rounding
+# decides it: on the CPU at one iteration one ulp of the plain Sinkhorn's
+# output moved it 41%, K17's correctly rounded output 11%, while the loss
+# moved 1e-6 to 8e-6 and PPFNet's gradients 1.9e-4 to 2.1e-4. Its gradients
+# are set apart and measured, the rest held to RPM_STEP_TOL. Phase 34, on
+# random weights, holds them too and stays the gate of K17's precision
+RPM_APART = "weights_net."
+
+
+def without_apart(run):
+    """A (loss, gradients, buffers) step run without the gradients under
+    RPM_APART."""
+    loss, grads, buffers = run
+    return loss, {n: g for n, g in grads.items() if not n.startswith(RPM_APART)}, buffers
+
+
+def apart_gap(run, ref) -> dict:
+    """The largest relative error, |g - g_ref| / |g_ref|, of the gradients
+    under RPM_APART in one step run against another, and its tensor."""
+    rel, name = max(((g - ref[1][n]).norm().item() / ref[1][n].norm().item(), n)
+                    for n, g in run[1].items() if n.startswith(RPM_APART))
+    return {"weights_net": rel, "weights_net_tensor": name}
+# The trained flow on the card against the JAX package's stored CPU flow,
+# max |k - j| / max |j|: FlowNet3D's selections (FPS, ball queries, kNN) read
+# the input coordinates only, so rounding cannot flip them; the port's CPU
+# path lay 1.2e-5 from JAX's, and so did the CPU path with the kernels'
+# selection arithmetic (the same indices on all 16 pairs). The limit is 9x
+# that; the control k15_nearest_first must fail it
+FLOW_JAX_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def k17_one_ulp_up():
+    """Not a control: the plain versions with the plain Sinkhorn's output
+    moved up by one f32 ulp (its gradient kept), for the conditioning of
+    the trained checks."""
+    from learning3d_tpu_torch.kernels import sinkhorn
+
+    def up(la, n_iters=5):
+        out = sinkhorn.sinkhorn_slack_reference(la, n_iters)
+        return out + (torch.nextafter(out.detach(), torch.full_like(out, float("inf"))) - out.detach())
+
+    with plain_versions():
+        sinkhorn.sinkhorn_log_pallas = up
+        yield
+
+
+def trained_pairs(name, ref):
+    """The first TRAINED_PAIRS pairs of a release's eval set, rebuilt by the
+    port's own data classes (numpy seeds, as the JAX package's), as numpy
+    arrays; their ground truth must be the stored one."""
+    from learning3d_tpu_torch.data import RegistrationData, SyntheticModelNet40, SyntheticSceneflow
+
+    if name == TRAINED_RPM:
+        data = RegistrationData("RPMNet", SyntheticModelNet40(train=False, num_points=RPM_N, size=TRAINED_RPM_SIZE,
+                                                              use_normals=True))
+    else:
+        data = SyntheticSceneflow(npoints=TRAINED_FLOW_N, size=TRAINED_FLOW_SIZE)
+    items = [data[i] for i in range(TRAINED_PAIRS)]
+    arrays = [np.stack([it[j] for it in items]) for j in range(len(items[0]))]
+    truth, want = (arrays[2], ref["igt"]) if name == TRAINED_RPM else (arrays[4], ref["flow_gt"])
+    require(np.array_equal(truth, want), f"{name}: the rebuilt pairs' ground truth is the stored one")
+    return arrays
+
+
+def trained_model(name, make):
+    """``make()`` with the port checkpoint of ``name`` loaded, in eval mode."""
+    model = make()
+    model.load_state_dict(torch.load(TRAINED / name / "best" / "model.pt", map_location="cpu", weights_only=True))
+    return model.eval()
+
+
+def max_rel(got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def per_pair_rel(got, want):
+    """Each pair's max |got - want| over max |want| of all pairs."""
+    return np.abs(got - want).reshape(len(want), -1).max(-1) / np.abs(want).max()
+
+
+def phase_trained_rpmnet() -> dict:
+    """Phase 48: the trained r4b_rpmnet on 16 pairs of its eval set: one
+    forward on K16 and K17 held to the plain versions (one iteration at
+    RPM_TOL, two at RPM_TRAINED_TOL) and to the JAX package's stored est_T
+    pair by pair (RPM_JAX_TOL, RPM_JAX_FLIPS's pair at its own limit), the
+    control k17_bf16_output outside each; phase 34's step check at one
+    iteration on these weights, the weight network's gradients set apart,
+    and the conditioning (one ulp of the plain Sinkhorn's output, two
+    iterations) reported."""
+    import tempfile
+
+    from learning3d_tpu_torch.kernels import reset_launches
+    from learning3d_tpu_torch.models import RPMNet
+    from learning3d_tpu_torch.train import TrainConfig, Trainer
+    from learning3d_tpu_torch.train.metrics import registration_errors
+
+    t0 = time.perf_counter()
+    ref = dict(np.load(TRAINED / TRAINED_RPM / "best" / "reference_predictions.npz"))
+    template, source, igt = (torch.from_numpy(a).cuda() for a in trained_pairs(TRAINED_RPM, ref))
+    build_s = time.perf_counter() - t0
+    model = trained_model(TRAINED_RPM, RPMNet)
+    gates = {}
+    with torch.inference_mode():
+        reset_launches()
+        out = model(template, source)
+        launches = launched()
+        est = out["est_T"].cpu().numpy()
+        err = registration_errors(out["est_T"], igt)
+        gates[f"launches {RPM_PER_FORWARD}"] = launches == RPM_PER_FORWARD
+        gates["est_T, transformed_source and r finite"] = all(bool(torch.isfinite(out[k]).all())
+                                                              for k in ("est_T", "transformed_source", "r"))
+        gates[f"est_R a rotation within {ROT_TOL}"] = rotation_error(out["est_R"].cpu()) <= ROT_TOL
+        one = rpm_gaps(functools.partial(model, max_iterations=1), (template, source), control=k17_bf16_output)
+        two = rpm_gaps(model, (template, source), control=k17_bf16_output)
+        with k17_one_ulp_up():
+            ulp_two = model(template, source)
+        with plain_versions():
+            plain_two = model(template, source)
+        with k17_bf16_output():
+            bad = model(template, source)["est_T"].cpu().numpy()
+    jax_per_pair, control_jax_per_pair = per_pair_rel(est, ref["est_T"]), per_pair_rel(bad, ref["est_T"])
+    jax_limits = np.array([RPM_JAX_FLIPS.get(i, RPM_JAX_TOL) for i in range(TRAINED_PAIRS)])
+    gates[f"one iteration: kernels vs plain <= {RPM_TOL}"] = one["rel_gap"] <= RPM_TOL
+    gates[f"two iterations: kernels vs plain <= {RPM_TRAINED_TOL}"] = two["rel_gap"] <= RPM_TRAINED_TOL
+    gates[f"est_T vs the JAX package's stored CPU est_T, each pair <= {RPM_JAX_TOL} "
+          f"(pairs {RPM_JAX_FLIPS} their own)"] = bool((jax_per_pair <= jax_limits).all())
+    control = {"one_iteration": one["control_rel_gap"] > RPM_TOL, "two_iterations": two["control_rel_gap"] >
+               RPM_TRAINED_TOL, "vs_jax_cpu": bool((control_jax_per_pair > jax_limits).any())}
+    ulp = max_rel(ulp_two["est_T"].cpu().numpy(), plain_two["est_T"].cpu().numpy())
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = TrainConfig(exp_name="chip_smoke_trained_rpmnet", task="rpmnet", batch_size=RPM_B, num_points=RPM_N,
+                          optimizer="adam", lr=RPM_LR, epochs=1, ckpt_dir=ckpt)
+
+        def make(iterations):
+            model = trained_model(TRAINED_RPM, RPMNet).train()
+            model.default_iterations = iterations
+            return Trainer(cfg, model)
+
+        batch = (template, source, igt)
+        runs = step_runs(functools.partial(make, 1), batch, (contextlib.nullcontext, plain_versions, k17_bf16_output))
+        held = [without_apart(run) for run in runs]
+        step, failed = step_differences(held[0], held[1], RPM_STEP_TOL, (), RPM_NOISE_TOL)
+        caught, caught_failed = step_differences(held[2], held[1], RPM_STEP_TOL, (), RPM_NOISE_TOL)
+        step.update(apart_gap(runs[0], runs[1]), failed=failed, control={
+            "loss": caught["loss"], "grad": caught["grad"], "grad_tensor": caught["grad_tensor"],
+            "tensors_failed": len(caught_failed)})
+        gates[f"one-iteration step: loss and the gradients but {RPM_APART}'s vs plain <= {RPM_STEP_TOL}"] = (
+            np.isfinite(runs[0][0]) and step["loss"] <= RPM_STEP_TOL and not failed)
+        control["step"] = bool(caught_failed) or caught["loss"] > RPM_STEP_TOL
+        conditioning = {}
+        for iterations in (1, 2):
+            runs = step_runs(functools.partial(make, iterations), batch, (plain_versions, k17_one_ulp_up) + (
+                (contextlib.nullcontext,) if iterations == 2 else ()))
+            for label, run in zip(("one_ulp_up", "kernels"), runs[1:]):
+                worst, _ = step_differences(without_apart(run), without_apart(runs[0]), RPM_STEP_TOL, (),
+                                            RPM_NOISE_TOL)
+                conditioning[f"iters_{iterations}_{label}"] = {**{k: worst[k] for k in ("loss", "grad", "grad_tensor")},
+                                                               **apart_gap(run, runs[0])}
+    card = {"rot_deg": float(err["rot_deg"].mean()), "trans": float(err["trans"].mean())}
+    jax_cpu = {"rot_deg": float(ref["rot_deg"].mean()), "trans": float(ref["trans"].mean())}
+    emit("trained_rpmnet", release=TRAINED_RPM, pairs=TRAINED_PAIRS, build_pairs_s=build_s,
+         dataset=f"RegistrationData('RPMNet', SyntheticModelNet40(train=False, size={TRAINED_RPM_SIZE}, "
+                 "use_normals=True)), items 0-15", launches=launches,
+         tolerance={"one_iteration_vs_plain": RPM_TOL, "two_iterations_vs_plain": RPM_TRAINED_TOL,
+                    "vs_jax_cpu": RPM_JAX_TOL, "vs_jax_cpu_pairs": RPM_JAX_FLIPS,
+                    "step": f"loss and every gradient but {RPM_APART}'s {RPM_STEP_TOL} at one iteration"},
+         one_iteration=one, two_iterations={**two, "one_ulp_up_rel_gap": ulp},
+         jax_rel_gap=float(jax_per_pair.max()), jax_per_pair=jax_per_pair.tolist(),
+         control_jax_rel_gap=float(control_jax_per_pair.max()), card=card, jax_cpu=jax_cpu, step_vs_plain=step,
+         step_conditioning=conditioning, checks=gates, control={"k17_bf16_output fails": control})
+    for what, ok in gates.items():
+        require(ok, f"trained_rpmnet: {what}")
+    for what, caught in control.items():
+        require(caught, f"trained_rpmnet: the control k17_bf16_output passed {what}")
+    return {"launches": launches}
+
+
+def phase_trained_flownet() -> dict:
+    """Phase 49: the trained r4_flownet on 16 pairs of its eval set: one
+    forward on K14, K15 and K8 held to the plain versions (FLOW_TOL) and to
+    the JAX package's stored flow (FLOW_JAX_TOL), the control
+    k15_nearest_first outside both; EPE and Acc3D beside JAX's."""
+    from learning3d_tpu_torch.kernels import reset_launches
+    from learning3d_tpu_torch.models import FlowNet3D
+
+    t0 = time.perf_counter()
+    ref = dict(np.load(TRAINED / TRAINED_FLOW / "best" / "reference_predictions.npz"))
+    pairs = trained_pairs(TRAINED_FLOW, ref)
+    inputs = [torch.from_numpy(a).cuda() for a in pairs[:4]]
+    build_s = time.perf_counter() - t0
+    model = trained_model(TRAINED_FLOW, FlowNet3D)
+    with torch.inference_mode():
+        reset_launches()
+        flow = model(*inputs)
+        launches = launched()
+        agree = flow_gaps(model, inputs, control=k15_nearest_first)
+        with k15_nearest_first():
+            bad = model(*inputs).cpu().numpy()
+    flow = flow.cpu().numpy()
+    jax_gap, control_jax_gap = max_rel(flow, ref["flow"]), max_rel(bad, ref["flow"])
+    gates = {f"launches {FLOW_PER_FORWARD}": launches == FLOW_PER_FORWARD,
+             "flow finite": bool(np.isfinite(flow).all()),
+             f"kernels vs plain <= {FLOW_TOL}": agree["rel_gap"] <= FLOW_TOL,
+             f"flow vs the JAX package's stored CPU flow <= {FLOW_JAX_TOL}": jax_gap <= FLOW_JAX_TOL}
+    control = {"plain": agree["control_rel_gap"] > FLOW_TOL, "vs_jax_cpu": control_jax_gap > FLOW_JAX_TOL}
+    err = np.linalg.norm(flow - pairs[4], axis=-1)
+    rel = err / (np.linalg.norm(pairs[4], axis=-1) + 1e-12)
+    card = {"epe": float(err.mean()), "acc3d_strict": float(((err < 0.05) | (rel < 0.05)).mean()),
+            "acc3d_relax": float(((err < 0.10) | (rel < 0.10)).mean())}
+    emit("trained_flownet", release=TRAINED_FLOW, pairs=TRAINED_PAIRS, build_pairs_s=build_s,
+         dataset=f"SyntheticSceneflow(npoints={TRAINED_FLOW_N}, size={TRAINED_FLOW_SIZE}), items 0-15",
+         launches=launches, tolerance={"vs_plain": FLOW_TOL, "vs_jax_cpu": FLOW_JAX_TOL}, agree=agree,
+         jax_rel_gap=jax_gap, control_jax_rel_gap=control_jax_gap, card=card,
+         jax_cpu={k: float(ref[k].mean()) for k in ("epe", "acc3d_strict", "acc3d_relax")}, checks=gates,
+         control={"k15_nearest_first fails": control})
+    for what, ok in gates.items():
+        require(ok, f"trained_flownet: {what}")
+    for what, caught in control.items():
+        require(caught, f"trained_flownet: the control k15_nearest_first passed {what}")
+    return {"launches": launches}
+
+
 def kernel_entry(name, source, replaces, launches, res) -> dict:
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -5039,6 +5413,8 @@ def main() -> None:
     phase_train_masknet2(m2_rng)
     cli = phase_cli_train()["launches"]
     trained = phase_cli_trained_cls()["launches"]
+    trained_rpm = phase_trained_rpmnet()["launches"]
+    trained_flow = phase_trained_flownet()["launches"]
     family = (serve_pc, train_pc, serve_cn, train_cn, serve_dg, train_dg)
     added = {name: sum(r["launches"].get(name, 0) for r in family) for name in (
         "dgcnn_encode_fused", "knn_neighbors_pallas", "knn_pallas", "fps_pallas", "ball_query_pallas")}
@@ -5081,19 +5457,19 @@ def main() -> None:
         kernel_entry("_emd_fwd_pallas", csrc + "emd.cu", "learning3d_tpu/kernels/emd.py:264",
                      train_pcn["launches"]["emd"], k13),
         kernel_entry("knn_pallas", csrc + "knn.cu", "learning3d_tpu/kernels/knn.py:192",
-                     k8_launches + added["knn_pallas"], k8),
+                     k8_launches + added["knn_pallas"] + trained_flow["knn_pallas"], k8),
         kernel_entry("fps_pallas", csrc + "fps.cu", "learning3d_tpu/kernels/sampling.py:68",
                      serve_flownet["launches"]["fps_pallas"] + train_flownet["launches"]["fps_pallas"] +
-                     added["fps_pallas"], k14),
+                     added["fps_pallas"] + trained_flow["fps_pallas"], k14),
         kernel_entry("ball_query_pallas", csrc + "ball_query.cu", "learning3d_tpu/kernels/sampling.py:264",
                      serve_flownet["launches"]["ball_query_pallas"] + train_flownet["launches"]["ball_query_pallas"] +
-                     added["ball_query_pallas"], k15),
+                     added["ball_query_pallas"] + trained_flow["ball_query_pallas"], k15),
         kernel_entry("ball_group_pallas", csrc + "ball_group.cu", "learning3d_tpu/kernels/sampling.py:183",
-                     serve_rpmnet["launches"]["ball_group_pallas"] + train_rpmnet["launches"]["ball_group_pallas"],
-                     k16),
+                     serve_rpmnet["launches"]["ball_group_pallas"] + train_rpmnet["launches"]["ball_group_pallas"] +
+                     trained_rpm["ball_group_pallas"], k16),
         kernel_entry("sinkhorn_log_pallas", csrc + "sinkhorn.cu", "learning3d_tpu/kernels/sinkhorn.py:52",
                      serve_rpmnet["launches"]["sinkhorn_log_pallas"] +
-                     train_rpmnet["launches"]["sinkhorn_log_pallas"], k17),
+                     train_rpmnet["launches"]["sinkhorn_log_pallas"] + trained_rpm["sinkhorn_log_pallas"], k17),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

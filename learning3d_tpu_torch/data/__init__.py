@@ -14,6 +14,7 @@ from learning3d_tpu_torch.data.dataloaders import (  # noqa: F401
     SyntheticPartSegmentation,
     SyntheticSceneflow,
     create_random_transform,
+    deg_to_rad,
     download_modelnet40,
 )
 from learning3d_tpu_torch.data.device_pipeline import (  # noqa: F401

@@ -7,7 +7,7 @@ flow."""
 
 from learning3d_tpu_torch.models.classifier import Classifier  # noqa: F401
 from learning3d_tpu_torch.models.curvenet import CurveNet  # noqa: F401
-from learning3d_tpu_torch.models.dcp import DCP  # noqa: F401
+from learning3d_tpu_torch.models.dcp import DCP, MLPHead  # noqa: F401
 from learning3d_tpu_torch.models.deepgmr import DeepGMR  # noqa: F401
 from learning3d_tpu_torch.models.dgcnn import DGCNN  # noqa: F401
 from learning3d_tpu_torch.models.flownet3d import FlowNet3D  # noqa: F401
@@ -24,7 +24,6 @@ from learning3d_tpu_torch.models.pooling import Pooling  # noqa: F401
 from learning3d_tpu_torch.models.rpmnet import RPMNet  # noqa: F401
 from learning3d_tpu_torch.models.segmentation import Segmentation  # noqa: F401
 
-__all__ = ["Classifier", "CurveNet", "DCP", "DGCNN", "DeepGMR", "FlowNet3D", "MaskNet", "MaskNet2", "PCN", "PPFNet",
-           "PRNet",
-           "PointConvDensityClsSsg", "PointNet", "PointNetLK", "PointNetMask", "Pooling", "RPMNet", "Segmentation",
-           "create_pointconv", "iPCRNet"]
+__all__ = ["Classifier", "CurveNet", "DCP", "DGCNN", "DeepGMR", "FlowNet3D", "MLPHead", "MaskNet", "MaskNet2", "PCN",
+           "PPFNet", "PRNet", "PointConvDensityClsSsg", "PointNet", "PointNetLK", "PointNetMask", "Pooling", "RPMNet",
+           "Segmentation", "create_pointconv", "iPCRNet"]

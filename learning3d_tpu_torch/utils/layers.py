@@ -378,6 +378,9 @@ class MLP1d(nn.Module):
         return x
 
 
+MLP2d = MLP1d  # the JAX package's name for the same stack (channel-last either way)
+
+
 class Pooling(nn.Module):
     """Max or mean pool over the point axis: (B, N, C) -> (B, C)."""
 

@@ -13,6 +13,9 @@ synthetic pairs at the trained width (emb 1024) and N <= 256.
 - ``r5b_dgcnn_hard``: Classifier(DGCNN(1024))'s logits at N=256.
 - ``r3c_deepgmr``: DeepGMR(use_rri=True, nearest_neighbors=20)'s est_T
   (and the rest of its outputs) on jittered DeepGMR pairs at N=256.
+- ``r4b_pointnet_cls`` and ``r5b_pointnet_hard``: the same classifier's f32
+  logits on clouds of the set each was trained on; ``r5c_pointnet_hard``
+  (its manifest eval UNVERIFIED) for weight parity only.
 - ``r4_pointnet_cls``: Classifier(PointNet(1024))'s logits in f32 and
   int8 (the port's ``quantize_pointnet_classifier`` against JAX's); the
   port checkpoint committed under ``learning3d_tpu_torch/trained`` equal to
@@ -303,6 +306,48 @@ def test_trained_pointnet_classifier_matches_jax(tmp_path):
         for fwd in (qm, tquant.make_fused_quant_forward(qm)):  # the plain chain and K2's plain version
             assert_tie_flip_profile(fwd(torch.from_numpy(x)).numpy(), want_q)
     assert release_files("r4_pointnet_cls") == before
+
+
+# The other PointNet classifier releases, Classifier(PointNet(1024)) as the
+# scripts build it, each on 4 test clouds of 256 points of the set it was
+# trained on (its manifest's dataset_version): the f32 logits to CLS_TOL of
+# max (measured 3.5e-7 and 3.0e-7), the argmax equal
+PN_RELEASES = {
+    "r4b_pointnet_cls": dict(param_jitter=0.08),  # synthetic-v2+jitter0.08+size6144
+    "r5b_pointnet_hard": dict(param_jitter=0.08, hard=True, detail_amp=0.04, noise=0.025),  # h2+amp0.04+noise0.025
+}
+
+
+@pytest.mark.parametrize("name", sorted(PN_RELEASES))
+def test_trained_pointnet_classifiers_match_jax(tmp_path, name):
+    before = release_files(name)
+    jm = restore(tmp_path, name, "classification", jax_script_model("pointnet"))
+    jm.eval()
+    data = jdata.SyntheticModelNet40(train=False, num_points=N, size=B, **PN_RELEASES[name])
+    x = np.stack([data[i][0] for i in range(B)]).astype(np.float32)
+    want = np.asarray(nnx.jit(lambda m, a: m(a))(jm, jnp.asarray(x)))
+    tm = load_nnx_state(build_model("pointnet", CLS_ARGS, None, "cpu"), nnx_flat(jm)).eval()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
+    assert rel(got, want) <= CLS_TOL, rel(got, want)
+    np.testing.assert_array_equal(got.argmax(-1).numpy(), want.argmax(-1))
+    assert release_files(name) == before
+
+
+def test_unverified_release_carries_its_weights(tmp_path):
+    """r5c_pointnet_hard, whose manifest eval is UNVERIFIED (no eval line to
+    reproduce), is held for weight parity only: the port model built from
+    the release holds every tensor of it, and its state dict is the
+    release's."""
+    before = release_files("r5c_pointnet_hard")
+    jm = restore(tmp_path, "r5c_pointnet_hard", "classification", jax_script_model("pointnet"))
+    assert json.loads((RELEASES / "manifest.json").read_text())["r5c_pointnet_hard"]["eval"] == "UNVERIFIED"
+    want = nnx_to_torch(nnx_flat(jm))
+    state = load_nnx_state(build_model("pointnet", CLS_ARGS, None, "cpu"), nnx_flat(jm)).state_dict()
+    assert set(state) == set(want)
+    for key, value in state.items():
+        np.testing.assert_array_equal(value.numpy(), want[key], err_msg=key)
+    assert release_files("r5c_pointnet_hard") == before
 
 
 def test_committed_port_checkpoint_is_the_release(tmp_path):

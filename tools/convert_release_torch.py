@@ -4,6 +4,9 @@ checkpoint of the PyTorch port, on a host that has JAX:
 
     python tools/convert_release_torch.py --name r4_pointnet_cls --model pointnet \\
         --task classification --predictions
+    python tools/convert_release_torch.py --name r4b_rpmnet --model rpmnet --task rpmnet --predictions
+    python tools/convert_release_torch.py --name r4_flownet --model flownet --task flow \\
+        --dataset_size 256 --predictions
 
 restores ``<releases>/<name>/best`` through the JAX ``Trainer.load`` (from a
 temporary directory whose ``best`` links to the release, so nothing is
@@ -15,17 +18,32 @@ written beside the release), copies its weights into the port's model
 - ``<out>/<name>/best/meta.json``: the release's ``epoch``, ``best_loss`` and
   ``dataset_version``.
 
-``--predictions`` (classifiers) also writes
-``<out>/<name>/best/reference_predictions.npz``: the JAX package's results on
-the release's eval set (SyntheticModelNet40(train=False) of
-``--dataset_size`` clouds of ``--num_points``, in order), computed here on
-the CPU: ``labels``, the f32 argmax ``pred`` and its top-1 minus top-2 logit
-``margin``, and ``pred_int8``, the argmax of JAX's
-``quantize_pointnet_classifier`` calibrated as ``examples/evaluate.py``
-calibrates (the first batch's first min(batch_size, 64) clouds). It then
-runs the port's plain (CPU) path on the same clouds and prints one JSON line
-of the gaps: the largest f32 logit difference, the f32 argmaxes that differ
-and JAX's margins there, and the share of int8 argmaxes that agree.
+``--predictions`` also writes ``<out>/<name>/best/reference_predictions.npz``,
+the JAX package's results computed here on the CPU, and then runs the
+port's plain (CPU) path on the same inputs and prints one JSON line of the
+gaps. By task:
+
+- ``classification``: the release's eval set (SyntheticModelNet40(train=False)
+  of ``--dataset_size`` clouds of ``--num_points``, in order): ``labels``,
+  the f32 argmax ``pred`` and its top-1 minus top-2 logit ``margin``, and
+  ``pred_int8``, the argmax of JAX's ``quantize_pointnet_classifier``
+  calibrated as ``examples/evaluate.py`` calibrates (the first batch's first
+  min(batch_size, 64) clouds). Gaps: the largest f32 logit difference, the
+  f32 argmaxes that differ and JAX's margins there, the share of int8
+  argmaxes that agree.
+- ``rpmnet``: the first PAIRS (16) pairs of the eval set as
+  ``examples/evaluate.py`` builds it (RegistrationData("RPMNet") over
+  SyntheticModelNet40(train=False, use_normals=True), in order): JAX's
+  ``est_T`` and ``transformed_source``, the pairs' ``igt``, and the per-pair
+  ``rot_deg`` and ``trans`` of ``learning3d_tpu.train.metrics``.
+- ``flow``: the first PAIRS pairs of SyntheticSceneflow(npoints=
+  ``--num_points``, size=``--dataset_size``), in order: JAX's ``flow``, the
+  ground truth ``flow_gt``, and the per-pair ``epe``, ``acc3d_strict`` and
+  ``acc3d_relax`` of the flow task's formulas (``learning3d_tpu/train/tasks.py``).
+
+No clouds are stored: both packages rebuild them from the same numpy seeds.
+Gaps (registration and flow): the largest difference of each output over
+its largest value, and of the per-pair metrics.
 """
 
 from __future__ import annotations
@@ -40,6 +58,9 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
+# registration and flow: the pairs stored, the eval set's first batch of 16
+# (chip_smoke.py's TRAINED_PAIRS)
+PAIRS = 16
 sys.path.insert(0, str(ROOT))
 
 
@@ -122,6 +143,85 @@ def port_gaps(model, batches, batch_size, want_logits, want_q):
             "int8_agree": float((pred_q == want_q).mean()), "int8_differ": int((pred_q != want_q).sum())}
 
 
+def first_pairs(args):
+    """The first PAIRS items of the release's eval set, stacked, in
+    batch order (the evaluate script's ``batch_iterator(shuffle=False)``)."""
+    from learning3d_tpu.data import RegistrationData, SyntheticModelNet40, SyntheticSceneflow
+
+    if args.task == "rpmnet":
+        data = RegistrationData("RPMNet", SyntheticModelNet40(train=False, num_points=args.num_points,
+                                                              size=args.dataset_size, use_normals=True))
+    else:
+        data = SyntheticSceneflow(npoints=args.num_points, size=args.dataset_size)
+    items = [data[i] for i in range(PAIRS)]
+    return tuple(np.stack([it[j] for it in items]) for j in range(len(items[0])))
+
+
+def flow_metrics(pred, flow):
+    """Per-pair EPE and Acc3D (strict 0.05, relaxed 0.10, absolute or
+    relative), the flow task's formulas."""
+    err = np.linalg.norm(pred - flow, axis=-1)
+    mag = np.linalg.norm(flow, axis=-1)
+    rel = err / (mag + 1e-12)
+    return {"epe": err.mean(-1), "acc3d_strict": ((err < 0.05) | (rel < 0.05)).mean(-1),
+            "acc3d_relax": ((err < 0.10) | (rel < 0.10)).mean(-1)}
+
+
+def jax_pair_predictions(jmodel, task, inputs) -> dict:
+    """JAX's CPU results on the pairs, with their per-pair metrics."""
+    import jax
+    import jax.numpy as jnp
+    from flax import nnx
+
+    from learning3d_tpu.train.metrics import registration_errors
+
+    jmodel.eval()
+    if task == "rpmnet":
+        template, source, igt = inputs
+        out = nnx.jit(lambda m, a, b: m(a, b))(jmodel, jnp.asarray(template), jnp.asarray(source))
+        err = jax.tree.map(np.asarray, registration_errors(out["est_T"], jnp.asarray(igt)))
+        return {"est_T": np.asarray(out["est_T"], np.float32),
+                "transformed_source": np.asarray(out["transformed_source"], np.float32),
+                "igt": igt.astype(np.float32), "rot_deg": err["rot_deg"].astype(np.float32),
+                "trans": err["trans"].astype(np.float32)}
+    pos1, pos2, color1, color2, flow, _ = inputs
+    pred = np.asarray(nnx.jit(lambda m, *a: m(*a))(jmodel, *(jnp.asarray(a) for a in (pos1, pos2, color1, color2))),
+                      np.float32)
+    return {"flow": pred, "flow_gt": flow.astype(np.float32),
+            **{k: v.astype(np.float32) for k, v in flow_metrics(pred, flow).items()}}
+
+
+def port_pair_gaps(model, task, inputs, want) -> dict:
+    """The port's plain path on the same pairs against JAX's results."""
+    import torch
+
+    from learning3d_tpu_torch.train.metrics import registration_errors
+
+    model.eval()
+
+    def rel(got, key):
+        return float(np.abs(got - want[key]).max() / np.abs(want[key]).max())
+
+    with torch.inference_mode():
+        if task == "rpmnet":
+            out = model(*(torch.from_numpy(a) for a in inputs[:2]))
+            err = registration_errors(out["est_T"], torch.from_numpy(inputs[2]))
+            got = {"est_T": out["est_T"].numpy(), "transformed_source": out["transformed_source"].numpy(),
+                   "rot_deg": err["rot_deg"].numpy(), "trans": err["trans"].numpy()}
+        else:
+            pred = model(*(torch.from_numpy(a) for a in inputs[:4])).numpy()
+            got = {"flow": pred, **flow_metrics(pred, inputs[4])}
+    gaps = {f"{k}_max_rel_diff": rel(v, k) for k, v in got.items() if k in ("est_T", "transformed_source", "flow")}
+    gaps.update({f"{k}_max_abs_diff": float(np.abs(v - want[k]).max()) for k, v in got.items()
+                 if k not in ("est_T", "transformed_source", "flow")})
+    if task == "rpmnet":
+        per_pair = np.abs(got["est_T"] - want["est_T"]).reshape(len(got["est_T"]), -1).max(-1)
+    else:
+        per_pair = np.abs(got["flow"] - want["flow"]).reshape(len(got["flow"]), -1).max(-1)
+    gaps["per_pair_max_abs_diff"] = per_pair.tolist()
+    return {"pairs": len(per_pair), **gaps}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--name", required=True, help="release directory name, e.g. r4_pointnet_cls")
@@ -135,7 +235,7 @@ def main(argv=None):
     p.add_argument("--dataset_size", type=int, default=2048)
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--predictions", action="store_true",
-                   help="also write the JAX package's predictions on the eval set (classifiers)")
+                   help="also write the JAX package's results on the eval set (classification, rpmnet, flow)")
     args = p.parse_args(argv)
 
     import torch
@@ -154,7 +254,17 @@ def main(argv=None):
     (best / "meta.json").write_text(json.dumps({k: meta[k] for k in ("epoch", "best_loss", "dataset_version")
                                                 if k in meta}))
     print(f"wrote {best}/model.pt ({(best / 'model.pt').stat().st_size} bytes) and meta.json", flush=True)
-    if args.predictions:
+    if args.predictions and args.task in ("rpmnet", "flow"):
+        inputs = first_pairs(args)
+        want = jax_pair_predictions(jmodel, args.task, inputs)
+        np.savez_compressed(best / "reference_predictions.npz", **want)
+        metrics = [k for k in want if want[k].ndim == 1]
+        print(json.dumps({"npz_bytes": (best / "reference_predictions.npz").stat().st_size,
+                          "jax_cpu": {k: float(want[k].mean()) for k in metrics},
+                          "port_cpu": port_pair_gaps(model, args.task, inputs, want)}), flush=True)
+    elif args.predictions:
+        if args.task != "classification":
+            raise SystemExit(f"--predictions takes the tasks classification, rpmnet and flow, not {args.task!r}")
         batches = eval_clouds(args)
         logits, pred_q, labels = jax_predictions(jmodel, batches, args.batch_size)
         np.savez_compressed(best / "reference_predictions.npz", labels=labels.astype(np.int8),

@@ -8,7 +8,8 @@ the whole script.
 Phases: kernel_k13, kernel_cls, serve_pointconv, train_pointconv,
 serve_curvenet, train_curvenet, serve_dgcnn_cls, train_dgcnn_cls,
 serve_deepgmr, train_deepgmr, serve_masknet2, train_masknet2, cli_train,
-cli_trained_cls. They run in
+cli_trained_cls, train_trained_cls (phase 16's step checks on the trained
+classifier alone), trained_rpmnet, trained_flownet. They run in
 chip_smoke.py's order whatever the order given, on a generator seeded as
 chip_smoke.py seeds theirs; a phase left out draws nothing, so the weights
 of the later ones can differ from chip_smoke.py's. Each prints its JSON
@@ -29,7 +30,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 ORDER = ("kernel_k13", "kernel_cls", "serve_pointconv", "train_pointconv", "serve_curvenet", "train_curvenet",
          "serve_dgcnn_cls", "train_dgcnn_cls", "serve_deepgmr", "train_deepgmr", "serve_masknet2", "train_masknet2",
-         "cli_train", "cli_trained_cls")
+         "cli_train", "cli_trained_cls", "train_trained_cls", "trained_rpmnet", "trained_flownet")
 
 
 def main(argv) -> None:
@@ -64,6 +65,9 @@ def main(argv) -> None:
         "train_masknet2": lambda: cs.phase_train_masknet2(m2_rng),
         "cli_train": cs.phase_cli_train,
         "cli_trained_cls": cs.phase_cli_trained_cls,
+        "train_trained_cls": cs.phase_train_trained_cls,
+        "trained_rpmnet": cs.phase_trained_rpmnet,
+        "trained_flownet": cs.phase_trained_flownet,
     }
     failed = []
     for name in ORDER:

@@ -10,8 +10,8 @@ case: Classifier(PointNet(1024, use_bn=True)) in bf16, weights drawn from a
 ``tasks.classification`` in train mode on a (32, 512) batch made by numpy
 (seed 11), three times: on K3/K4, on their plain versions
 (``poolgrad.pool_stats_reference``/``pool_bwd_reference``), and on a plain
-version whose sums are exact (``pool_stats_f64``: z, G and the column sum in
-f64, rounded to f32 once). It prints one JSON line a seed:
+version whose sums are exact (chip_smoke.py's ``pool_stats_f64``: z, G and
+the column sum in f64, rounded to f32 once). It prints one JSON line a seed:
 
 * ``kernels``, ``f64``, ``control``: the worst per-tensor relative
   gradient error (the zero-gradient biases apart, as the test holds them)
@@ -44,20 +44,6 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 ZERO_GRADIENT = {f"feature_model.convs.{i}.bias" for i in range(5)} | {
     "feature_model.bns.4.bias", "linear1.bias", "linear2.bias"}
-
-
-def pool_stats_f64(x, W, c):
-    """K3's function with exact sums: z, G and the column sum in f64, each
-    rounded to f32 once; argmax/argmin the first of equal f32 values."""
-    f64 = torch.float64
-    B, N, K = x.shape
-    z = (torch.matmul(x.to(f64), W.to(f64)) + c.to(f64)).float()
-    mx, mn = z.amax(1), z.amin(1)
-    row = torch.arange(N, device=x.device).view(1, N, 1)
-    amax = torch.where(z == mx[:, None, :], row, N).amin(1).to(torch.int32)
-    amin = torch.where(z == mn[:, None, :], row, N).amin(1).to(torch.int32)
-    flat = x.to(f64).reshape(B * N, K)
-    return mx, mn, amax, amin, (flat.t() @ flat).float(), flat.sum(0).float()
 
 
 def k3_misplaced(x, W, c):
@@ -114,6 +100,7 @@ def main() -> None:
     parser.add_argument("--seeds", type=int, default=12)
     args = parser.parse_args()
     sys.path.insert(0, str(ROOT))
+    from chip_smoke import pool_stats_f64
     from learning3d_tpu_torch.kernels import poolgrad
 
     if not torch.cuda.is_available():
